@@ -1,0 +1,601 @@
+"""
+Device-resident packed extraction (port of the packed path of
+``nimrud_tpu/ops/device_grid.py``).
+
+One query plan packs queries into entries of ``q_cap`` consecutive
+tile-sorted ranks within coarse-row segments; each band derives every
+entry's candidate x-row spans from its own fine grid, packs them into
+one ``c_cap``-lane candidate block per entry (split into capacity
+buckets), and runs the ``packed_moments`` kernel.  The TPU-only layout
+detours (lanes-major search tables, VMEM entry batching, gather
+chunking) are not ported: the port keeps one layout per table.
+
+Every gather clamps its indices where the reference relied on XLA's
+implicit clamping (CUDA index kernels assert instead).
+
+Host sizing (``DeviceGridSpec``, ``make_spec``, ``estimate_entries``,
+``with_entry_estimate``) is the reference's NumPy, copied; the native
+C++ tile sort is not used (NumPy branch only).
+"""
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from nimrud_tpu_torch.ops.packing import scalar
+from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+from nimrud_tpu_torch.ops.kernels.multiscale_kernel import moments_from_slabs
+
+_BIG = 2**31 - 1
+
+
+def _pow2(n, minimum=8):
+    """Copy of ``nimrud_tpu/ops/grid.py:_pow2``."""
+    out = minimum
+    while out < n:
+        out *= 2
+    return out
+
+
+@dataclass(frozen=True)
+class DeviceGridSpec:
+    """Static description of one fused extraction problem."""
+    lo: tuple                 # fine-grid origin (float)
+    dims: tuple               # fine-grid dimensions (int, bucketed)
+    tile_edge: float
+    m: int                    # query tiles are m fine tiles across
+    q_cap: int                # queries per entry
+    s_cap: int                # max search points per fine tile
+    e_cap: int                # entry capacity (multiple of entry_batch)
+    entry_batch: int
+    x_seg: int = 1            # coarse tiles per entry-packing segment
+
+    @property
+    def qdims(self):
+        return tuple(-(-d // self.m) for d in self.dims)
+
+    @property
+    def seg_shape(self):
+        """(segments per coarse row, total segments)."""
+        qd = self.qdims
+        x_seg = max(min(self.x_seg, qd[0]), 1)
+        nseg_x = -(-qd[0] // x_seg)
+        return nseg_x, nseg_x * qd[1] * qd[2]
+
+    @property
+    def n_grid(self):
+        d = self.dims
+        return d[0] * d[1] * d[2]
+
+    @property
+    def n_qgrid(self):
+        d = self.qdims
+        return d[0] * d[1] * d[2]
+
+
+def make_spec(bounds_lo, bounds_hi, tile_edge, *, n_query, m=3, q_cap=128,
+              s_cap=None, voxel_edge=None, entry_batch=256,
+              dims_round=16, x_seg=1):
+    """Static spec from dataset bounds (copy of the reference's host
+    code).  ``s_cap`` derives exactly from ``voxel_edge`` for
+    voxel-downsampled search sets."""
+    lo = np.asarray(bounds_lo, np.float64) - 1e-3
+    hi = np.asarray(bounds_hi, np.float64) + 1e-3
+    dims = np.maximum(np.ceil((hi - lo) / tile_edge).astype(np.int64), 1)
+    dims = ((dims + dims_round - 1) // dims_round) * dims_round
+
+    if s_cap is None:
+        if voxel_edge is None:
+            raise ValueError("need s_cap or voxel_edge")
+        per_axis = int(np.ceil(tile_edge / voxel_edge)) + 1
+        s_cap = _pow2(per_axis ** 3)
+    qdims = -(-dims // m)
+    x_seg = max(min(int(x_seg), int(qdims[0])), 1)
+    nseg_x = int(-(-qdims[0] // x_seg))
+    n_seg = nseg_x * int(qdims[1]) * int(qdims[2])
+    raw_entries = n_seg + n_query // q_cap + 1
+    e_cap = ((raw_entries + entry_batch - 1) // entry_batch) * entry_batch
+    return DeviceGridSpec(
+        lo=tuple(float(v) for v in lo),
+        dims=tuple(int(d) for d in dims),
+        tile_edge=float(tile_edge),
+        m=int(m), q_cap=int(q_cap), s_cap=int(_pow2(s_cap)),
+        e_cap=int(e_cap), entry_batch=int(entry_batch), x_seg=x_seg)
+
+
+def estimate_entries(query, spec):
+    """Host-exact entry demand: the sum of ceil(population / q_cap) over
+    occupied coarse-row segments (the reference's NumPy branch)."""
+    query = np.asarray(query, np.float32)
+    lo = np.asarray(spec.lo, np.float64)
+    dims = np.asarray(spec.dims, np.int64)
+    cell = np.clip(
+        np.floor((query.astype(np.float64) - lo) / spec.tile_edge
+                 ).astype(np.int64), 0, dims - 1) // spec.m
+    qd = np.asarray(spec.qdims, np.int64)
+    ids = cell[:, 0] + cell[:, 1] * qd[0] + cell[:, 2] * qd[0] * qd[1]
+    counts = np.bincount(ids, minlength=int(qd.prod()))
+    qd = spec.qdims
+    x_seg = max(min(spec.x_seg, qd[0]), 1)
+    if x_seg > 1:
+        nseg_x, _ = spec.seg_shape
+        counts = np.asarray(counts).reshape(qd[2] * qd[1], qd[0])
+        pad = nseg_x * x_seg - qd[0]
+        if pad:
+            counts = np.pad(counts, ((0, 0), (0, pad)))
+        counts = counts.reshape(-1, nseg_x, x_seg).sum(axis=2)
+    return int(np.sum(-(-counts // spec.q_cap)))
+
+
+def with_entry_estimate(spec, query):
+    """Spec with ``e_cap`` sized from measured occupancy plus headroom
+    (an eighth extra and at least two entry batches)."""
+    need = estimate_entries(query, spec)
+    need += max(need // 8, 2 * spec.entry_batch)
+    e_cap = ((need + spec.entry_batch - 1)
+             // spec.entry_batch) * spec.entry_batch
+    if e_cap >= spec.e_cap:
+        return spec
+    return dataclasses.replace(spec, e_cap=e_cap)
+
+
+# -- plan ---------------------------------------------------------------------
+
+def _encode(points, spec, coarse):
+    """Linear tile ids (int64), clipped into the grid."""
+    lo = torch.tensor(spec.lo, dtype=points.dtype, device=points.device)
+    cell = torch.floor((points - lo) / scalar(spec.tile_edge, points))
+    cell = cell.to(torch.int64)
+    dims = torch.tensor(spec.dims, dtype=torch.int64, device=points.device)
+    cell = torch.minimum(torch.clamp(cell, min=0), dims - 1)
+    if coarse:
+        cell = cell // spec.m
+        d = spec.qdims
+    else:
+        d = spec.dims
+    return cell[:, 0] + cell[:, 1] * d[0] + cell[:, 2] * (d[0] * d[1])
+
+
+def _gather_q_t(q_sorted, q_gather):
+    """Tile-sorted (n, 3) queries -> (E, 3, q_cap) kernel query blocks."""
+    return q_sorted[q_gather].permute(0, 2, 1).contiguous()
+
+
+def _pack_plan(query, q_valid, spec):
+    """Query-side entry packing on ``spec``'s coarse segment grid: one
+    stable tile-id sort of the queries, rank-block entries within
+    coarse-row segments, per-entry coarse-x ranges and entry centers.
+    The multi-band path runs it once and shares it across bands."""
+    dev = query.device
+    n_qgrid = spec.n_qgrid
+    n_query = query.shape[0]
+    qd = spec.qdims
+    x_seg = max(min(spec.x_seg, qd[0]), 1)
+    nseg_x, n_seg = spec.seg_shape
+    q_cap = spec.q_cap
+
+    # tile ids linearize x fastest: one sort groups queries by segment
+    # and leaves each segment x-sorted
+    q_iota = torch.arange(n_query, dtype=torch.int64, device=dev)
+    q_ids = torch.where(q_valid, _encode(query, spec, coarse=True), n_qgrid)
+    sorted_qids, q_order = torch.sort(q_ids, stable=True)
+    q_sorted = query[q_order]
+
+    valid_r = sorted_qids < n_qgrid
+    sid_r = torch.where(valid_r,
+                        (sorted_qids // qd[0]) * nseg_x
+                        + (sorted_qids % qd[0]) // x_seg,
+                        n_seg)
+    change = sid_r[1:] != sid_r[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    head = valid_r & torch.cat([one, change])
+    endf = valid_r & torch.cat([change, one])
+    hrank = torch.cummax(torch.where(head, q_iota, -1), 0).values
+    blocks = torch.where(endf, (q_iota - hrank) // q_cap + 1, 0)
+    b_incl = torch.cumsum(blocks, 0)
+    # entry id per rank: blocks of earlier segments plus the rank's
+    # block within its own segment
+    e_r = (b_incl - blocks) + (q_iota - hrank) // q_cap
+    ehead = valid_r & (head | ((q_iota - hrank) % q_cap == 0))
+    erank = torch.flip(torch.cummin(torch.flip(
+        torch.where(endf, q_iota, _BIG), [0]), 0).values, [0])
+    start = torch.sort(torch.where(ehead, e_r, _BIG), stable=True).indices
+    sid_e = sid_r[start]
+    seg_end = erank[start]
+    if n_query < spec.e_cap:        # fewer ranks than entry slots
+        pad = spec.e_cap - n_query
+        start = torch.cat([start, start.new_zeros(pad)])
+        sid_e = torch.cat([sid_e, sid_e.new_zeros(pad)])
+        seg_end = torch.cat([seg_end, seg_end.new_full((pad,), -1)])
+    else:
+        start, sid_e, seg_end = (start[:spec.e_cap], sid_e[:spec.e_cap],
+                                 seg_end[:spec.e_cap])
+    n_live = b_incl[-1]
+    entry = torch.arange(spec.e_cap, dtype=torch.int64, device=dev)
+    live = entry < n_live
+    seg = torch.clamp(sid_e, 0, n_seg - 1)
+    count = torch.where(live, torch.clamp(seg_end - start + 1, 0, q_cap), 0)
+    start = torch.where(live, start, 0)
+
+    qcol = torch.arange(q_cap, dtype=torch.int64, device=dev)
+    q_gather = torch.clamp(start[:, None] + qcol[None, :], 0, n_query - 1)
+    q_t = _gather_q_t(q_sorted, q_gather)             # (E, 3, q_cap)
+
+    # the entry's coarse-x range: tile ids of its first and last query
+    first_tid = torch.clamp(
+        sorted_qids[torch.clamp(start, 0, n_query - 1)], 0, n_qgrid - 1)
+    last_tid = torch.clamp(
+        sorted_qids[torch.clamp(start + count - 1, 0, n_query - 1)],
+        0, n_qgrid - 1)
+    tx_lo = first_tid % qd[0]
+    tx_hi = last_tid % qd[0]
+    rid = seg // nseg_x
+    ty = rid % qd[1]
+    tz = rid // qd[1]
+    lo = torch.tensor(spec.lo, dtype=torch.float32, device=dev)
+    coarse = spec.m * spec.tile_edge
+
+    # entry center: midpoint of the coarse-x range; one center shared by
+    # every band keeps cross-band arithmetic aligned
+    half = scalar(0.5 * coarse, lo)
+    centers = torch.stack([
+        lo[0] + (tx_lo + tx_hi + 1).to(torch.float32) * half,
+        lo[1] + (ty.to(torch.float32) + 0.5) * scalar(coarse, lo),
+        lo[2] + (tz.to(torch.float32) + 0.5) * scalar(coarse, lo),
+    ], dim=1)
+
+    return {
+        "q_t": q_t, "centers": centers, "count": count,
+        "start": start, "entry": entry,
+        "tx_lo": tx_lo, "tx_hi": tx_hi, "ty": ty, "tz": tz,
+        "coarse_edge": float(spec.m) * float(spec.tile_edge),
+        "x_seg_pack": x_seg,
+        "sorted_qids": sorted_qids, "q_order": q_order, "q_iota": q_iota,
+    }
+
+
+def _search_tables(search, s_valid, spec, presorted=False):
+    """Query-independent search tables of one band: tile-sorted rows
+    plus a per-tile (start, count) table with one trailing empty row.
+
+    ``presorted``: the rows already arrive sorted by this spec's fine
+    tile id with invalid rows last (``unique.unique_voxels`` with
+    ``tile_spec``), so the sort is skipped."""
+    n_grid = spec.n_grid
+    s_ids = torch.where(s_valid, _encode(search, spec, coarse=False),
+                        n_grid)
+    if presorted:
+        sorted_pts = search
+    else:
+        sorted_pts = search[torch.sort(s_ids, stable=True).indices]
+    s_counts = torch.bincount(s_ids, minlength=n_grid + 1)
+    s_starts = torch.cumsum(s_counts, 0) - s_counts
+    s_starts[n_grid] = 0
+    s_counts[n_grid] = 0
+    return {"sorted_pts": sorted_pts,
+            "sc_ext": torch.stack([s_starts, s_counts], dim=-1)}
+
+
+def _shared_span_rows(plan, spec):
+    """Per-span live-point cap of a band under a shared pack plan: the
+    entry's coarse-x extent in band fine tiles plus the slop tiles,
+    times the band's per-tile cap (5 slop tiles on the eps-widened
+    float branch of :func:`_band_spans`, 2 on the integer one)."""
+    ratio = plan["coarse_edge"] / float(spec.tile_edge)
+    x_seg = plan["x_seg_pack"]
+    slop = 2 if abs(ratio - round(ratio)) < 1e-9 else 5
+    return int(np.ceil(x_seg * ratio) + slop) * spec.s_cap
+
+
+def _band_spans(plan, search, s_valid, spec, presorted=False):
+    """Candidate x-row spans of one band's fine grid against a (possibly
+    coarser-grained) shared entry packing: per entry, one contiguous
+    span of the tile-sorted search rows for every (dy, dz) row of its
+    candidate box.  Returns ``span_starts`` / ``span_lens``
+    (E, n_rows^2) and ``sorted_pts``."""
+    n_grid = spec.n_grid
+    dims = spec.dims
+    count = plan["count"]
+    tx_lo, tx_hi = plan["tx_lo"], plan["tx_hi"]
+    ty, tz = plan["ty"], plan["tz"]
+    tables = _search_tables(search, s_valid, spec, presorted=presorted)
+
+    ratio = plan["coarse_edge"] / float(spec.tile_edge)
+    span_rows = _shared_span_rows(plan, spec)
+    if abs(ratio - round(ratio)) < 1e-9:
+        m = int(round(ratio))
+        x0 = tx_lo * m - 1
+        x1 = tx_hi * m + m
+        row_lo_y, row_hi_y = ty * m - 1, ty * m + m
+        row_lo_z, row_hi_z = tz * m - 1, tz * m + m
+        n_rows = m + 2
+    else:
+        # eps-widened float branch (the reference's derivation: eps
+        # covers the f32 product's rounding on every admissible grid)
+        dev = count.device
+        r32 = torch.tensor(np.float32(ratio), device=dev)
+        slack = torch.tensor(np.float32(1 + 0.05), device=dev)
+
+        def lo_of(t):
+            return torch.floor(t.to(torch.float32) * r32
+                               - slack).to(torch.int64)
+
+        def hi_of(t):
+            return (torch.ceil((t + 1).to(torch.float32) * r32 + slack)
+                    - 1).to(torch.int64)
+
+        x0, x1 = lo_of(tx_lo), hi_of(tx_hi)
+        row_lo_y, row_hi_y = lo_of(ty), hi_of(ty)
+        row_lo_z, row_hi_z = lo_of(tz), hi_of(tz)
+        n_rows = int(np.ceil(ratio)) + 3
+
+    x0 = torch.clamp(x0, min=0)
+    x1 = torch.clamp(x1, max=dims[0] - 1)
+
+    dyz = torch.arange(n_rows, dtype=torch.int64, device=count.device)
+    y = row_lo_y[:, None, None] + dyz[None, :, None]      # (E, dy, dz)
+    z = row_lo_z[:, None, None] + dyz[None, None, :]
+    ok = ((y >= 0) & (y < dims[1]) & (y <= row_hi_y[:, None, None])
+          & (z >= 0) & (z < dims[2]) & (z <= row_hi_z[:, None, None])
+          & (count > 0)[:, None, None])
+    row = y * dims[0] + z * (dims[0] * dims[1])
+    e_rows = row.shape[0]
+    first = torch.where(ok, x0[:, None, None] + row, n_grid)
+    last = torch.where(ok, x1[:, None, None] + row, n_grid)
+    sc_ext = tables["sc_ext"]
+    g_first = sc_ext[torch.clamp(first.reshape(e_rows, -1), 0, n_grid)]
+    g_last = sc_ext[torch.clamp(last.reshape(e_rows, -1), 0, n_grid)]
+    begin = g_first[..., 0]
+    end = g_last[..., 0] + g_last[..., 1]
+    ok2 = ok.reshape(e_rows, -1)
+    return {
+        "span_starts": torch.where(ok2, begin, 0),
+        "span_lens": torch.clamp(end - begin, 0, span_rows),
+        "sorted_pts": tables["sorted_pts"],
+        "span_rows": span_rows,
+    }
+
+
+def _span_problem(query, q_valid, search, s_valid, spec):
+    """Single-band plan: the entry packing on the band's own grid plus
+    its candidate spans."""
+    plan = _pack_plan(query, q_valid, spec)
+    band = _band_spans(plan, search, s_valid, spec)
+    q_pts = plan["q_t"].transpose(1, 2)               # (E, q_cap, 3)
+    return {**plan, **band, "q_pts": q_pts}
+
+
+# -- back to caller order -----------------------------------------------------
+
+def _rank_positions(prob, spec, n_query, sentinel):
+    """Sorted rank -> flat (entry, slot) position.  Entries are
+    consecutive rank blocks, so each rank's position is rank +
+    (entry*q_cap - entry_start), propagated down the ranks by a scatter
+    of the entry heads and a cummax.  Ranks without a live entry slot
+    map to ``sentinel``."""
+    count = prob["count"]
+    start = prob["start"]
+    base = prob["entry"] * spec.q_cap - start
+    lowest = -(2**31) + 1
+    live = count > 0
+    arr = torch.full((n_query,), lowest, dtype=torch.int64,
+                     device=count.device)
+    arr.scatter_reduce_(
+        0, torch.where(live, torch.clamp(start, 0, n_query - 1),
+                       n_query - 1),
+        torch.where(live, base, lowest), reduce="amax")
+    pos_r = prob["q_iota"] + torch.cummax(arr, 0).values
+    covered = count.sum()
+    return torch.where(prob["q_iota"] < covered, pos_r, sentinel)
+
+
+def _unsort_positions(prob, spec, n_query, sentinel):
+    """Caller order -> flat (entry, slot) position."""
+    pos_r = _rank_positions(prob, spec, n_query, sentinel)
+    out = torch.full((n_query,), sentinel, dtype=torch.int64,
+                     device=pos_r.device)
+    out[prob["q_order"]] = pos_r
+    return out
+
+
+def _unsort_features(feats, prob, spec, n_query, n_out):
+    """Feature rows back to caller order by one row gather; queries
+    without an entry slot read the trailing zero row."""
+    width = feats.shape[-1]
+    flat = torch.cat([feats.reshape(-1, width),
+                      feats.new_zeros((1, width))])
+    pos = _unsort_positions(prob, spec, n_query, flat.shape[0] - 1)
+    return flat[pos][:n_out]
+
+
+def _rank_compact(red, plan, spec, zero_row, n_query):
+    """Reduce outputs from (entry, slot) order to sorted-rank order with
+    one stable key sort: slot (e, s) owns rank start_e + s when
+    s < count_e, dead slots sort last.  Ranks past the covered prefix
+    (queries without an entry slot) get the reduce's zero-feature row.
+
+    ``red`` / ``zero_row``: tuples of (n_rows, ...) / (1, ...) tensors."""
+    start, count = plan["start"], plan["count"]
+    q_slots = spec.q_cap
+    scol = torch.arange(q_slots, dtype=torch.int64, device=start.device)
+    keys = torch.where(scol[None, :] < count[:, None],
+                       start[:, None] + scol[None, :], _BIG).reshape(-1)
+    order = torch.sort(keys, stable=True).indices[:n_query]
+    live = (torch.arange(order.shape[0], device=start.device)
+            < count.sum())
+    out = []
+    for leaf, z in zip(red, zero_row):
+        ranked = leaf[order]
+        mask = live.reshape((-1,) + (1,) * (leaf.dim() - 1))
+        ranked = torch.where(mask, ranked, z[0])
+        if ranked.shape[0] < n_query:       # trimmed e_cap below the
+            fill = z[0].expand((n_query - ranked.shape[0],) + z.shape[1:])
+            ranked = torch.cat([ranked, fill])   # query bucket
+        out.append(ranked)
+    return tuple(out)
+
+
+# -- candidates and moments ---------------------------------------------------
+
+def _pack_src(starts, lens, c_cap, n_search):
+    """Packed-candidate source map for a slice of entries: (E', c_cap)
+    gather indices into the FAR-extended sorted cloud, plus the
+    truncation counter.
+
+    Spans pack contiguously (offsets are the exclusive cumsum of the
+    lengths), so live slot j belongs to the LAST span with
+    offset <= j -- found by a batched binary search -- and maps to
+    j + (start - offset) of that span.  Dead slots index the FAR row
+    (``n_search``)."""
+    off = torch.cumsum(lens, 1) - lens
+    total = off[:, -1] + lens[:, -1]
+    delta = starts - off
+    j = torch.arange(c_cap, dtype=torch.int64, device=lens.device)
+    j = j.expand(lens.shape[0], c_cap).contiguous()
+    span = torch.searchsorted(off.contiguous(), j, right=True) - 1
+    src = j + torch.gather(delta, 1, torch.clamp(span, min=0))
+    src = torch.where(j < total[:, None], src, n_search)
+    dropped = torch.clamp(total - c_cap, min=0).sum()
+    return src, dropped
+
+
+def _far_extended(sorted_pts):
+    """Sorted cloud plus the FAR sentinel row dead slots gather."""
+    return torch.cat([sorted_pts,
+                      sorted_pts.new_full((1, sorted_pts.shape[1]), pm.FAR)])
+
+
+def _bucket_problems(q_t, centers, starts, lens, sorted3, c_cap):
+    """Kernel inputs per capacity bucket of one band (the candidate
+    gather of the reference's ``_packed_slabs``).
+
+    ``c_cap`` is one int, or a split ``(caps, bounds)`` from
+    ``span_host.candidate_caps_split``: entries are stably sorted by
+    descending candidate total and each rank bucket runs at its own
+    capacity.  Returns ``(buckets, inv)``: a list of ``(q_t, cand_t,
+    centers, dropped)`` and the permutation restoring entry order (None
+    for one bucket)."""
+    n_search = sorted3.shape[0] - 1
+    cand_src = sorted3.T.contiguous()                 # (3, n + 1)
+
+    def one(q, c, st, ln, cap):
+        src, dropped = _pack_src(st, ln, cap, n_search)
+        return (q.contiguous(), cand_src[:, src.reshape(-1)],
+                c.contiguous(), dropped)
+
+    if not isinstance(c_cap, tuple):
+        return [one(q_t, centers, starts, lens, int(c_cap))], None
+    caps, bounds = c_cap
+    order = torch.sort(-lens.sum(1), stable=True).indices
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    n_e = order.shape[0]
+    edges = (0,) + tuple(min(b, n_e) for b in bounds) + (n_e,)
+    buckets = []
+    for cap, a, b in zip(caps, edges[:-1], edges[1:]):
+        if a >= b:
+            continue
+        idx = order[a:b]
+        buckets.append(one(q_t[idx], centers[idx], starts[idx], lens[idx],
+                           int(cap)))
+    return buckets, inv
+
+
+def _bucketed_slabs(q_t, centers, starts, lens, sorted3, c_cap, radii):
+    """Moment slabs for a slice of entries at one capacity or at split
+    bucket capacities, in entry order.  Returns ``(slabs, dropped)``."""
+    buckets, inv = _bucket_problems(q_t, centers, starts, lens, sorted3,
+                                    c_cap)
+    slabs = [pm.packed_moments(q, cand_t, c, radii)
+             for q, cand_t, c, _ in buckets]
+    dropped = sum(b[3] for b in buckets)
+    if inv is None:
+        return slabs[0], dropped
+    return torch.cat(slabs)[inv], dropped
+
+
+def _band_blocks(kind, q_t, centers, starts, lens, sorted3, c_cap, radii):
+    """Feature blocks of one band for a slice of entries."""
+    from nimrud_tpu_torch.features import layouts
+
+    slabs, dropped = _bucketed_slabs(q_t, centers, starts, lens, sorted3,
+                                     c_cap, radii)
+    q_pts = q_t.transpose(1, 2)
+    blocks = [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
+                                  q_pts, radius)
+              for p, radius in zip(moments_from_slabs(slabs, centers, radii),
+                                   radii)]
+    return blocks, dropped
+
+
+def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
+                         kind, n_out, c_cap, with_stats=False):
+    """
+    Padded clouds -> (n_out, width) features of one band through the
+    packed-candidate ``packed_moments`` kernel, in caller order.
+
+    ``c_cap`` bounds candidates per entry: one int (multiple of 128) or
+    a split ``(caps, bounds)``.  Candidates beyond it are truncated and
+    counted in the ``dropped_candidates`` stat.
+    """
+    prob = _span_problem(query, q_valid, search, s_valid, spec)
+    blocks, dropped = _band_blocks(
+        kind, prob["q_t"], prob["centers"], prob["span_starts"],
+        prob["span_lens"], _far_extended(prob["sorted_pts"]), c_cap, radii)
+    feats = torch.cat(blocks, dim=-1)
+    out = _unsort_features(feats, prob, spec, query.shape[0], n_out)
+    if not with_stats:
+        return out
+    stats = {"dropped_query": q_valid.sum() - prob["count"].sum(),
+             "dropped_candidates": dropped}
+    return out, stats
+
+
+def fused_extract_packed_multi(query, q_valid, searches, s_valids,
+                               pack_spec, band_specs, radii_bands, kind,
+                               c_caps, reduce_fn, with_stats=False,
+                               presorted=False):
+    """
+    All bands of a scaleset over ONE shared query plan: ``_pack_plan``
+    runs once on ``pack_spec`` (the finest band's grid), every band
+    derives its spans against the shared entries, the kernel runs per
+    band and capacity bucket, and ``reduce_fn`` (feature rows -> tuple
+    of per-row tensors, e.g. the classifier) runs once on all bands'
+    concatenated features.
+
+    Returns ``(out_rank, q_order)``: the reduce outputs in sorted-rank
+    order (ranks without an entry slot get the reduce of a zero-feature
+    row) and the plan's sort permutation; ``out[q_order] = out_rank``
+    restores caller order.  This is the reference's ``order="rank"``
+    without entry chunking.
+
+    ``presorted=True`` is a trust contract: each band's search rows come
+    from ``unique.unique_voxels(..., tile_spec=band_specs[i])``.
+    """
+    from nimrud_tpu_torch.features import layouts
+
+    plan = _pack_plan(query, q_valid, pack_spec)
+    dropped = query.new_zeros((), dtype=torch.int64)
+    blocks = []
+    for search, s_valid, spec, radii, c_cap in zip(
+            searches, s_valids, band_specs, radii_bands, c_caps):
+        band = _band_spans(plan, search, s_valid, spec, presorted=presorted)
+        bl, dr = _band_blocks(kind, plan["q_t"], plan["centers"],
+                              band["span_starts"], band["span_lens"],
+                              _far_extended(band["sorted_pts"]), c_cap,
+                              radii)
+        blocks.extend(bl)
+        dropped = dropped + dr
+    feats = torch.cat(blocks, dim=-1)
+    red = reduce_fn(feats.reshape(-1, feats.shape[-1]))
+    width = layouts.LAYOUT_WIDTHS[kind] * sum(len(r) for r in radii_bands)
+    zero_row = reduce_fn(query.new_zeros((1, width)))
+    out = (_rank_compact(red, plan, pack_spec, zero_row, query.shape[0]),
+           plan["q_order"])
+    if not with_stats:
+        return out
+    stats = {"dropped_query": q_valid.sum() - plan["count"].sum(),
+             "dropped_candidates": dropped}
+    return out, stats

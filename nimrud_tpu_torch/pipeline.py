@@ -1,0 +1,390 @@
+"""
+The end-to-end model of the port: multiscale geometric features fused
+with per-point classification on one device (port of the packed serving
+path of ``nimrud_tpu/pipeline.py``).
+
+``GeometryClassifier.fit`` extracts features on the device and trains
+the linear classifier there; ``stage`` quantizes and uploads a cloud;
+``predict_staged`` runs the whole serving step -- per-band voxel dedup,
+one shared query plan, per-band packed candidate blocks through the
+``packed_moments`` kernel, the layout and the classifier in plan order,
+and one scatter back to caller order.  Only labels (and the overflow
+counters) leave the device.
+
+The port has one path: configurations it does not carry raise
+(``NotImplementedError``), they never fall back to another method.
+"""
+
+import warnings
+
+import numpy as np
+import torch
+
+from nimrud_tpu_torch.features import multiscale
+from nimrud_tpu_torch.learning.classifiers import param_classifier
+from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+from nimrud_tpu_torch.ops import device_grid, packing, span_host, unique
+
+_CHUNK_SLOTS = 2 * 1024 * 1024    # entry slots above which the reference
+                                  # serves in entry chunks (not ported;
+                                  # the 1M bench stays un-chunked)
+
+COUNTERS = ("vox_dropped", "dropped_query", "dropped_search",
+            "interp_dropped", "dropped_candidates")
+
+
+def _self_search(cloud, search):
+    """The port serves self-search only: ``search`` is None or ``cloud``."""
+    if search is not None and search is not cloud:
+        raise NotImplementedError(
+            "a separate search cloud (designated-search serving) is not "
+            "ported yet (ROADMAP.md Queue A #8)")
+
+
+def _quantize_upload(cloud, c_lo, c_hi, q_bucket, device):
+    """uint16-quantized upload: 65000 steps over the widest bound span
+    (1e-6 floor), rounded and clipped on the host.  Returns (device
+    int16 (q_bucket, 3) holding the uint16 bit patterns, device f32 (4,)
+    [lo_xyz, step]); the bits travel as int16 because CUDA kernels for
+    torch.uint16 are sparse, and the device widens them with a mask."""
+    lo = np.asarray(c_lo, np.float64)
+    span = float((np.asarray(c_hi, np.float64) - lo).max())
+    step = max(span, 1e-6) / 65000.0
+    padded = multiscale._pad_rows_f32(cloud, q_bucket)
+    quant = np.clip(np.round((padded.astype(np.float64) - lo) / step),
+                    0, 65535).astype(np.uint16)
+    return (torch.from_numpy(quant.view(np.int16)).to(device),
+            torch.from_numpy(np.append(lo, step).astype(np.float32))
+            .to(device))
+
+
+def _dequantize(quant, dequant):
+    """int16-carried uint16 grid steps -> float32 coordinates."""
+    steps = (quant.to(torch.int32) & 0xFFFF).to(torch.float32)
+    return steps * dequant[3] + dequant[:3]
+
+
+def classify_features(clf_params, features):
+    """Linear softmax probabilities of feature rows."""
+    standardized = (features - clf_params["mean"]) / clf_params["scale"]
+    return torch.softmax(standardized @ clf_params["w"] + clf_params["b"],
+                         dim=1)
+
+
+class _FusedReducer:
+    """Classifier reduce for
+    ``device_grid.fused_extract_packed_multi``: feature rows -> labels
+    (+ probabilities when asked for)."""
+
+    def __init__(self, clf_params, with_proba):
+        self.clf_params = clf_params
+        self.with_proba = bool(with_proba)
+
+    def __call__(self, features):
+        probs = classify_features(self.clf_params, features)
+        labels = torch.argmax(probs, dim=1).to(torch.int32)
+        return (labels, probs) if self.with_proba else (labels,)
+
+
+def _band_search_prep(search, s_valid, band):
+    """One band's search-side prep: tile-sorted voxel dedup, then the
+    ``v_cap`` prefix trim (voxels past it are counted)."""
+    vox_spec, dev_spec, _, _, v_cap, _ = band
+    centers, _, mask = unique.unique_voxels(
+        search, vox_spec, valid=s_valid, tile_spec=dev_spec)
+    vox_dropped = torch.zeros((), dtype=torch.int64, device=search.device)
+    if v_cap is not None and v_cap < centers.shape[0]:
+        vox_dropped = mask[v_cap:].sum()
+        centers, mask = centers[:v_cap], mask[:v_cap]
+    return centers, mask, vox_dropped
+
+
+def _fused_predict_step(query, q_valid, clf_params, band_specs, kind,
+                        n_query, dequant=None, with_proba=False):
+    """The whole serving step for one staged cloud, searched against
+    itself: labels (n_query,), probabilities or None, and the five
+    overflow counters."""
+    if dequant is not None:
+        query = _dequantize(query, dequant)
+    zero = torch.zeros((), dtype=torch.int64, device=query.device)
+    diag = dict.fromkeys(COUNTERS, zero)
+
+    pack_spec = min((b[1] for b in band_specs), key=lambda s: s.tile_edge)
+    searches, masks = [], []
+    for band in band_specs:
+        centers, mask, v_inc = _band_search_prep(query, q_valid, band)
+        diag["vox_dropped"] = diag["vox_dropped"] + v_inc
+        searches.append(centers)
+        masks.append(mask)
+    (out_rank, q_order), stats = device_grid.fused_extract_packed_multi(
+        query, q_valid, searches, masks, pack_spec,
+        tuple(b[1] for b in band_specs), tuple(b[2] for b in band_specs),
+        kind, tuple(b[5] for b in band_specs),
+        _FusedReducer(clf_params, with_proba), with_stats=True,
+        presorted=True)
+    diag["dropped_query"] = stats["dropped_query"]
+    diag["dropped_candidates"] = stats["dropped_candidates"]
+    # out_rank is in sorted-rank order; q_order maps rank -> caller row
+    caller = []
+    for leaf in out_rank:
+        full = torch.empty((q_order.shape[0],) + leaf.shape[1:],
+                           dtype=leaf.dtype, device=leaf.device)
+        full[q_order] = leaf
+        caller.append(full[:n_query])
+    probs = caller[1] if with_proba else None
+    return caller[0], probs, diag
+
+
+class GeometryClassifier:
+    """
+    Args:
+      scaleset:   sequence of (voxel_edge, radii) bands.
+      kind:       feature layout ("minimal" in this port).
+      classifier: "linear", or an already-constructed classifier.
+      classifier_kwargs: forwarded to ``param_classifier``.
+      transfer_dtype: "float32" or "uint16" (uploads quantized to half
+                  the bytes).
+      bounds:     fixed site (lo, hi): one grid for every cloud.
+      trim_entries: with ``bounds``, ``fit`` sizes and caches the
+                  serving specs from the fit cloud's occupancy.
+      backend:    "packed" ("auto" resolves to it).
+      device:     the torch device everything runs on.
+    """
+
+    def __init__(self, scaleset, kind="minimal", classifier="linear",
+                 classifier_kwargs=None, transfer_dtype="float32",
+                 bounds=None, trim_entries=False, backend="auto",
+                 tile_m=3, device="cuda"):
+        self.scaleset = [(float(e), tuple(float(r) for r in rs))
+                         for e, rs in scaleset]
+        if any(edge <= 0 for edge, _ in self.scaleset):
+            raise NotImplementedError(
+                "bands without voxel downsampling are not ported")
+        if kind != "minimal":
+            raise NotImplementedError(
+                f"kind={kind!r} is not ported yet (ROADMAP.md)")
+        if backend not in ("auto", "packed"):
+            raise NotImplementedError(
+                f"backend={backend!r}: the port serves the packed backend "
+                "only")
+        if transfer_dtype not in ("float32", "uint16"):
+            raise ValueError("transfer_dtype must be float32 or uint16")
+        self.kind = kind
+        self.transfer_dtype = transfer_dtype
+        self.bounds = None
+        if bounds is not None:
+            lo, hi = bounds
+            self.bounds = (np.asarray(lo, np.float32)[:3],
+                           np.asarray(hi, np.float32)[:3])
+        self.trim_entries = bool(trim_entries)
+        self.tile_m = int(tile_m)
+        if not 1 <= self.tile_m <= 8:
+            raise ValueError("tile_m must be in [1, 8]")
+        self.device = torch.device(device)
+        self._spec_cache = None
+        self._stage_spec_cache = {}
+        if isinstance(classifier, str):
+            self.classifier = param_classifier(
+                classifier, **(classifier_kwargs or {}))
+        else:
+            self.classifier = classifier
+
+    @property
+    def backend(self):
+        """The serving backend: "packed", the only one ported."""
+        return "packed"
+
+    # -- features -------------------------------------------------------------
+
+    def extract_device(self, cloud, search=None):
+        """Multiscale features for every point, as a tensor on
+        ``self.device``, on the serving grids when ``bounds`` is fixed."""
+        _self_search(cloud, search)
+        return multiscale.extract_scaleset_fused(
+            cloud, cloud, self.scaleset, self.kind, bounds=self.bounds,
+            m=self.tile_m, device=self.device)
+
+    # -- training -------------------------------------------------------------
+
+    def fit(self, cloud, labels, search=None, sample=None, seed=0):
+        """Extract features and fit the classifier on the device.
+        ``sample`` caps the training points (a seeded random subset)."""
+        _self_search(cloud, search)
+        labels = np.asarray(labels)
+        n_classes = int(labels.max() + 1)
+        self._spec_cache = None
+        self._stage_spec_cache = {}
+        features = self.extract_device(cloud)
+        if sample is not None and sample < len(labels):
+            rows = np.random.RandomState(seed).permutation(
+                len(labels))[:sample]
+            features = features[torch.as_tensor(rows, device=self.device)]
+            labels = labels[rows]
+        self.classifier.fit_device(
+            features, torch.as_tensor(labels.astype(np.int64),
+                                      device=self.device),
+            n_classes=n_classes)
+        self._size_serving(cloud)
+        return self
+
+    def install_classifier(self, classifier, fit_cloud):
+        """Serve ``classifier`` (e.g. ``SoftmaxClassifier.from_state`` of
+        a reference fit), with the serving specs sized from
+        ``fit_cloud`` exactly as :meth:`fit` sizes them."""
+        self.classifier = classifier
+        self._spec_cache = None
+        self._stage_spec_cache = {}
+        self._size_serving(fit_cloud)
+        return self
+
+    def _size_serving(self, cloud):
+        """With fixed bounds and ``trim_entries``: cache the serving
+        specs sized from this cloud's occupancy -- entry capacity per
+        band, and a voxel capacity for every band, also where
+        ``_fused_band_specs`` left it unbounded (1.25x + 4096 voxels,
+        rounded up to 16384)."""
+        if self.bounds is None or not self.trim_entries:
+            return
+        arr = np.asarray(cloud, dtype=np.float32)[:, :3]
+        trimmed = []
+        for (edge, _), (vox, dev, rr, interp, v_cap, c_cap) in zip(
+                self.scaleset, self._fused_band_specs(arr)):
+            if v_cap is None:
+                n_vox = len(multiscale._host_unique_voxels(
+                    arr, edge, bounds=self.bounds))
+                v_cap = n_vox + n_vox // 4 + 4096
+                v_cap = -(-v_cap // 16384) * 16384
+            trimmed.append((vox, device_grid.with_entry_estimate(dev, arr),
+                            rr, interp, v_cap, c_cap))
+        trimmed = tuple(trimmed)
+        self._spec_cache = (self._spec_key(arr.shape[0]), trimmed)
+
+    # -- serving ------------------------------------------------------------
+
+    def _fused_classifier(self):
+        """The classifier's device parameters for the serving step."""
+        clf = self.classifier
+        if not isinstance(clf, SoftmaxClassifier) or clf.params is None:
+            raise ValueError("serving needs a fitted linear classifier")
+        return {"w": clf.params.w.detach().to(self.device),
+                "b": clf.params.b.detach().to(self.device),
+                "mean": clf.mean_.to(self.device),
+                "scale": clf.scale_.to(self.device)}
+
+    def _spec_key(self, n_query):
+        """Cache key shared by ``_fused_band_specs`` and the fit sizing."""
+        return multiscale._pow2_bucket(n_query)
+
+    def _fused_band_specs(self, cloud, bounds=None):
+        """Static per-band specs ``(vox_spec, dev_spec, radii, None,
+        v_cap, c_cap)`` of the serving step, sized on the host: entry
+        capacity from the cloud's segment occupancy, per-band candidate
+        capacities (split into rank buckets) from the host mirror of the
+        shared plan, and per-band voxel capacities from the real voxel
+        count (1.25x + 4096).  Raises where the reference would serve in
+        entry chunks (not ported)."""
+        key = self._spec_key(cloud.shape[0])
+        if self._spec_cache is not None and self._spec_cache[0] == key:
+            return self._spec_cache[1]
+        if self.bounds is not None and key in self._stage_spec_cache:
+            return self._stage_spec_cache[key]
+        if bounds is None:
+            bounds = self.bounds if self.bounds is not None \
+                else (cloud.min(0), cloud.max(0))
+        lo = np.asarray(bounds[0], np.float64)
+        hi = np.asarray(bounds[1], np.float64)
+        q_bucket = multiscale._pow2_bucket(cloud.shape[0])
+        q3 = np.asarray(cloud, np.float32)[:, :3]
+        dev_specs = [device_grid.with_entry_estimate(device_grid.make_spec(
+            lo, hi, max(radii), n_query=q_bucket, voxel_edge=edge,
+            q_cap=512, m=self.tile_m, x_seg=32), q3)
+            for edge, radii in self.scaleset]
+        # one host mirror of the shared plan (the finest band's grid)
+        # sizes every band's candidate capacity
+        pack_spec = min(dev_specs, key=lambda s: s.tile_edge)
+        if pack_spec.e_cap * pack_spec.q_cap > _CHUNK_SLOTS:
+            raise NotImplementedError(
+                f"{pack_spec.e_cap} entries x q_cap {pack_spec.q_cap} "
+                f"exceed {_CHUNK_SLOTS} slots: serving in entry chunks is "
+                "not ported yet (ROADMAP.md Queue A #4)")
+        host_plan = span_host.pack_plan_np(
+            q3, np.ones(q3.shape[0], bool), pack_spec)
+        specs = []
+        for (edge, radii), dev_spec in zip(self.scaleset, dev_specs):
+            vox_spec = packing.GridSpec.fit_bounds(lo, hi, edge)
+            host_centers = multiscale._host_unique_voxels(
+                q3, edge, bounds=(lo, hi))
+            c_cap = span_host.candidate_caps_split(
+                None, host_centers, dev_spec, plan=host_plan)
+            n_vox = len(host_centers)
+            v_cap = n_vox + n_vox // 4 + 4096
+            v_cap = -(-v_cap // 16384) * 16384
+            if v_cap >= q_bucket:
+                v_cap = None
+            specs.append((vox_spec, dev_spec, radii, None, v_cap, c_cap))
+        specs = tuple(specs)
+        if self.bounds is not None:
+            if len(self._stage_spec_cache) > 8:
+                self._stage_spec_cache.clear()
+            self._stage_spec_cache[key] = specs
+        return specs
+
+    def stage(self, cloud, search=None):
+        """Host prep + upload of one cloud: quantize (uint16) or pad, and
+        copy to the device.  Returns the staged handle for
+        :meth:`predict_staged`."""
+        _self_search(cloud, search)
+        cloud = np.asarray(cloud, dtype=np.float32)[:, :3]
+        bounds = self.bounds if self.bounds is not None \
+            else (cloud.min(0), cloud.max(0))
+        specs = self._fused_band_specs(cloud, bounds=bounds)
+        n_query = cloud.shape[0]
+        q_bucket = multiscale._pow2_bucket(n_query)
+        dequant = None
+        if self.transfer_dtype == "uint16":
+            query_dev, dequant = _quantize_upload(
+                cloud, bounds[0], bounds[1], q_bucket, self.device)
+        else:
+            query_dev = torch.from_numpy(multiscale._pad_rows_f32(
+                cloud, q_bucket)).to(self.device)
+        return {"query": query_dev, "n_query": n_query,
+                "q_bucket": q_bucket, "specs": specs, "dequant": dequant}
+
+    def predict_staged(self, staged, with_proba=False, with_diag=False):
+        """Labels (and optionally probabilities) of a staged cloud, as
+        device tensors.  ``with_diag`` adds the overflow counters
+        (``vox_dropped``, ``dropped_query``, ``dropped_search``,
+        ``interp_dropped``, ``dropped_candidates``) as device scalars;
+        nonzero means the cloud is denser than the capacities were
+        sized for."""
+        labels, probs, diag = _fused_predict_step(
+            staged["query"],
+            torch.arange(staged["q_bucket"], device=self.device)
+            < staged["n_query"],
+            self._fused_classifier(), staged["specs"], self.kind,
+            staged["n_query"], staged["dequant"], with_proba=with_proba)
+        out = (labels,)
+        if with_proba:
+            out = out + (probs,)
+        if with_diag:
+            out = out + (diag,)
+        return out if len(out) > 1 else labels
+
+    def predict_device(self, cloud, search=None):
+        """Per-point class labels as a device tensor."""
+        return self.predict_staged(self.stage(cloud, search))
+
+    def predict(self, cloud, search=None):
+        """Per-point class labels as a NumPy array; warns when the
+        cloud overflowed the model's fixed capacities."""
+        labels, diag = self.predict_staged(self.stage(cloud, search),
+                                           with_diag=True)
+        dropped = {k: int(v) for k, v in diag.items() if int(v) > 0}
+        if dropped:
+            warnings.warn(
+                "serving cloud overflowed fixed capacities "
+                f"({dropped}); affected points got zero/truncated "
+                "features.  Refit with larger capacities or "
+                "trim_entries sized on a denser cloud.",
+                RuntimeWarning, stacklevel=2)
+        return labels.cpu().numpy()

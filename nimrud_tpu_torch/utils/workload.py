@@ -1,0 +1,45 @@
+"""
+The headline workload (copy of ``nimrud_tpu/utils/workload.py``
+``make_bench_cloud`` and ``make_bench_model``): a 1M-point outdoor
+LiDAR-style scene and the production serving configuration on it.
+"""
+
+import numpy as np
+
+BENCH_N_POINTS = 1_000_000
+BENCH_EDGES = (0.25, 0.5, 1.0)
+BENCH_RADII = (0.5, 1.0, 2.0)
+
+
+def make_bench_cloud(n=BENCH_N_POINTS, seed=0):
+    """Ground plane, eight building walls, vegetation canopy; labels
+    0 / 1 / 2."""
+    rng = np.random.default_rng(seed)
+    ground = rng.random((n // 2, 3)) * [100, 100, 0.15]
+    walls = [rng.random((n // 16, 3)) * [0.2, 12, 9]
+             + [rng.random() * 90, rng.random() * 90, 0]
+             for _ in range(8)]
+    canopy = rng.normal([60, 60, 7], [15, 15, 2], (n // 4, 3))
+    cloud = np.vstack([ground, *walls, canopy]).astype(np.float32)[:n]
+    labels = np.concatenate([
+        np.zeros(n // 2, np.int32),
+        np.ones(8 * (n // 16), np.int32),
+        np.full(n // 4, 2, np.int32)])[:n]
+    return cloud, labels
+
+
+def make_bench_model(cloud, epochs=10, device="cuda", **kwargs):
+    """The serving configuration bench.py measures: three bands
+    (edge, radius) (0.25, 0.5), (0.5, 1.0), (1.0, 2.0), minimal layout,
+    linear classifier, uint16 uploads, fixed site bounds, trimmed
+    entries, on ``device``."""
+    from nimrud_tpu_torch.pipeline import GeometryClassifier
+
+    scaleset = [(edge, (radius,))
+                for edge, radius in zip(BENCH_EDGES, BENCH_RADII)]
+    return GeometryClassifier(
+        scaleset, kind="minimal", classifier="linear",
+        classifier_kwargs={"epochs": epochs, "seed": 0},
+        transfer_dtype="uint16", backend="packed",
+        bounds=(cloud.min(0), cloud.max(0)), trim_entries=True,
+        device=device, **kwargs)

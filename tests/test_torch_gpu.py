@@ -1,0 +1,75 @@
+"""
+Tests that need a CUDA card (marker ``gpu``): the hand-written Hopper
+``packed_moments`` kernel against its plain PyTorch twin on the card,
+and a small serving run on the card against the same model on the CPU.
+They skip without a card.  On a machine with one:
+
+    python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
+
+(``tests/conftest.py`` imports jax; ``--noconftest`` lets these tests run
+where jax is not installed.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+from nimrud_tpu_torch.utils import workload
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _problem(n_entries, q_cap, c_cap, seed):
+    rng = np.random.default_rng(seed)
+    centers = (rng.random((n_entries, 3)) * 50).astype(np.float32)
+    q_t = (centers[:, :, None]
+           + rng.uniform(-2, 2, (n_entries, 3, q_cap))).astype(np.float32)
+    cand = (centers.T[:, :, None]
+            + rng.uniform(-3, 3, (3, n_entries, c_cap))).astype(np.float32)
+    cand[:, :, c_cap * 3 // 4:] = pm.FAR
+    return q_t, np.ascontiguousarray(cand.reshape(3, -1)), centers
+
+
+@pytest.mark.parametrize("q_cap,c_cap,radii", [
+    (512, 1024, (1.0,)), (256, 384, (0.5, 2.0)), (16, 128, (0.5,)),
+    (130, 256, (0.5, 1.0, 1.5, 2.0))])
+def test_kernel_matches_plain_on_card(cuda, q_cap, c_cap, radii):
+    q_t, cand_t, centers = (torch.from_numpy(a).to(cuda) for a in
+                            _problem(37, q_cap, c_cap, seed=q_cap))
+    before = pm.packed_moments.launches
+    got = pm.packed_moments(q_t, cand_t, centers, radii)
+    torch.cuda.synchronize()
+    assert pm.packed_moments.launches == before + 1
+    ref = pm.packed_moments_plain(q_t, cand_t, centers, radii)
+    counts = slice(0, None, 16)
+    assert torch.equal(got[..., counts], ref[..., counts])
+    tol = pm.moment_tolerance(ref, cand_t, centers)
+    assert bool(((got - ref).abs() <= tol).all())
+    assert bool(torch.isfinite(got).all())
+
+
+def test_serving_on_card_matches_cpu(cuda):
+    cloud, labels = workload.make_bench_cloud(30000, seed=0)
+    gpu = workload.make_bench_model(cloud, device=cuda)
+    gpu.fit(cloud, labels, sample=15000)
+    clf = gpu.classifier
+    cpu = workload.make_bench_model(cloud, device="cpu")
+    cpu.install_classifier(SoftmaxClassifier.from_state(
+        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
+        clf.scale_.cpu(), device="cpu"), cloud)
+    a, pa = gpu.predict_staged(gpu.stage(cloud), with_proba=True)
+    b = cpu.predict_staged(cpu.stage(cloud))
+    top2 = torch.sort(pa.cpu(), dim=1).values[:, -2:]
+    near_tie = (top2[:, 1] - top2[:, 0]) < 1e-4
+    differ = a.cpu() != b
+    assert not bool((differ & ~near_tie).any())
+    assert int(differ.sum()) <= 0.001 * len(cloud)

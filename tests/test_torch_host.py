@@ -1,0 +1,115 @@
+"""
+The port's host-side copies (NumPy sizing) against the JAX package's
+originals: equal outputs, bit for bit.  Also: importing the port loads
+no jax.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from nimrud_tpu.features import multiscale as jms
+from nimrud_tpu.ops import device_grid as jdg
+from nimrud_tpu.ops import packing as jpk
+from nimrud_tpu.ops import span_host as jsh
+from nimrud_tpu.utils import workload as jwl
+
+from nimrud_tpu_torch.features import multiscale as tms
+from nimrud_tpu_torch.ops import device_grid as tdg
+from nimrud_tpu_torch.ops import packing as tpk
+from nimrud_tpu_torch.ops import span_host as tsh
+from nimrud_tpu_torch.utils import workload as twl
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cloud(n=6000, seed=3):
+    return twl.make_bench_cloud(n, seed=seed)[0]
+
+
+def test_bench_cloud_is_the_reference_scene():
+    a, la = twl.make_bench_cloud(4096, seed=2)
+    b, lb = jwl.make_bench_cloud(4096, seed=2)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(la, lb)
+
+
+@pytest.mark.parametrize("edge", [0.25, 0.5, 1.0, 0.3])
+def test_grid_spec_fit_bounds_equal(edge):
+    cloud = _cloud()
+    lo, hi = cloud.min(0), cloud.max(0)
+    a = tpk.GridSpec.fit_bounds(lo, hi, edge)
+    b = jpk.GridSpec.fit_bounds(lo, hi, edge)
+    assert (a.origin, a.edge_length, a.widths, a.shifts) \
+        == (b.origin, b.edge_length, b.widths, b.shifts)
+
+
+@pytest.mark.parametrize("tile,edge,q_cap,x_seg", [
+    (0.5, 0.25, 512, 32), (1.0, 0.5, 512, 32), (2.0, 1.0, 256, 32),
+    (0.8, 0.2, 128, 1)])
+def test_make_spec_and_entry_estimate_equal(tile, edge, q_cap, x_seg):
+    cloud = _cloud()
+    lo, hi = cloud.min(0), cloud.max(0)
+    kw = dict(n_query=8192, voxel_edge=edge, q_cap=q_cap, x_seg=x_seg)
+    a = tdg.make_spec(lo, hi, tile, **kw)
+    b = jdg.make_spec(lo, hi, tile, **kw)
+    assert a.__dict__ == b.__dict__
+    assert tdg.estimate_entries(cloud, a) == jdg.estimate_entries(cloud, b)
+    assert tdg.with_entry_estimate(a, cloud).__dict__ \
+        == jdg.with_entry_estimate(b, cloud).__dict__
+
+
+@pytest.mark.parametrize("edge,fixed", [(0.25, True), (0.5, False),
+                                        (1.0, True)])
+def test_host_unique_voxels_equal(edge, fixed):
+    cloud = _cloud()
+    bounds = (cloud.min(0) - 0.5, cloud.max(0) + 0.5) if fixed else None
+    np.testing.assert_array_equal(
+        tms._host_unique_voxels(cloud, edge, bounds=bounds),
+        jms._host_unique_voxels(cloud, edge, bounds=bounds))
+
+
+def test_pack_plan_and_split_caps_equal():
+    # the serving sizing: one shared pack plan on the finest band, and
+    # per-band split candidate capacities measured against it
+    cloud = _cloud(12000)
+    lo, hi = cloud.min(0), cloud.max(0)
+    specs = [(tdg.make_spec(lo, hi, r, n_query=16384, voxel_edge=e,
+                            q_cap=512, x_seg=32),
+              jdg.make_spec(lo, hi, r, n_query=16384, voxel_edge=e,
+                            q_cap=512, x_seg=32))
+             for e, r in zip(twl.BENCH_EDGES, twl.BENCH_RADII)]
+    valid = np.ones(len(cloud), bool)
+    tplan = tsh.pack_plan_np(cloud, valid, specs[0][0])
+    jplan = jsh.pack_plan_np(cloud, valid, specs[0][1])
+    assert tplan.keys() == jplan.keys()
+    for key in tplan:
+        np.testing.assert_array_equal(tplan[key], jplan[key], err_msg=key)
+    for edge, (ts, js) in zip(twl.BENCH_EDGES, specs):
+        centers = tms._host_unique_voxels(cloud, edge)
+        a = tsh.candidate_caps_split(None, centers, ts, plan=tplan)
+        b = jsh.candidate_caps_split(None, centers, js, plan=jplan)
+        assert a == b
+        # the copy's per-entry-chunk sizing (chunked serving) too
+        assert tsh.candidate_caps_split(None, centers, ts, plan=tplan,
+                                        entry_chunk=8) \
+            == jsh.candidate_caps_split(None, centers, js, plan=jplan,
+                                        entry_chunk=8)
+        assert tsh.candidate_cap(cloud, centers, ts) \
+            == jsh.candidate_cap(cloud, centers, js)
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, nimrud_tpu_torch, nimrud_tpu_torch.pipeline, "
+            "nimrud_tpu_torch.utils.workload; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'nimrud_tpu.')) or m == 'nimrud_tpu');"
+            " assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
