@@ -1,38 +1,66 @@
 #!/usr/bin/env python3
 """
 Quickest proof that the PyTorch / CUDA port (``nimrud_tpu_torch``) runs
-its main path on one NVIDIA GPU.  From the repository root:
+its paths on one NVIDIA GPU.  From the repository root:
 
     python3 chip_smoke.py
 
-Phases, one line each (plus a kernel-build report):
+Phases, one or more lines each:
 
 1. card    -- nvidia-smi name and power limit, torch's device name.
-2. build   -- nvcc builds csrc/packed_moments.cu for sm_90a; ptxas's
-              registers / shared memory / spills.
+2. build   -- one nvcc per kernel, all started together: csrc/
+              packed_moments.cu, span_moments.cu and entry_moments.cu
+              for sm_90a; ptxas's registers / shared memory / spills.
 3. kernel  -- the CUDA ``packed_moments`` against its plain PyTorch twin
-              on the card, at the main path's shapes (serving: q_cap 512,
-              band-1 capacity buckets; fit: q_cap 256): counts equal,
-              moments within ``moment_tolerance``; CUDA-event times.
-4. main    -- the headline workload: ``make_bench_cloud(1_000_000)``,
+              on the card, at the packed path's shapes (serving: q_cap
+              512, band-1 capacity buckets; fit: q_cap 256): counts
+              equal, moments within ``moment_tolerance``; CUDA-event
+              times.
+4. main    -- the packed path: ``make_bench_cloud(1_000_000)``,
               ``make_bench_model``, ``fit(sample=100_000)``, then
               ``stage`` + ``predict_staged`` on three clouds (seeds 0, 1,
-              2).  All overflow counters 0, the kernel launched in fit
-              and in serving, accuracy > 0.8; per-step host time ending
-              in ``synchronize``; peak device memory.
-5. e2e     -- a 100k-point scene served on the card and, with the same
-              model, on the CPU (plain twin): labels agree except at
-              near-ties (top-two probability gap < 1e-4), at most 0.1%.
+              2).  All overflow counters 0, ``packed_moments`` launched
+              in fit and in serving, accuracy > 0.8; per-step host time
+              ending in ``synchronize``; peak device memory.
+5. span    -- the span path: ``make_bench_model(backend="pallas")``
+              serving the same three clouds with the packed model's
+              classifier (``install_classifier``).  ``span_moments``
+              launched and ``packed_moments`` not, counters 0, accuracy
+              > 0.8, at most 0.01% of labels differ from the packed
+              model's; per-step times, peak memory.  The flip witness:
+              both backends' serving features on the same clouds, at
+              every point whose labels or populations differ and at
+              4096 sampled points a cloud, against a float64 oracle:
+              populations equal up to the candidates within the f32
+              rounding bound of r^2, the other features within their
+              f32 rounding bounds where no candidate is that close.
+              Then ``span_moments`` against its plain twin at the
+              path's band-1 shapes.
+6. tiled   -- the tiled entry path, per band: ``build_tiled_problem``
+              on the host (voxel centers as the search cloud, tile edge
+              = radius, m = 3, entry batch 256), ``tiled_features`` on
+              the card.  ``entry_moments`` launched, features finite,
+              the population column equal to the packed extraction's
+              for >= 99.9% of points; host and device time per band.
+              Then ``entry_moments`` against its plain twin on band 1's
+              first entry batch.
+7. e2e     -- a 100k-point scene served by both backends on the card
+              and, with the same classifier, on the CPU (plain twins):
+              labels agree except at near-ties (top-two probability gap
+              < 1e-4), at most 0.01%.
 
-With ``--profile DIR`` a profile phase runs after phase 4:
-``torch.profiler`` over three steady serving steps of the fitted model
-(clouds staged before the window), printing device busy time (the union
-of kernel, memcpy and memset intervals), the traced wall time of
-``predict_staged`` + synchronize, the device's idle share and the
-largest kernels by device time; the chrome trace and the full kernel
-table go to ``DIR``.
+Each path runs with every launch count set to 0 just before it and read
+just after; the kernel comparisons run outside those windows.
 
-Then a JSON line with the kernel record and, last, the result line.
+With ``--profile DIR`` a profile phase runs after the serving steps of
+phases 4 and 5: ``torch.profiler`` over three steady serving steps of
+that backend (clouds staged before the window), printing device busy
+time (the union of kernel, memcpy and memset intervals), the traced
+wall time of ``predict_staged`` + synchronize, the device's idle share
+and the largest kernels by device time; the chrome traces and the full
+kernel tables go to ``DIR``.
+
+Then a JSON line with the kernel records and, last, the result line.
 Any failure raises (exit code 1).  Without a CUDA device it exits with
 code 2 and prints no result.
 """
@@ -40,6 +68,7 @@ code 2 and prints no result.
 import argparse
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -49,6 +78,19 @@ N_POINTS = 1_000_000
 FIT_SAMPLE = 100_000
 E2E_POINTS = 100_000
 TIE_GAP = 1e-4
+# The two backends serve one classifier through different entry frames
+# (the packed path shares one q_cap-512 plan across bands, the span path
+# plans each band at q_cap 256): the same neighborhoods are summed in
+# other local coordinates, so f32 rounding of the moments and of the
+# eigensolver moves features, and sometimes a label by more than a
+# near-tie gap.  The flip witness of the span phase holds every such
+# label to a float64 oracle; this bounds their share.
+MAX_FLIPS = 1e-4
+MIN_POP_AGREE = 0.999
+WITNESS_SAMPLE = 4096      # points a cloud held against float64 counts
+EPS32 = 2.0 ** -24         # f32 unit roundoff
+TILED_BATCH = 256
+COUNT_COLS = slice(0, None, 16)
 
 
 def _check(ok, what):
@@ -69,25 +111,71 @@ def _events_ms(fn, repeat):
     return start.elapsed_time(stop) / repeat
 
 
-def _kernel_phase(model, cloud, device):
-    """Kernel vs plain at the shapes the main path gives the kernel."""
-    import numpy as np
+def _hold(what, kernel, plain, tolerance):
+    """One kernel launch against its plain twin on the same inputs:
+    counts equal, moments within ``tolerance(ref)``, finite.  Returns
+    (max abs error, kernel ms, plain ms)."""
+    import torch
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    _check(torch.equal(got[..., COUNT_COLS], ref[..., COUNT_COLS]),
+           f"{what}: counts differ")
+    err = (got - ref).abs()
+    _check(bool((err <= tolerance(ref)).all()),
+           f"{what}: moments outside tolerance")
+    _check(bool(torch.isfinite(got).all()), f"{what}: non-finite slabs")
+    return float(err.max()), _events_ms(kernel, 5), _events_ms(plain, 3)
+
+
+def _kernels():
+    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+    from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+    return {"packed_moments": pm.packed_moments,
+            "span_moments": gk.span_moments,
+            "entry_moments": mk.entry_moments}
+
+
+def _reset_counts():
+    for fn in _kernels().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _kernels().items()}
+
+
+def _staged_band1(model, cloud, device):
+    """Band 1's serving inputs as ``predict_staged`` forms them: the
+    dequantized upload, its validity and the band's deduplicated,
+    trimmed voxel centers."""
     import torch
     from nimrud_tpu_torch import pipeline
+    from nimrud_tpu_torch.features import multiscale
+
+    band = model._fused_band_specs(cloud)[0]
+    q_bucket = multiscale._pow2_bucket(len(cloud))
+    quant, dequant = pipeline._quantize_upload(
+        cloud, model.bounds[0], model.bounds[1], q_bucket, device)
+    query = pipeline._dequantize(quant, dequant)
+    valid = torch.arange(q_bucket, device=device) < len(cloud)
+    centers, mask, _ = pipeline._band_search_prep(
+        query, valid, band, tile_sorted=model.backend == "packed")
+    return band, query, valid, centers, mask
+
+
+def _packed_kernel_phase(model, cloud, device):
+    """packed_moments vs plain at the shapes the packed path gives it."""
+    import numpy as np
+    import torch
     from nimrud_tpu_torch.features import multiscale
     from nimrud_tpu_torch.ops import device_grid, packing, span_host, unique
     from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 
     problems = []
     # serving: band 1 (the pack grid) at q_cap 512, split capacities
-    specs = model._fused_band_specs(cloud)
-    band = specs[0]
-    q_bucket = multiscale._pow2_bucket(len(cloud))
-    quant, dequant = pipeline._quantize_upload(
-        cloud, model.bounds[0], model.bounds[1], q_bucket, device)
-    query = pipeline._dequantize(quant, dequant)
-    valid = torch.arange(q_bucket, device=device) < len(cloud)
-    centers, mask, _ = pipeline._band_search_prep(query, valid, band)
+    band, query, valid, centers, mask = _staged_band1(model, cloud, device)
     plan = device_grid._pack_plan(query, valid, band[1])
     spans = device_grid._band_spans(plan, centers, mask, band[1],
                                     presorted=True)
@@ -100,6 +188,7 @@ def _kernel_phase(model, cloud, device):
     edge, radii = model.scaleset[0]
     lo = np.asarray(model.bounds[0], np.float64)
     hi = np.asarray(model.bounds[1], np.float64)
+    q_bucket = multiscale._pow2_bucket(len(cloud))
     spec = device_grid.with_entry_estimate(device_grid.make_spec(
         lo, hi, max(radii), n_query=q_bucket, m=model.tile_m, q_cap=256,
         voxel_edge=edge, entry_batch=256, x_seg=32), cloud)
@@ -120,34 +209,451 @@ def _kernel_phase(model, cloud, device):
     rows, max_err = [], 0.0
     ms = {"serve": [0.0, 0.0], "fit": [0.0, 0.0]}
     for side, (q_t, cand_t, cen), rr in problems:
-        got = pm.packed_moments(q_t, cand_t, cen, rr)
-        torch.cuda.synchronize()
-        ref = pm.packed_moments_plain(q_t, cand_t, cen, rr)
-        counts = slice(0, None, 16)
-        _check(torch.equal(got[..., counts], ref[..., counts]),
-               f"{side} counts differ at {tuple(q_t.shape)}")
-        err = (got - ref).abs()
-        tol = pm.moment_tolerance(ref, cand_t, cen)
-        _check(bool((err <= tol).all()),
-               f"{side} moments outside tolerance at {tuple(q_t.shape)}")
-        _check(bool(torch.isfinite(got).all()), "non-finite slabs")
-        max_err = max(max_err, float(err.max()))
-        k_ms = _events_ms(lambda: pm.packed_moments(q_t, cand_t, cen, rr),
-                          5)
-        p_ms = _events_ms(
-            lambda: pm.packed_moments_plain(q_t, cand_t, cen, rr), 3)
+        c_cap = cand_t.shape[1] // q_t.shape[0]
+        shape = f"E={q_t.shape[0]} q_cap={q_t.shape[2]} c_cap={c_cap}"
+        err, k_ms, p_ms = _hold(
+            f"packed_moments {side} {shape}",
+            lambda: pm.packed_moments(q_t, cand_t, cen, rr),
+            lambda: pm.packed_moments_plain(q_t, cand_t, cen, rr),
+            lambda ref: pm.moment_tolerance(ref, cand_t, cen))
+        max_err = max(max_err, err)
         ms[side][0] += k_ms
         ms[side][1] += p_ms
-        c_cap = cand_t.shape[1] // q_t.shape[0]
-        rows.append(f"{side} E={q_t.shape[0]} q_cap={q_t.shape[2]} "
-                    f"c_cap={c_cap} kernel {k_ms:.4f} ms plain "
-                    f"{p_ms:.4f} ms max_abs_err {float(err.max()):.3g}")
-    return rows, max_err, ms
+        rows.append(f"{side} {shape} kernel {k_ms:.4f} ms plain "
+                    f"{p_ms:.4f} ms max_abs_err {err:.3g}")
+    for row in rows:
+        print(f"[kernel] packed_moments {row}")
+    print(f"[kernel] packed_moments serving band-1 total: kernel "
+          f"{ms['serve'][0]:.4f} ms, plain {ms['serve'][1]:.4f} ms; fit "
+          f"band-1 total: kernel {ms['fit'][0]:.4f} ms, plain "
+          f"{ms['fit'][1]:.4f} ms", flush=True)
+    return max_err, ms["serve"][0], ms["serve"][1]
+
+
+def _span_kernel_phase(model, cloud, device):
+    """span_moments vs plain at the span serving path's band-1 shapes."""
+    import torch
+    from nimrud_tpu_torch.ops import device_grid
+    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+
+    band, query, valid, centers, mask = _staged_band1(model, cloud, device)
+    prob = device_grid._span_problem(query, valid, centers, mask, band[1])
+    args = (prob["q_local"].contiguous(), prob["centers"].contiguous(),
+            prob["span_starts"].to(torch.int32).contiguous(),
+            prob["span_lens"].to(torch.int32).contiguous(),
+            prob["sorted_pts"].contiguous())
+    radii, span_rows = band[2], prob["span_rows"]
+    shape = (f"E={args[0].shape[0]} q_cap={args[0].shape[1]} "
+             f"n_span={args[2].shape[1]} span_rows={span_rows} "
+             f"live rows {int(args[3].sum())}")
+    err, k_ms, p_ms = _hold(
+        f"span_moments {shape}",
+        lambda: gk.span_moments(*args, radii, span_rows),
+        lambda: gk.span_moments_plain(*args, radii, span_rows),
+        lambda ref: gk.span_tolerance(ref, *args[1:], span_rows))
+    print(f"[kernel] span_moments serving band 1 {shape}: kernel "
+          f"{k_ms:.4f} ms plain {p_ms:.4f} ms max_abs_err {err:.3g}",
+          flush=True)
+    return err, k_ms, p_ms
+
+
+def _entry_kernel_phase(problem, cloud, search, radii, device):
+    """entry_moments vs plain on the first entry batch of a tiled
+    band."""
+    import torch
+    from nimrud_tpu_torch.ops import grid
+    from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
+
+    def put(array, dtype):
+        return torch.as_tensor(array).to(device=device, dtype=dtype)
+
+    zero = torch.zeros((1, 3), dtype=torch.float32, device=device)
+    batch = slice(0, TILED_BATCH)
+    _, q_local, s_local, s_valid = grid._gather_batch(
+        torch.cat([put(cloud, torch.float32), zero]),
+        torch.cat([put(search, torch.float32), zero]),
+        put(problem.candidates, torch.int64),
+        (put(problem.query_index[batch], torch.int64),
+         put(problem.neighbor_rows[batch], torch.int64),
+         put(problem.entry_centers[batch], torch.float32)))
+    args = (q_local.contiguous(), s_local.contiguous(), s_valid.contiguous())
+    shape = (f"E={q_local.shape[0]} Q={q_local.shape[1]} "
+             f"F={s_local.shape[1]}")
+    err, k_ms, p_ms = _hold(
+        f"entry_moments {shape}",
+        lambda: mk.entry_moments(*args, radii),
+        lambda: mk.entry_moments_plain(*args, radii),
+        lambda ref: mk.entry_tolerance(ref, args[1], args[2]))
+    print(f"[kernel] entry_moments tiled band 1, first batch {shape}: "
+          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms max_abs_err "
+          f"{err:.3g}", flush=True)
+    return err, k_ms, p_ms
+
+
+def _serve(model, clouds, with_proba=False):
+    """stage + predict_staged + synchronize per cloud: per-step times
+    (total, stage, predict+sync) ms, labels, probabilities, counters."""
+    import torch
+    steps, labels, probs, diags = [], [], [], []
+    for c in clouds:
+        t0 = time.perf_counter()
+        staged = model.stage(c)
+        t1 = time.perf_counter()
+        out = model.predict_staged(staged, with_proba=with_proba,
+                                   with_diag=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        steps.append((1e3 * (t2 - t0), 1e3 * (t1 - t0), 1e3 * (t2 - t1)))
+        labels.append(out[0].cpu())
+        probs.append(out[1].cpu() if with_proba else None)
+        diags.append({k: int(v) for k, v in out[-1].items()})
+    return steps, labels, probs, diags
+
+
+def _steps_text(steps):
+    return "; ".join(f"{t:.3f}, {s:.3f}, {p:.3f}" for t, s, p in steps)
+
+
+def _check_served(what, diags, labels, truths):
+    from nimrud_tpu_torch.pipeline import COUNTERS
+    accs = [float((lab.numpy() == t).mean()) for lab, t in zip(labels,
+                                                                truths)]
+    for d in diags:
+        _check(all(d[k] == 0 for k in COUNTERS),
+               f"{what} overflow counters {d}")
+    _check(all(a > 0.8 for a in accs), f"{what} accuracy {accs}")
+    return accs
+
+
+def _top2_gap(probs):
+    import torch
+    top2 = torch.sort(probs, dim=1).values[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
+def _served_features(model, staged):
+    """The feature rows ``model``'s serving step hands its classifier,
+    in caller order: the step run once more with ``classify_features``
+    swapped for the identity."""
+    from nimrud_tpu_torch import pipeline
+    classify = pipeline.classify_features
+    pipeline.classify_features = lambda params, features: features
+    try:
+        return model.predict_staged(staged, with_proba=True)[1]
+    finally:
+        pipeline.classify_features = classify
+
+
+def _d2_tolerance(radius, extent):
+    """Bound on |f32 d2 - float64 d2| for a pair near ``radius`` whose
+    entry-local coordinates lie within ``extent``: each axis difference
+    carries at most eps = u (2 extent + 2 r) (two rounded subtractions of
+    the entry center, one between them), the rounded squares and sums
+    3u d2, and f32(r*r) u r^2 (5u r^2 covers both)."""
+    eps = EPS32 * (2.0 * extent + 2.0 * radius)
+    return (2.0 * math.sqrt(3.0) * eps * radius + 3.0 * eps * eps
+            + 5.0 * EPS32 * radius * radius)
+
+
+def _float64_oracle(points, centers, radius, tol):
+    """Per point against ``centers``, in float64: the population within
+    ``radius``, the number of centers with |d2 - r^2| <= ``tol`` (which
+    f32 may put on either side), the smallest |d2 - r^2|, the minimal
+    feature block (k, 4) and the covariance (k, 6)."""
+    import torch
+    from nimrud_tpu_torch.features import layouts
+    r2 = float(radius) ** 2
+    x, y, z = centers.to(torch.float64).unbind(1)
+    aug = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z,
+                       y * y, y * z, z * z], 1)
+    near, gap, sums = [], [], []
+    for chunk in torch.split(points.to(torch.float64), 32):
+        d2 = ((chunk[:, None, 0] - x).square()
+              + (chunk[:, None, 1] - y).square()
+              + (chunk[:, None, 2] - z).square())
+        off = (d2 - r2).abs()
+        near.append((off <= tol).sum(1))
+        gap.append(off.min(1).values)
+        sums.append((d2 <= r2).to(torch.float64) @ aug)
+    sums = torch.cat(sums)
+    count = sums[:, 0]
+    mean = sums[:, 1:4] / count.clamp(min=1.0)[:, None]
+    mx, my, mz = mean.unbind(1)
+    cov = sums[:, 4:10] / count.clamp(min=1.0)[:, None] - torch.stack(
+        [mx * mx, mx * my, mx * mz, my * my, my * mz, mz * mz], 1)
+    block = layouts.minimal_block(count, mean, cov,
+                                  points.to(torch.float64))
+    return (count.to(torch.int64), torch.cat(near), torch.cat(gap), block,
+            cov)
+
+
+def _feature_bounds(count, cov, points, entry_centers, radius):
+    """Bounds on |f32 - float64| of [centroid displacement, eig1, eig2]
+    where the f32 neighbor set is the float64 one, for a backend that
+    summed the moments about ``entry_centers``.  With n neighbors and
+    local coordinates within l = |q - c|_inf + r: mean_local carries
+    (n + 1) u l, each covariance entry d = (3n + 7) u l^2 (raw sums less
+    the mean's square), so each eigenvalue 3d (Weyl) and the trace
+    t 3d + 2ut; the f32 trigonometric eigensolver adds 4 p sqrt(1024 u)
+    / 3 + 16 u t (a half-determinant off by 512 u moves acos by at most
+    sqrt(1024 u)), p the deviator's scale."""
+    import torch
+    n = count.to(torch.float64)
+    q = points.to(torch.float64)
+    ell = (q - entry_centers.to(torch.float64)).abs().amax(1) + radius
+    glob = q.abs().amax(1) + ell
+    centroid = (math.sqrt(3.0) * ((n + 1) * EPS32 * ell
+                                  + EPS32 * (glob + radius))
+                + 3 * EPS32 * radius)
+    delta = (3 * n + 7) * EPS32 * ell ** 2
+    t = cov[:, 0] + cov[:, 3] + cov[:, 5]
+    dev = cov[:, [0, 3, 5]] - (t / 3)[:, None]
+    p = torch.sqrt(((dev ** 2).sum(1) + 2 * (cov[:, [1, 2, 4]] ** 2).sum(1))
+                   / 6)
+    trig = 4 * p * math.sqrt(1024 * EPS32) / 3 + 16 * EPS32 * t
+    dt = 3 * delta + 2 * EPS32 * t
+    eig = torch.where(t > dt, (3 * delta + trig + dt)
+                      / (t - dt).clamp(min=1e-30) + EPS32, math.inf)
+    return torch.stack([centroid, eig, eig], 1)
+
+
+def _entry_centers(query, valid, spec):
+    """Each query's entry center in ``spec``'s plan, in caller order."""
+    from nimrud_tpu_torch.ops import device_grid
+    plan = device_grid._pack_plan(query, valid, spec)
+    pos = device_grid._unsort_positions(plan, spec, query.shape[0], 0)
+    return plan["centers"][pos // spec.q_cap]
+
+
+def _flip_witness(packed, span, clouds, span_labels, packed_labels):
+    """Why span and packed labels differ.  On each cloud, both backends'
+    serving features, at every point where the labels or populations
+    differ and at WITNESS_SAMPLE sampled points, against a float64
+    oracle over the same voxel centers: each population must equal the
+    float64 count up to the candidates within the f32 rounding bound of
+    r^2, and where no candidate is that close, the other features must
+    lie within the f32 rounding bounds of the oracle's
+    (``_feature_bounds``) in each backend's own entry frames.  Returns
+    the report line."""
+    import torch
+    from nimrud_tpu_torch import pipeline
+    from nimrud_tpu_torch.ops import unique
+
+    generator = torch.Generator().manual_seed(0)
+    totals = collections.Counter()
+    worst_gap, worst_ratio, tols = 0.0, [0.0, 0.0], {}
+    for cloud, lab, ref in zip(clouds, span_labels, packed_labels):
+        st_s, st_p = span.stage(cloud), packed.stage(cloud)
+        _check(torch.equal(st_s["query"], st_p["query"]),
+               "the two backends staged different coordinates")
+        feats = [_served_features(m, st)
+                 for m, st in ((span, st_s), (packed, st_p))]
+        differ = (feats[0][:, 0::4] != feats[1][:, 0::4]).any(1).cpu()
+        flipped = lab != ref
+        totals["flips"] += int(flipped.sum())
+        totals["flips at differing populations"] += int(
+            (flipped & differ).sum())
+        totals["differing points"] += int(differ.sum())
+        rows = torch.unique(torch.cat([
+            (flipped | differ).nonzero()[:, 0],
+            torch.randperm(len(cloud), generator=generator)[
+                :WITNESS_SAMPLE]])).to(st_s["query"].device)
+        flip_rows = flipped.to(rows.device)[rows]
+        boundary = torch.zeros_like(flip_rows)
+        totals["checked points"] += len(rows)
+        query = pipeline._dequantize(st_s["query"], st_s["dequant"])
+        valid = torch.arange(query.shape[0], device=query.device) \
+            < len(cloud)
+        points = query[rows]
+        # entry centers, queries and voxel centers all lie in the grid
+        # boxes (voxel centers up to half an edge outside)
+        extent = max(math.hypot(*(d * band[1].tile_edge
+                                  for d in band[1].dims))
+                     for band in st_s["specs"] + st_p["specs"]) \
+            + max(edge for edge, _ in span.scaleset)
+        pack_spec = min((band[1] for band in st_p["specs"]),
+                        key=lambda spec: spec.tile_edge)
+        packed_frames = _entry_centers(query, valid, pack_spec)[rows]
+        col = 0
+        for band in st_s["specs"]:
+            centers, _, mask = unique.unique_voxels(query, band[0],
+                                                    valid=valid)
+            frames = (_entry_centers(query, valid, band[1])[rows],
+                      packed_frames)
+            for radius in band[2]:
+                tols[radius] = _d2_tolerance(radius, extent)
+                exact, near, gap, block, cov = _float64_oracle(
+                    points, centers[mask], radius, tols[radius])
+                block = block[:, 1:]
+                got = [f[rows, col:col + 4] for f in feats]
+                for k, (f, frame) in enumerate(zip(got, frames)):
+                    pop = f[:, 0].to(torch.int64)
+                    _check(bool(((pop - exact).abs() <= near).all()),
+                           f"a served population at r {radius} is off its "
+                           "float64 count by more than the candidates at "
+                           "the rounding bound")
+                    ratio = ((f[:, 1:].to(torch.float64) - block).abs()
+                             / _feature_bounds(exact, cov, points, frame,
+                                               radius))[near == 0]
+                    _check(bool((ratio <= 1).all()),
+                           f"a served feature at r {radius} is off the "
+                           "float64 oracle by more than f32 rounding")
+                    if ratio.numel():
+                        worst_ratio[k] = max(worst_ratio[k],
+                                             float(ratio.max()))
+                boundary |= near > 0
+                apart = got[0][:, 0] != got[1][:, 0]
+                totals["differing populations"] += int(apart.sum())
+                if bool(apart.any()):
+                    worst_gap = max(worst_gap, float(gap[apart].max()))
+                col += 4
+        totals["flips with a boundary candidate"] += int(
+            (flip_rows & boundary).sum())
+    return (f"{dict(totals)}; every differing population has a "
+            f"candidate within {worst_gap:.3g} of r^2 (bounds "
+            + ", ".join(f"r {r}: {t:.3g}" for r, t in tols.items())
+            + "); features off the float64 oracle by at most "
+            f"{worst_ratio[0]:.3g} (span) and {worst_ratio[1]:.3g} "
+            "(packed) of their f32 rounding bounds")
+
+
+def _span_phase(model, packed_labels, clouds, truths, fit_cloud, device,
+                profile_dir=None):
+    """The span serving path, counted from zero (then profiled, with a
+    ``profile_dir``), its labels against the packed ``model``'s with the
+    flip witness; then its kernel held against the plain twin.  Returns
+    (launches, kernel record numbers)."""
+    import torch
+    from nimrud_tpu_torch.utils import workload
+
+    span = workload.make_bench_model(fit_cloud, backend="pallas",
+                                     device=device)
+    span.install_classifier(model.classifier, fit_cloud)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    steps, labels, probs, diags = _serve(span, clouds, with_proba=True)
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    accs = _check_served("span", diags, labels, truths)
+    flips, gaps = 0, []
+    for lab, prob, ref in zip(labels, probs, packed_labels):
+        differ = lab != ref
+        flips += int(differ.sum())
+        gaps += _top2_gap(prob)[differ].tolist()
+    n = sum(len(c) for c in clouds)
+    n_tied = sum(g < TIE_GAP for g in gaps)
+    print(f"[span] serve steps ms (total, stage, predict+sync): "
+          f"{_steps_text(steps)}; launches {counts}; accuracy "
+          + ", ".join(f"{a:.4f}" for a in accs)
+          + f"; counters {diags}; peak {peak_gb:.3f} GiB; {flips} of {n} "
+          f"labels differ from the packed model's ({n_tied} of them at "
+          f"top-two gaps < {TIE_GAP}, the largest gap "
+          f"{max(gaps, default=0.0):.3g})", flush=True)
+    _check(counts["span_moments"] > 0, "span_moments did not run in "
+           "span serving")
+    _check(counts["packed_moments"] == 0 and counts["entry_moments"] == 0,
+           f"span serving ran another kernel: {counts}")
+    _check(flips <= MAX_FLIPS * n, "too many labels differ between the "
+           "packed and span backends")
+    t0 = time.perf_counter()
+    witness = _flip_witness(model, span, clouds, labels, packed_labels)
+    print(f"[span] flip witness ({time.perf_counter() - t0:.1f} s): "
+          f"{witness}", flush=True)
+    if profile_dir:
+        _profile_phase(span, profile_dir)
+    return counts["span_moments"], _span_kernel_phase(span, clouds[0],
+                                                      device)
+
+
+def _tiled_phase(model, cloud, device):
+    """The tiled entry path per band, counted from zero, against the
+    packed extraction's populations; then its kernel held against the
+    plain twin on band 1."""
+    import torch
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.ops import grid
+
+    packed = model.extract_device(cloud)
+    torch.cuda.synchronize()
+    _reset_counts()
+    band1, rows = None, []
+    for b, (edge, radii) in enumerate(model.scaleset):
+        t0 = time.perf_counter()
+        search = multiscale._host_unique_voxels(cloud, edge,
+                                                bounds=model.bounds)
+        problem = grid.build_tiled_problem(
+            cloud, search, max(radii), query_tile_factor=3,
+            entry_batch=TILED_BATCH)
+        t1 = time.perf_counter()
+        feats = grid.tiled_features(problem, cloud, search, radii,
+                                    "minimal", entry_batch=TILED_BATCH,
+                                    device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _check(bool(torch.isfinite(feats).all()),
+               f"tiled band {b}: non-finite features")
+        agree = float((feats[:, 0] == packed[:, 4 * b]).float().mean())
+        rows.append(f"band {b} (edge {edge}, r {radii}): host plan "
+                    f"{t1 - t0:.3f} s, device {1e3 * (t2 - t1):.3f} ms, "
+                    f"{problem.n_entries} entries, stats {problem.stats}, "
+                    f"population equal to packed for {agree:.6f}")
+        _check(agree >= MIN_POP_AGREE,
+               f"tiled band {b}: populations agree for {agree}")
+        if b == 0:
+            band1 = (problem, search, radii)
+    counts = _counts()
+    for row in rows:
+        print(f"[tiled] {row}")
+    print(f"[tiled] launches {counts}", flush=True)
+    _check(counts["entry_moments"] > 0, "entry_moments did not run in the "
+           "tiled path")
+    problem, search, radii = band1
+    return counts["entry_moments"], _entry_kernel_phase(
+        problem, cloud, search, radii, device)
+
+
+def _e2e_phase(device):
+    """Both backends on the card against the same classifier on the CPU:
+    labels agree except at near-ties."""
+    import torch
+    from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+    from nimrud_tpu_torch.utils import workload
+
+    small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
+    gpu = workload.make_bench_model(small, device=device)
+    gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
+    clf = gpu.classifier
+    cpu_clf = SoftmaxClassifier.from_state(
+        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
+        clf.scale_.cpu(), device="cpu")
+    other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
+    for backend in ("packed", "pallas"):
+        card = workload.make_bench_model(small, backend=backend,
+                                         device=device)
+        card.install_classifier(clf, small)
+        cpu = workload.make_bench_model(small, backend=backend,
+                                        device="cpu")
+        cpu.install_classifier(cpu_clf, small)
+        g_lab, g_prob = card.predict_staged(card.stage(other),
+                                            with_proba=True)
+        t0 = time.perf_counter()
+        c_lab = cpu.predict_staged(cpu.stage(other))
+        cpu_s = time.perf_counter() - t0
+        near_tie = _top2_gap(g_prob.cpu()) < TIE_GAP
+        differ = g_lab.cpu() != c_lab
+        print(f"[e2e] {backend}: {E2E_POINTS} points, {int(differ.sum())} "
+              f"labels differ (card vs cpu), {int(near_tie.sum())} "
+              f"near-ties; cpu serve {cpu_s:.2f} s", flush=True)
+        _check(not bool((differ & ~near_tie).any()),
+               f"{backend}: card and cpu labels differ away from near-ties")
+        _check(int(differ.sum()) <= MAX_FLIPS * E2E_POINTS,
+               f"{backend}: too many label flips")
 
 
 def _profile_phase(model, out_dir):
     """Device busy time, idle share and kernel times of three steady
-    serving steps, from a ``torch.profiler`` trace."""
+    serving steps of ``model``'s backend, from a ``torch.profiler``
+    trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from nimrud_tpu_torch.utils import workload
@@ -165,7 +671,8 @@ def _profile_phase(model, out_dir):
             model.predict_staged(st)
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
-    trace = os.path.join(out_dir, "serving_trace.json")
+    tag = f"[profile {model.backend}]"
+    trace = os.path.join(out_dir, f"serving_trace_{model.backend}.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = json.load(f)
@@ -188,18 +695,20 @@ def _profile_phase(model, out_dir):
         by_name[e["name"]][1] += 1
     table = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     n_steps = len(staged)
-    with open(os.path.join(out_dir, "serving_kernels.txt"), "w") as f:
+    with open(os.path.join(out_dir,
+                           f"serving_kernels_{model.backend}.txt"),
+              "w") as f:
         for name, (ms, n) in table:
             f.write(f"{ms / n_steps:.4f} ms/step\t{n / n_steps:g} "
                     f"calls/step\t{name}\n")
     wall = sum(walls)
-    print(f"[profile] {n_steps} steps: predict_staged + sync traced ms "
+    print(f"{tag} {n_steps} steps: predict_staged + sync traced ms "
           + ", ".join(f"{w:.3f}" for w in walls)
           + f"; device busy {busy_us / 1e3 / n_steps:.3f} ms/step; idle "
           f"share {1 - busy_us / 1e3 / wall:.4f}; "
           f"{len(device) / n_steps:g} device events/step", flush=True)
     for name, (ms, n) in table[:8]:
-        print(f"[profile] {ms / n_steps:.4f} ms/step "
+        print(f"{tag} {ms / n_steps:.4f} ms/step "
               f"({100 * ms / (busy_us / 1e3):.1f}% of busy), "
               f"{n / n_steps:g} calls/step: {name[:90]}", flush=True)
 
@@ -207,17 +716,16 @@ def _profile_phase(model, out_dir):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile three serving steps; write the "
-                             "trace and kernel table to DIR")
+                        help="also profile three serving steps of each "
+                             "backend; write the traces and kernel tables to "
+                             "DIR")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
-    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
-    from nimrud_tpu_torch.pipeline import COUNTERS
+    from nimrud_tpu_torch.ops.kernels import cuda_build
     from nimrud_tpu_torch.utils import workload
 
     device = torch.device("cuda", 0)
@@ -232,90 +740,65 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    _, report = pm.build()
-    usage = [ln.split("info    :")[-1].strip() for ln in report.splitlines()
-             if "Used" in ln or "spill" in ln]
-    print(f"[build] {time.perf_counter() - t0:.2f} s; ptxas: "
-          + " | ".join(usage), flush=True)
+    built = cuda_build.build_all()
+    print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for kernel, (_, report) in built.items():
+        print(f"[build] {kernel} ptxas: "
+              + " | ".join(cuda_build.ptxas_usage(report)), flush=True)
 
     cloud, labels = workload.make_bench_cloud(N_POINTS, seed=0)
     model = workload.make_bench_model(cloud, device=device)
-    rows, max_err, kms = _kernel_phase(model, cloud, device)
-    for row in rows:
-        print(f"[kernel] {row}")
-    print(f"[kernel] serving band-1 total: kernel {kms['serve'][0]:.4f} ms, "
-          f"plain {kms['serve'][1]:.4f} ms; fit band-1 total: kernel "
-          f"{kms['fit'][0]:.4f} ms, plain {kms['fit'][1]:.4f} ms", flush=True)
+    record = {"packed_moments": _packed_kernel_phase(model, cloud, device)}
 
-    # -- the main path, counted from zero ------------------------------------
+    # -- the packed path, counted from zero ----------------------------------
     torch.cuda.reset_peak_memory_stats()
-    pm.packed_moments.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     model.fit(cloud, labels, sample=FIT_SAMPLE)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    fit_launches = pm.packed_moments.launches
-    steps, accs = [], []
-    diags = []
-    for seed in (0, 1, 2):
-        c, lab = workload.make_bench_cloud(N_POINTS, seed=seed)
-        t0 = time.perf_counter()
-        staged = model.stage(c)
-        t1 = time.perf_counter()
-        out, diag = model.predict_staged(staged, with_diag=True)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        steps.append((1e3 * (t2 - t0), 1e3 * (t1 - t0), 1e3 * (t2 - t1)))
-        diags.append({k: int(v) for k, v in diag.items()})
-        accs.append(float((out.cpu().numpy() == lab).mean()))
-    launches = pm.packed_moments.launches
-    serve_launches = launches - fit_launches
+    fit_counts = _counts()
+    served = [workload.make_bench_cloud(N_POINTS, seed=s) for s in (0, 1, 2)]
+    clouds = [c for c, _ in served]
+    truths = [t for _, t in served]
+    steps, packed_labels, _, diags = _serve(model, clouds)
+    counts = _counts()
+    serve_launches = counts["packed_moments"] \
+        - fit_counts["packed_moments"]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[main] fit {fit_s:.3f} s ({fit_launches} kernel launches); "
-          f"serve steps ms (total, stage, predict+sync): "
-          + "; ".join(f"{t:.3f}, {s:.3f}, {p:.3f}" for t, s, p in steps)
-          + f"; {serve_launches} serve launches; accuracy "
-          + ", ".join(f"{a:.4f}" for a in accs)
-          + f"; counters {diags}; peak {peak_gb:.3f} GiB", flush=True)
-    _check(fit_launches > 0, "the kernel did not run in fit")
+    accs = _check_served("packed", diags, packed_labels, truths)
+    print(f"[main] fit {fit_s:.3f} s ({fit_counts['packed_moments']} "
+          f"kernel launches); serve steps ms (total, stage, predict+sync): "
+          f"{_steps_text(steps)}; {serve_launches} serve launches; "
+          "accuracy " + ", ".join(f"{a:.4f}" for a in accs)
+          + f"; counters {diags}; launches {counts}; peak {peak_gb:.3f} GiB",
+          flush=True)
+    _check(fit_counts["packed_moments"] > 0, "the kernel did not run in fit")
     _check(serve_launches > 0, "the kernel did not run in serving")
-    for d in diags:
-        _check(all(d[k] == 0 for k in COUNTERS), f"overflow counters {d}")
-    _check(all(a > 0.8 for a in accs), f"accuracy {accs}")
+    _check(counts["span_moments"] == 0 and counts["entry_moments"] == 0,
+           f"the packed path ran another kernel: {counts}")
+    launches = {"packed_moments": counts["packed_moments"]}
     if args.profile:
         _profile_phase(model, args.profile)
 
-    # -- the same model on the CPU (plain twin) vs the card ------------------
-    small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
-    gpu = workload.make_bench_model(small, device=device)
-    gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
-    clf = gpu.classifier
-    cpu = workload.make_bench_model(small, device="cpu")
-    cpu.install_classifier(SoftmaxClassifier.from_state(
-        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
-        clf.scale_.cpu(), device="cpu"), small)
-    other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
-    g_lab, g_prob = gpu.predict_staged(gpu.stage(other), with_proba=True)
-    t0 = time.perf_counter()
-    c_lab = cpu.predict_staged(cpu.stage(other))
-    cpu_s = time.perf_counter() - t0
-    g_prob = g_prob.cpu()
-    top2 = torch.sort(g_prob, dim=1).values[:, -2:]
-    near_tie = (top2[:, 1] - top2[:, 0]) < TIE_GAP
-    differ = g_lab.cpu() != c_lab
-    print(f"[e2e] {E2E_POINTS} points: {int(differ.sum())} labels differ "
-          f"(card vs cpu), {int(near_tie.sum())} near-ties; cpu serve "
-          f"{cpu_s:.2f} s", flush=True)
-    _check(not bool((differ & ~near_tie).any()),
-           "card and cpu labels differ away from near-ties")
-    _check(int(differ.sum()) <= 0.001 * E2E_POINTS, "too many label flips")
+    launches["span_moments"], record["span_moments"] = _span_phase(
+        model, packed_labels, clouds, truths, cloud, device, args.profile)
+    launches["entry_moments"], record["entry_moments"] = _tiled_phase(
+        model, cloud, device)
+    _e2e_phase(device)
 
+    sources = {
+        "packed_moments": "nimrud_tpu/ops/pallas/packed_kernel.py:236",
+        "span_moments": "nimrud_tpu/ops/pallas/gather_kernel.py:330",
+        "entry_moments": "nimrud_tpu/ops/pallas/multiscale_kernel.py:84"}
     print(json.dumps({"kernels": [{
-        "name": "packed_moments", "route": "cuda",
-        "source": "nimrud_tpu_torch/csrc/packed_moments.cu",
-        "replaces": "nimrud_tpu/ops/pallas/packed_kernel.py:236",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kms["serve"][0], "plain_ms": kms["serve"][1]}]}))
+        "name": kernel, "route": "cuda",
+        "source": f"nimrud_tpu_torch/csrc/{kernel}.cu",
+        "replaces": replaces, "launches": launches[kernel],
+        "max_abs_err": record[kernel][0], "ms": record[kernel][1],
+        "plain_ms": record[kernel][2]}
+        for kernel, replaces in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
 """
-Multiscale feature extraction of the port (the packed branch of
-``nimrud_tpu/features/multiscale.py:extract_scaleset_fused``, plus the
-host helpers it needs, copied: ``_pow2_bucket``, ``_pad_rows_f32`` and
-the NumPy branch of ``_host_unique_voxels``).
+Multiscale feature extraction of the port (the packed and span
+branches of ``nimrud_tpu/features/multiscale.py:extract_scaleset_fused``,
+plus the host helpers they need, copied: ``_pow2_bucket``,
+``_pad_rows_f32`` and the NumPy branch of ``_host_unique_voxels``).
 
 For each band ``(voxel_edge, radii)`` the search cloud is
 voxel-downsampled on the device and every query's neighborhood moments
-come from the packed-candidate kernel; bands concatenate left to right.
+come from the packed-candidate or the span kernel; bands concatenate
+left to right.
 """
 
 import numpy as np
@@ -62,17 +63,27 @@ def _host_unique_voxels(search, edge, bounds=None):
 
 
 def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
-                           bounds=None, m=3, device):
+                           bounds=None, m=3, backend="packed", device):
     """
     Multiscale features for every query point, on ``device``: per band a
-    device voxel downsample and the packed-candidate extraction
-    (``q_cap`` 256, segments of 32 coarse tiles, entry capacity from the
-    measured occupancy, candidate capacity sized on the host).
+    device voxel downsample and one fused extraction (``q_cap`` 256,
+    segments of 32 coarse tiles, entry capacity from the measured
+    occupancy).  ``backend="packed"`` packs candidate blocks at a
+    capacity sized on the host (``packed_moments``); ``"pallas"`` reads
+    the candidate spans in place (``span_moments``), with no candidate
+    cap.
 
     ``bounds``: fixed site (lo, hi) governing every grid; default the
     clouds' own bounds, with voxel grids anchored at the search bounds.
     Returns an (n_query, width) float32 tensor.
     """
+    if backend == "xla":
+        raise NotImplementedError(
+            "the XLA candidate-table backend is not ported (ROADMAP.md "
+            "Queue A #11)")
+    if backend not in ("packed", "pallas"):
+        raise ValueError(f"unknown backend {backend!r}: must be 'packed' "
+                         "or 'pallas'")
     query = np.asarray(query, dtype=np.float32)[:, :3]
     search = np.asarray(search, dtype=np.float32)[:, :3]
     scaleset = [(float(edge), tuple(float(r) for r in radii))
@@ -107,6 +118,11 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
             lo, hi, max(radii), n_query=q_bucket, m=m, q_cap=256,
             voxel_edge=edge, entry_batch=256, x_seg=32)
         spec = device_grid.with_entry_estimate(spec, query)
+        if backend == "pallas":
+            bands.append(device_grid.fused_extract_spans(
+                query_dev, q_valid, centers, center_mask, spec, radii, kind,
+                n_query))
+            continue
         cap = span_host.candidate_cap(
             query, _host_unique_voxels(search, edge, bounds=bounds), spec)
         bands.append(device_grid.fused_extract_packed(

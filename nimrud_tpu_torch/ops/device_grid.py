@@ -1,12 +1,14 @@
 """
-Device-resident packed extraction (port of the packed path of
-``nimrud_tpu/ops/device_grid.py``).
+Device-resident packed and span extraction (port of the packed and span
+paths of ``nimrud_tpu/ops/device_grid.py``).
 
 One query plan packs queries into entries of ``q_cap`` consecutive
 tile-sorted ranks within coarse-row segments; each band derives every
 entry's candidate x-row spans from its own fine grid, packs them into
 one ``c_cap``-lane candidate block per entry (split into capacity
-buckets), and runs the ``packed_moments`` kernel.  The TPU-only layout
+buckets), and runs the ``packed_moments`` kernel.  The span path
+(:func:`fused_extract_spans`) hands the same spans to the
+``span_moments`` kernel, which reads them in place.  The TPU-only layout
 detours (lanes-major search tables, VMEM entry batching, gather
 chunking) are not ported: the port keeps one layout per table.
 
@@ -24,19 +26,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nimrud_tpu_torch.ops.grid import _pow2
 from nimrud_tpu_torch.ops.packing import scalar
+from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
 from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import moments_from_slabs
 
 _BIG = 2**31 - 1
-
-
-def _pow2(n, minimum=8):
-    """Copy of ``nimrud_tpu/ops/grid.py:_pow2``."""
-    out = minimum
-    while out < n:
-        out *= 2
-    return out
 
 
 @dataclass(frozen=True)
@@ -360,11 +356,12 @@ def _band_spans(plan, search, s_valid, spec, presorted=False):
 
 def _span_problem(query, q_valid, search, s_valid, spec):
     """Single-band plan: the entry packing on the band's own grid plus
-    its candidate spans."""
+    its candidate spans, and the entry-local queries."""
     plan = _pack_plan(query, q_valid, spec)
     band = _band_spans(plan, search, s_valid, spec)
     q_pts = plan["q_t"].transpose(1, 2)               # (E, q_cap, 3)
-    return {**plan, **band, "q_pts": q_pts}
+    q_local = q_pts - plan["centers"][:, None, :]
+    return {**plan, **band, "q_pts": q_pts, "q_local": q_local}
 
 
 # -- back to caller order -----------------------------------------------------
@@ -528,6 +525,36 @@ def _band_blocks(kind, q_t, centers, starts, lens, sorted3, c_cap, radii):
               for p, radius in zip(moments_from_slabs(slabs, centers, radii),
                                    radii)]
     return blocks, dropped
+
+
+def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
+                        kind, n_out, with_stats=False):
+    """
+    Padded clouds -> (n_out, width) features of one band through the
+    span kernel ``span_moments``, in caller order: the kernel reads each
+    entry's candidate x-row spans straight out of the tile-sorted search
+    rows (no candidate block is packed).  Every live row of a span
+    counts, so no candidate is dropped; ``with_stats`` gives
+    ``dropped_query`` (queries without an entry slot).
+    """
+    from nimrud_tpu_torch.features import layouts
+
+    prob = _span_problem(query, q_valid, search, s_valid, spec)
+    centers = prob["centers"]
+    slabs = gk.span_moments(
+        prob["q_local"].contiguous(), centers.contiguous(),
+        prob["span_starts"].to(torch.int32).contiguous(),
+        prob["span_lens"].to(torch.int32).contiguous(),
+        prob["sorted_pts"].contiguous(), radii, prob["span_rows"])
+    blocks = [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
+                                  prob["q_pts"], radius)
+              for p, radius in zip(moments_from_slabs(slabs, centers, radii),
+                                   radii)]
+    feats = torch.cat(blocks, dim=-1)
+    out = _unsort_features(feats, prob, spec, query.shape[0], n_out)
+    if not with_stats:
+        return out
+    return out, {"dropped_query": q_valid.sum() - prob["count"].sum()}
 
 
 def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,

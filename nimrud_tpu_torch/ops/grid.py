@@ -1,0 +1,278 @@
+"""
+Tiled neighbor search (port of the span-free tile-grid path of
+``nimrud_tpu/ops/grid.py``).
+
+The search cloud is binned into cubic tiles of edge >= the largest
+radius and the query cloud into tiles ``m`` times coarser; every query's
+neighborhood lies in the (m+2)^3 search tiles around its query tile.
+:func:`build_tiled_problem` builds the static tables on the host (the
+reference's NumPy branches, copied; the C++ runtime it can call instead
+is not loaded, ROADMAP.md Queue A #16).  :func:`tiled_features` runs
+the moments on the device in entry batches through the
+``entry_moments`` kernel (the reference's ``backend="pallas"`` branch),
+then the feature layout, and scatters the rows back to caller order.
+
+Not ported (ROADMAP.md Queue A #11): the XLA moment path
+(``_entry_stats``, ``backend="xla"``), ``tiled_moments``, attributes,
+``exclude_radius``, the chebyshev metric and reduced precisions.
+"""
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
+
+
+def _pow2(n, minimum=8):
+    out = minimum
+    while out < n:
+        out *= 2
+    return out
+
+
+@dataclass
+class TiledProblem:
+    """Host-built static-shape description of one tiled query/search pair."""
+    query_index: np.ndarray     # (E, Q_CAP) int32 into query array, -1 pad
+    neighbor_rows: np.ndarray   # (E, (m+2)^3) int32 row into candidates
+    candidates: np.ndarray      # (K+1, S_CAP) int32 into search array, -1 pad
+    entry_centers: np.ndarray   # (E, 3) float32 query-tile centers
+    tile_edge: float            # search tile edge (>= max radius)
+    n_query: int
+    stats: dict = field(default_factory=dict)
+
+    @property
+    def n_entries(self):
+        return self.query_index.shape[0]
+
+
+def _linear(coords, d):
+    return coords[:, 0] + coords[:, 1] * d[0] + coords[:, 2] * d[0] * d[1]
+
+
+def _fill_table(order, starts, counts, cap):
+    """(len(starts) + 1, cap) int32 table: row r holds
+    ``order[starts[r] : starts[r] + counts[r]]``, -1 elsewhere (the last
+    row stays all -1)."""
+    table = np.full((len(starts) + 1, cap), -1, dtype=np.int32)
+    row = np.repeat(np.arange(len(starts)), counts)
+    col = (np.arange(int(counts.sum()))
+           - np.repeat(np.cumsum(counts) - counts, counts))
+    table[row, col] = order[np.repeat(starts, counts) + col]
+    return table
+
+
+def build_tiled_problem(query, search, tile_edge, *, query_tile_factor=2,
+                        query_capacity=None, entry_batch=32):
+    """
+    Bin both clouds on the host (NumPy, vectorized).
+
+    Args:
+      tile_edge: search tile edge; must be >= the largest radius later
+                 passed to :func:`tiled_features`.
+      query_tile_factor: query tiles are this many search tiles across
+                 (m).
+      query_capacity: queries per entry; default a power of two around
+                 2x the mean occupied-query-tile population (16..512).
+      entry_batch: the entry count is padded to a multiple of this.
+    """
+    query = np.asarray(query, dtype=np.float32)
+    search = np.asarray(search, dtype=np.float32)
+    tile_edge = float(tile_edge)
+    m = int(query_tile_factor)
+
+    # all cell-assignment math in float64
+    lo = np.minimum(query.min(0), search.min(0)).astype(np.float64) - 1e-3
+    hi = np.maximum(query.max(0), search.max(0)).astype(np.float64) + 1e-3
+    dims = np.maximum(np.ceil((hi - lo) / tile_edge).astype(np.int64), 1)
+    qdims = -(-dims // m)
+    n_grid = int(dims.prod())
+    dense_ok = n_grid <= (1 << 26)
+
+    s_coords = np.clip(
+        np.floor((search.astype(np.float64) - lo) / tile_edge
+                 ).astype(np.int64), 0, dims - 1)
+    s_ids = _linear(s_coords, dims)
+    s_order = np.argsort(s_ids, kind="stable").astype(np.int64)
+    s_sorted_ids = s_ids[s_order]
+
+    q_coords = np.clip(
+        np.floor((query.astype(np.float64) - lo) / tile_edge
+                 ).astype(np.int64), 0, dims - 1) // m
+    q_ids = _linear(q_coords, qdims)
+    q_order = np.argsort(q_ids, kind="stable").astype(np.int64)
+    tile_ids, tile_starts = np.unique(q_ids[q_order], return_index=True)
+    tile_counts = np.diff(np.append(tile_starts, len(query)))
+
+    if query_capacity is None:
+        query_capacity = int(
+            np.clip(_pow2(2 * len(query) // max(len(tile_ids), 1),
+                          minimum=16), 16, 512))
+    q_cap = int(query_capacity)
+
+    # split each query tile into entries of at most q_cap, padded to the
+    # batch multiple
+    entries_per_tile = -(-tile_counts // q_cap)
+    n_entries = int(entries_per_tile.sum())
+    e_pad = ((n_entries + entry_batch - 1) // entry_batch) * entry_batch
+    entry_tile = np.full(e_pad, len(tile_ids), dtype=np.int64)
+    entry_tile[:n_entries] = np.repeat(
+        np.arange(len(tile_ids)), entries_per_tile)
+    entry_rank = np.zeros(e_pad, dtype=np.int64)
+    entry_rank[:n_entries] = (
+        np.arange(n_entries)
+        - np.repeat(np.cumsum(entries_per_tile)
+                    - entries_per_tile, entries_per_tile))
+    tile_starts_ext = np.append(tile_starts, 0)
+    tile_counts_ext = np.append(tile_counts, 0)
+    entry_start = tile_starts_ext[entry_tile] + entry_rank * q_cap
+    entry_count = np.maximum(np.minimum(
+        tile_counts_ext[entry_tile] - entry_rank * q_cap, q_cap), 0)
+    query_index = _fill_table(q_order, entry_start, entry_count, q_cap)[:-1]
+
+    # candidate search tiles per occupied query tile: offsets -1..m
+    n_off = (m + 2) ** 3
+    tile_q_coords = np.stack(
+        [tile_ids % qdims[0],
+         (tile_ids // qdims[0]) % qdims[1],
+         tile_ids // (qdims[0] * qdims[1])], axis=1)
+    offsets = np.array([(dx, dy, dz)
+                        for dx in range(-1, m + 1)
+                        for dy in range(-1, m + 1)
+                        for dz in range(-1, m + 1)], dtype=np.int64)
+    ncoord = (tile_q_coords * m)[:, None, :] + offsets[None, :, :]
+    ok = np.all((ncoord >= 0) & (ncoord < dims), axis=2)
+    nid = np.where(ok, _linear(ncoord.reshape(-1, 3), dims).reshape(
+        ok.shape), -1)                                  # (T, n_off)
+
+    if dense_ok:
+        # dense O(grid) maps: only tiles both occupied and next to a
+        # query tile get candidate rows; empty neighbors share the
+        # all-pad row
+        per_tile_counts = np.bincount(s_ids, minlength=n_grid)
+        tile_first = np.concatenate([[0], np.cumsum(per_tile_counts)])[:-1]
+        neighbor_mask = np.zeros(n_grid, dtype=bool)
+        neighbor_mask[nid[ok]] = True
+        needed = np.nonzero(neighbor_mask & (per_tile_counts > 0))[0]
+        empty_row = len(needed)
+        grid_row = np.full(n_grid, empty_row, dtype=np.int32)
+        grid_row[needed] = np.arange(len(needed), dtype=np.int32)
+        counts = per_tile_counts[needed]
+        starts = tile_first[needed]
+        tile_rows = np.where(
+            nid >= 0, grid_row[np.where(nid < 0, 0, nid)], empty_row
+        ).astype(np.int32)
+    else:
+        # huge sparse grids: binary searches over the sorted tile ids
+        needed = np.unique(nid[ok])
+        empty_row = len(needed)
+        starts = np.searchsorted(s_sorted_ids, needed, side="left")
+        counts = (np.searchsorted(s_sorted_ids, needed, side="right")
+                  - starts)
+        if len(needed):
+            rowpos = np.clip(
+                np.searchsorted(needed, np.where(nid < 0, 0, nid)),
+                0, len(needed) - 1)
+            hit = (nid >= 0) & (needed[rowpos] == nid)
+            tile_rows = np.where(hit, rowpos, empty_row).astype(np.int32)
+        else:
+            tile_rows = np.full((len(tile_ids), n_off), empty_row, np.int32)
+
+    # candidate table: one row per needed tile (+ trailing all-pad row)
+    s_cap = _pow2(int(counts.max()) if len(counts) else 1)
+    candidates = _fill_table(s_order, starts, counts, s_cap)
+
+    # entry_tile's padding rows point at the sentinel row appended here
+    tile_rows_ext = np.vstack(
+        [tile_rows, np.full((1, n_off), empty_row, np.int32)])
+    neighbor_rows = tile_rows_ext[entry_tile]
+    centers_by_tile = np.vstack(
+        [(tile_q_coords + 0.5) * (m * tile_edge) + lo, np.zeros((1, 3))])
+    centers = centers_by_tile[entry_tile]
+
+    fill = entry_count.sum() / max(e_pad * q_cap, 1)
+    return TiledProblem(
+        query_index=query_index,
+        neighbor_rows=neighbor_rows,
+        candidates=candidates,
+        entry_centers=centers.astype(np.float32),
+        tile_edge=tile_edge,
+        n_query=len(query),
+        stats={"q_cap": q_cap, "s_cap": s_cap, "n_off": n_off,
+               "entries": n_entries, "fill": float(fill)})
+
+
+def _gather_batch(query_pad, search_pad, candidates, batch):
+    """One entry batch's queries and flat candidate blocks, global and
+    entry-local.  ``query_pad`` / ``search_pad`` end in a zero row that
+    the -1 pads index."""
+    q_idx, rows, centers = batch
+    n_query_pad = query_pad.shape[0] - 1
+    n_search_pad = search_pad.shape[0] - 1
+    q_pts = query_pad[torch.where(q_idx < 0, n_query_pad, q_idx)]
+    q_local = q_pts - centers[:, None, :]
+    c_idx = candidates[rows]                       # (B, n_off, S_CAP)
+    c_idx = c_idx.reshape(c_idx.shape[0], -1)      # (B, flat)
+    s_valid = c_idx >= 0
+    s_pts = search_pad[torch.where(s_valid, c_idx, n_search_pad)]
+    s_local = s_pts - centers[:, None, :]
+    return q_pts, q_local, s_local, s_valid
+
+
+def tiled_features(problem, query, search, radii, kind, *, entry_batch=32,
+                   backend="pallas", device):
+    """
+    Feature extraction through the tile grid on ``device``: per entry
+    batch the gather, the ``entry_moments`` kernel and the feature
+    layout, then one scatter back to the caller's query order (queries
+    without an entry slot get zeros).  Returns an (n_query, width)
+    float32 tensor.
+    """
+    from nimrud_tpu_torch.features import layouts
+
+    radii = tuple(float(r) for r in radii)
+    if max(radii) > problem.tile_edge + 1e-9:
+        raise ValueError(
+            f"radius {max(radii)} exceeds tile edge {problem.tile_edge}")
+    if backend == "xla":
+        raise NotImplementedError(
+            "tiled_features(backend='xla') (_entry_stats) is not ported "
+            "(ROADMAP.md Queue A #11)")
+    if backend != "pallas":
+        raise ValueError(f"unknown backend {backend!r}")
+
+    def put(array, dtype):
+        return torch.as_tensor(np.asarray(array), device=device).to(dtype)
+
+    zero = torch.zeros((1, 3), dtype=torch.float32, device=device)
+    query_pad = torch.cat([put(query, torch.float32)[:, :3], zero])
+    search_pad = torch.cat([put(search, torch.float32)[:, :3], zero])
+    q_index = put(problem.query_index, torch.int64)
+    rows = put(problem.neighbor_rows, torch.int64)
+    candidates = put(problem.candidates, torch.int64)
+    centers = put(problem.entry_centers, torch.float32)
+
+    feats = []
+    for s in range(0, problem.n_entries, entry_batch):
+        sl = slice(s, s + entry_batch)
+        q_pts, q_local, s_local, s_valid = _gather_batch(
+            query_pad, search_pad, candidates,
+            (q_index[sl], rows[sl], centers[sl]))
+        slabs = mk.entry_moments(q_local.contiguous(), s_local.contiguous(),
+                                 s_valid.contiguous(), radii)
+        feats.append(torch.cat(
+            [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
+                                 q_pts, radius)
+             for p, radius in zip(
+                 mk.moments_from_slabs(slabs, centers[sl], radii), radii)],
+            dim=-1))
+    width = layouts.LAYOUT_WIDTHS[kind] * len(radii)
+    feats = torch.cat(feats).reshape(-1, width)
+    n_query = int(problem.n_query)
+    flat_idx = q_index.reshape(-1)
+    out = torch.zeros((n_query + 1, width), dtype=torch.float32,
+                      device=device)
+    out[torch.where(flat_idx < 0, n_query, flat_idx)] = feats
+    return out[:n_query]

@@ -1,15 +1,214 @@
 """
-Moment-slab conversion shared by the moment kernels (port of
-``nimrud_tpu/ops/pallas/multiscale_kernel.py:moments_from_slabs`` and
-``MOMENT_PAD``; plain math, not a kernel).
+Masked moments over flat per-entry candidate blocks: the port of
+``nimrud_tpu/ops/pallas/multiscale_kernel.py`` (``entry_moments``,
+``moments_from_slabs``, ``MOMENT_PAD``), plus what the port's three
+moment kernels share (squared radii, launch checks, the f32 tolerance
+between two summation orders).
 
-That file's Pallas kernel ``entry_moments`` is not ported yet (see
-ROADMAP.md, Queue B #3).
+``entry_moments`` has two versions with one signature and one layout:
+
+* :func:`entry_moments_plain` -- plain PyTorch, looped over entry
+  chunks.  It is the oracle: the CPU tests hold it against the JAX
+  kernel, and ``chip_smoke.py`` holds the CUDA kernel against it.
+* :func:`entry_moments` -- the wrapper of the hand-written Hopper
+  kernel ``csrc/entry_moments.cu``.  A CPU tensor goes to the plain
+  version; a CUDA tensor launches the kernel or raises.
+  ``entry_moments.launches`` counts kernel launches.
+
+The expanded distance ``d2 = max((|q|^2 + |s|^2) - 2 q.s, 0)`` is this
+kernel's contract (it decides the counts; ``grid._entry_stats`` uses the
+difference form instead).  Both versions form it elementwise in one
+fixed order, ``qq = (q0*q0 + q1*q1) + q2*q2`` (``ss`` alike) and
+``qs = (q0*s0 + q1*s1) + q2*s2``, each operation rounded on its own, so
+the kernel and the plain version give equal counts.  No matmul forms
+``qs``: a library's summation order for K=3 is not fixed.
 """
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
+from nimrud_tpu_torch.ops.kernels import cuda_build
+
 MOMENT_PAD = 16         # 10 moment columns padded to 16 per radius
+MAX_RADII = 4           # the CUDA kernels' template instances
+PAIR_BUDGET = 1 << 25   # (query, candidate) pairs a plain twin forms per
+                        # entry chunk
+
+
+def squared_radii(radii):
+    """f32(r*r) with r*r in float64, exactly as the reference compares
+    ``d2 <= radius * radius`` against a Python float."""
+    return [np.float32(float(r) * float(r)) for r in radii]
+
+
+def padded_radii(radii):
+    """The squared radii as the kernels' four float arguments."""
+    r2 = [float(v) for v in squared_radii(radii)]
+    return r2 + [0.0] * (MAX_RADII - len(r2))
+
+
+def check_radii(radii):
+    if not 1 <= len(radii) <= MAX_RADII:
+        raise ValueError(f"1..{MAX_RADII} radii supported, got {radii}")
+
+
+def check_tensors(device, dtype=torch.float32, **named):
+    """Raise unless each tensor lies on ``device``, has ``dtype`` and is
+    contiguous (what a kernel reading raw pointers needs)."""
+    for name, t in named.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def check_launch(name, err):
+    """Raise on a launcher's nonzero ``cudaGetLastError()``."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def slab_tolerance(slabs, extent, n_terms):
+    """Elementwise bound on |a - b| between two f32 evaluations of the
+    same moment slabs that sum the same rounded terms in different
+    orders.
+
+    Each differs from the exact sum by at most (n_terms - 1) * 2^-24 *
+    sum|term| (any summation order), and sum|term| <= count *
+    max|term|, with max|term| = extent (first moments) or extent^2
+    (second).  ``extent``: (E,) bound on |local coordinate| of the
+    entry's live candidates.  Counts get 0: they are exact."""
+    zero = torch.zeros_like(extent)
+    row = torch.stack([zero] + [extent] * 3 + [extent * extent] * 6
+                      + [zero] * (MOMENT_PAD - 10), dim=-1)      # (E, 16)
+    n_r = slabs.shape[2] // MOMENT_PAD
+    counts = slabs[..., 0::MOMENT_PAD]                     # (E, q, n_r)
+    bound = counts[..., None] * row[:, None, None, :]
+    eps = 2.0 * max(n_terms - 1, 1) * 2.0 ** -24
+    return (eps * bound).reshape(slabs.shape[0], slabs.shape[1],
+                                 n_r * MOMENT_PAD)
+
+
+# -- entry_moments ------------------------------------------------------------
+
+def _check_entry(q_local, s_local, s_valid, radii, exclude_radius):
+    if exclude_radius is not None:
+        raise NotImplementedError(
+            "entry_moments is ported without exclude_radius (ROADMAP.md "
+            "Queue A #11)")
+    check_radii(radii)
+    if q_local.dim() != 3 or q_local.shape[2] != 3:
+        raise ValueError(f"q_local must be (E, Q, 3), got "
+                         f"{tuple(q_local.shape)}")
+    n_entries = q_local.shape[0]
+    if s_local.dim() != 3 or s_local.shape[0] != n_entries \
+            or s_local.shape[2] != 3:
+        raise ValueError(f"s_local must be (E, F, 3), got "
+                         f"{tuple(s_local.shape)}")
+    if tuple(s_valid.shape) != tuple(s_local.shape[:2]):
+        raise ValueError("s_valid must be (E, F)")
+    if s_valid.dtype != torch.bool:
+        raise TypeError(f"s_valid must be bool, got {s_valid.dtype}")
+    return n_entries, q_local.shape[1], s_local.shape[1]
+
+
+def _sum_sq(p):
+    """(p0*p0 + p1*p1) + p2*p2 over the last axis, in that order."""
+    return (p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]) \
+        + p[..., 2] * p[..., 2]
+
+
+def entry_moments_plain(q_local, s_local, s_valid, radii,
+                        exclude_radius=None):
+    """
+    Raw masked moments for a batch of entries, plain PyTorch.
+
+    Args:
+      q_local: (E, Q, 3) f32 queries, entry-local frame.
+      s_local: (E, F, 3) f32 candidates, entry-local frame.
+      s_valid: (E, F) bool candidate validity.
+      radii:   tuple of 1..4 radii.
+
+    Returns:
+      (E, Q, len(radii) * 16) f32: per radius [count, sx, sy, sz, sxx,
+      sxy, sxz, syy, syz, szz, 0 x 6]; invalid candidates add nothing.
+    """
+    n_entries, q_cap, flat = _check_entry(q_local, s_local, s_valid, radii,
+                                          exclude_radius)
+    n_r = len(radii)
+    out = torch.zeros((n_entries, q_cap, n_r * MOMENT_PAD),
+                      dtype=torch.float32, device=q_local.device)
+    r2 = [torch.tensor(float(v), dtype=torch.float32, device=q_local.device)
+          for v in squared_radii(radii)]
+    ones = s_valid.to(torch.float32)
+    x, y, z = s_local.unbind(-1)
+    aug = torch.stack([ones, x, y, z, x * x, x * y, x * z, y * y, y * z,
+                       z * z], dim=2) * ones[..., None]          # (E, F, 10)
+    qq, ss = _sum_sq(q_local), _sum_sq(s_local)
+    chunk = max(1, PAIR_BUDGET // max(q_cap * flat, 1))
+    for s in range(0, n_entries, chunk):
+        sl = slice(s, min(s + chunk, n_entries))
+        q = q_local[sl, :, None, :]                        # (e, Q, 1, 3)
+        c = s_local[sl, None, :, :]                        # (e, 1, F, 3)
+        qs = (q[..., 0] * c[..., 0] + q[..., 1] * c[..., 1]) \
+            + q[..., 2] * c[..., 2]                        # (e, Q, F)
+        d2 = torch.clamp((qq[sl, :, None] + ss[sl, None, :]) - 2.0 * qs,
+                         min=0.0)
+        del qs
+        for ri in range(n_r):
+            mask = (d2 <= r2[ri]).to(torch.float32)
+            out[sl, :, ri * MOMENT_PAD:ri * MOMENT_PAD + 10] = \
+                torch.matmul(mask, aug[sl])
+    return out
+
+
+def entry_tolerance(slabs, s_local, s_valid):
+    """:func:`slab_tolerance` for entry slabs: F terms a sum."""
+    extent = torch.where(s_valid[..., None], s_local.abs(), 0.0)
+    return slab_tolerance(slabs, extent.amax(dim=(1, 2)), s_local.shape[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = cuda_build.library("entry_moments").entry_moments_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def entry_moments(q_local, s_local, s_valid, radii, exclude_radius=None):
+    """Raw masked moments (see :func:`entry_moments_plain` for the
+    arguments and layout).  CPU tensors take the plain version; CUDA
+    tensors launch the Hopper kernel, or raise."""
+    n_entries, q_cap, flat = _check_entry(q_local, s_local, s_valid, radii,
+                                          exclude_radius)
+    device = q_local.device
+    if device.type == "cpu":
+        return entry_moments_plain(q_local, s_local, s_valid, radii)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    check_tensors(device, q_local=q_local, s_local=s_local)
+    check_tensors(device, torch.bool, s_valid=s_valid)
+    out = torch.empty((n_entries, q_cap, len(radii) * MOMENT_PAD),
+                      dtype=torch.float32, device=device)
+    if n_entries == 0 or q_cap == 0:
+        return out
+    check_launch("entry_moments", _launcher()(
+        q_local.data_ptr(), s_local.data_ptr(), s_valid.data_ptr(),
+        out.data_ptr(), n_entries, q_cap, flat, len(radii),
+        *padded_radii(radii), device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream))
+    entry_moments.launches += 1
+    return out
+
+
+entry_moments.launches = 0
 
 
 def moments_from_slabs(slabs, centers, radii):

@@ -13,8 +13,8 @@ Two versions with one signature and one output layout:
   tensor goes to the plain version; a CUDA tensor launches the kernel
   or raises.  ``packed_moments.launches`` counts kernel launches.
 
-The kernel is built with nvcc at first use into ``_build/`` (keyed by a
-hash of the source) and loaded through ctypes.
+The kernel is built by ``cuda_build`` at first use and loaded through
+ctypes.
 
 Only the serving path's variant is ported: euclidean metric, no
 exclusion radius, no sazo rows, no attribute rows, full f32.  The
@@ -23,27 +23,17 @@ others raise ``NotImplementedError`` in both versions (ROADMAP.md).
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 
-import numpy as np
 import torch
 
-from nimrud_tpu_torch.ops.kernels.multiscale_kernel import MOMENT_PAD
+from nimrud_tpu_torch.ops.kernels import cuda_build
+from nimrud_tpu_torch.ops.kernels.multiscale_kernel import (
+    MOMENT_PAD, PAIR_BUDGET, check_launch, check_radii, check_tensors,
+    padded_radii, slab_tolerance, squared_radii)
 
 LANES = 128            # c_cap granularity (the packing contract)
-MAX_RADII = 4          # the kernel's template instances
 FAR = 1.0e6            # dead-slot sentinel: d2 >= 1e12 fails every
                        # radius, and 3 * FAR^2 stays finite in f32
-
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_PKG, "csrc", "packed_moments.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
@@ -54,14 +44,7 @@ def _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
             "packed_moments is ported for the serving variant only "
             "(euclidean, no exclude_radius, no sazo, no attributes, "
             "precision='highest'); see ROADMAP.md Queue B #1")
-    if not 1 <= len(radii) <= MAX_RADII:
-        raise ValueError(f"1..{MAX_RADII} radii supported, got {radii}")
-
-
-def _squared_radii(radii):
-    """f32(r*r) with r*r in float64, exactly as the reference compares
-    ``d2 <= radius * radius`` against a Python float."""
-    return [np.float32(float(r) * float(r)) for r in radii]
+    check_radii(radii)
 
 
 def _shapes(q_t, cand_t, centers):
@@ -82,7 +65,7 @@ def _shapes(q_t, cand_t, centers):
 
 def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
                          precision="highest", with_sazo=False, n_attr=0,
-                         metric="euclidean", pair_budget=1 << 25):
+                         metric="euclidean"):
     """
     Raw masked moment slabs, plain PyTorch.
 
@@ -107,9 +90,9 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
     out = torch.zeros((n_entries, q_cap, n_r * MOMENT_PAD),
                       dtype=torch.float32, device=q_t.device)
     r2 = [torch.tensor(float(v), dtype=torch.float32, device=q_t.device)
-          for v in _squared_radii(radii)]
+          for v in squared_radii(radii)]
     cand = cand_t.view(3, n_entries, c_cap)
-    chunk = max(1, pair_budget // max(q_cap * c_cap, 1))
+    chunk = max(1, PAIR_BUDGET // max(q_cap * c_cap, 1))
     for s in range(0, n_entries, chunk):
         sl = slice(s, min(s + chunk, n_entries))
         c = centers[sl]
@@ -131,75 +114,24 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
 
 def moment_tolerance(slabs, cand_t, centers):
     """Elementwise bound on |a - b| between two f32 evaluations of the
-    same moment slabs that sum the candidates in different orders.
-
-    Both sum the same rounded terms, so each differs from the exact sum
-    by at most (c_cap - 1) * 2^-24 * sum|term| (recursive summation),
-    and sum|term| <= count * max|term|.  Counts get 0: they are exact."""
+    same moment slabs that sum the candidates in different orders (see
+    ``multiscale_kernel.slab_tolerance``); at most c_cap terms a sum."""
     n_entries = centers.shape[0]
     c_cap = cand_t.shape[1] // n_entries
     cand = cand_t.view(3, n_entries, c_cap)
     live = cand.abs().amax(0) < FAR / 2                   # (E, c_cap)
     local = (cand - centers.T[:, :, None]).abs()
-    b1 = torch.where(live[None], local, 0.0).amax(dim=(0, 2))    # (E,)
-    zero = torch.zeros_like(b1)
-    row = torch.stack([zero] + [b1] * 3 + [b1 * b1] * 6
-                      + [zero] * (MOMENT_PAD - 10), dim=-1)      # (E, 16)
-    n_r = slabs.shape[2] // MOMENT_PAD
-    counts = slabs[..., 0::MOMENT_PAD]                     # (E, q, n_r)
-    bound = counts[..., None] * row[:, None, None, :]
-    eps = 2.0 * max(c_cap - 1, 1) * 2.0 ** -24
-    return (eps * bound).reshape(slabs.shape[0], slabs.shape[1],
-                                 n_r * MOMENT_PAD)
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                       "build csrc/packed_moments.cu")
-
-
-def build():
-    """Compile the kernel for sm_90a unless a build of this exact
-    source exists.  Returns ``(library path, ptxas report)``; the report
-    is what ``-Xptxas -v`` printed (registers, shared memory, spills)
-    when the library was built.  Raises with nvcc's stderr on failure."""
-    with open(_SRC, "rb") as handle:
-        digest = hashlib.sha256(
-            handle.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"packed_moments-{digest}.so")
-    log = lib[:-3] + ".ptxas.txt"
-    if os.path.exists(lib) and os.path.exists(log):
-        with open(log) as handle:
-            return lib, handle.read()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SRC}:\n"
-            f"{proc.stderr}")
-    with open(log, "w") as handle:
-        handle.write(proc.stderr + proc.stdout)
-    os.replace(tmp, lib)
-    return lib, proc.stderr + proc.stdout
+    extent = torch.where(live[None], local, 0.0).amax(dim=(0, 2))
+    return slab_tolerance(slabs, extent, c_cap)
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    path, _ = build()
-    library = ctypes.CDLL(path)
-    fn = library.packed_moments_launch
+def _launcher():
+    fn = cuda_build.library("packed_moments").packed_moments_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    return library
+    return fn
 
 
 def packed_moments(q_t, cand_t, centers, radii, exclude_radius=None,
@@ -215,28 +147,17 @@ def packed_moments(q_t, cand_t, centers, radii, exclude_radius=None,
     if q_t.device.type != "cuda":
         raise ValueError(f"unsupported device {q_t.device}")
     n_entries, q_cap, c_cap = _shapes(q_t, cand_t, centers)
-    for name, t in (("q_t", q_t), ("cand_t", cand_t), ("centers", centers)):
-        if t.device != q_t.device:
-            raise ValueError(f"{name} is on {t.device}, q_t on {q_t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_tensors(q_t.device, q_t=q_t, cand_t=cand_t, centers=centers)
     n_r = len(radii)
     out = torch.empty((n_entries, q_cap, n_r * MOMENT_PAD),
                       dtype=torch.float32, device=q_t.device)
     if n_entries == 0:
         return out
-    r2 = [float(v) for v in _squared_radii(radii)]
-    r2 += [0.0] * (MAX_RADII - n_r)
-    stream = torch.cuda.current_stream(q_t.device).cuda_stream
-    err = _library().packed_moments_launch(
+    check_launch("packed_moments", _launcher()(
         q_t.data_ptr(), cand_t.data_ptr(), centers.data_ptr(),
-        out.data_ptr(), n_entries, q_cap, c_cap, n_r, *r2,
-        q_t.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"packed_moments kernel launch failed: CUDA "
-                           f"error {err}")
+        out.data_ptr(), n_entries, q_cap, c_cap, n_r,
+        *padded_radii(radii), q_t.device.index or 0,
+        torch.cuda.current_stream(q_t.device).cuda_stream))
     packed_moments.launches += 1
     return out
 

@@ -1,15 +1,18 @@
 """
 The end-to-end model of the port: multiscale geometric features fused
-with per-point classification on one device (port of the packed serving
-path of ``nimrud_tpu/pipeline.py``).
+with per-point classification on one device (port of the packed and
+span serving paths of ``nimrud_tpu/pipeline.py``).
 
 ``GeometryClassifier.fit`` extracts features on the device and trains
 the linear classifier there; ``stage`` quantizes and uploads a cloud;
-``predict_staged`` runs the whole serving step -- per-band voxel dedup,
-one shared query plan, per-band packed candidate blocks through the
-``packed_moments`` kernel, the layout and the classifier in plan order,
-and one scatter back to caller order.  Only labels (and the overflow
-counters) leave the device.
+``predict_staged`` runs the whole serving step.  With the packed backend
+that is per-band voxel dedup, one shared query plan, per-band packed
+candidate blocks through the ``packed_moments`` kernel, the layout and
+the classifier in plan order, and one scatter back to caller order.
+With the span backend (``backend="pallas"``) each band runs its own
+plan and the ``span_moments`` kernel, its features return to caller
+order, and the classifier runs on all bands' features.  Only labels
+(and the overflow counters) leave the device.
 
 The port has one path: configurations it does not carry raise
 (``NotImplementedError``), they never fall back to another method.
@@ -86,12 +89,14 @@ class _FusedReducer:
         return (labels, probs) if self.with_proba else (labels,)
 
 
-def _band_search_prep(search, s_valid, band):
-    """One band's search-side prep: tile-sorted voxel dedup, then the
-    ``v_cap`` prefix trim (voxels past it are counted)."""
+def _band_search_prep(search, s_valid, band, tile_sorted=True):
+    """One band's search-side prep: voxel dedup (tile-sorted for the
+    packed path's presorted tables), then the ``v_cap`` prefix trim
+    (voxels past it are counted)."""
     vox_spec, dev_spec, _, _, v_cap, _ = band
     centers, _, mask = unique.unique_voxels(
-        search, vox_spec, valid=s_valid, tile_spec=dev_spec)
+        search, vox_spec, valid=s_valid,
+        tile_spec=dev_spec if tile_sorted else None)
     vox_dropped = torch.zeros((), dtype=torch.int64, device=search.device)
     if v_cap is not None and v_cap < centers.shape[0]:
         vox_dropped = mask[v_cap:].sum()
@@ -99,16 +104,43 @@ def _band_search_prep(search, s_valid, band):
     return centers, mask, vox_dropped
 
 
-def _fused_predict_step(query, q_valid, clf_params, band_specs, kind,
-                        n_query, dequant=None, with_proba=False):
-    """The whole serving step for one staged cloud, searched against
-    itself: labels (n_query,), probabilities or None, and the five
-    overflow counters."""
+def _step_inputs(query, dequant):
+    """A staged upload as f32 coordinates (dequantized when it came as
+    uint16 steps), and the five overflow counters at zero."""
     if dequant is not None:
         query = _dequantize(query, dequant)
     zero = torch.zeros((), dtype=torch.int64, device=query.device)
-    diag = dict.fromkeys(COUNTERS, zero)
+    return query, dict.fromkeys(COUNTERS, zero)
 
+
+def _span_predict_step(query, q_valid, clf_params, band_specs, kind,
+                       n_query, dequant=None, with_proba=False):
+    """The span backend's serving step (the reference's per-band loop):
+    per band its own plan through ``span_moments``, features in caller
+    order, then the classifier on the concatenated bands."""
+    query, diag = _step_inputs(query, dequant)
+    bands = []
+    for band in band_specs:
+        centers, mask, v_inc = _band_search_prep(query, q_valid, band,
+                                                 tile_sorted=False)
+        diag["vox_dropped"] = diag["vox_dropped"] + v_inc
+        feats, stats = device_grid.fused_extract_spans(
+            query, q_valid, centers, mask, band[1], band[2], kind, n_query,
+            with_stats=True)
+        diag["dropped_query"] = diag["dropped_query"] \
+            + stats["dropped_query"]
+        bands.append(feats)
+    probs = classify_features(clf_params, torch.cat(bands, dim=1))
+    labels = torch.argmax(probs, dim=1).to(torch.int32)
+    return labels, probs if with_proba else None, diag
+
+
+def _fused_predict_step(query, q_valid, clf_params, band_specs, kind,
+                        n_query, dequant=None, with_proba=False):
+    """The packed backend's serving step for one staged cloud, searched
+    against itself: labels (n_query,), probabilities or None, and the
+    five overflow counters."""
+    query, diag = _step_inputs(query, dequant)
     pack_spec = min((b[1] for b in band_specs), key=lambda s: s.tile_edge)
     searches, masks = [], []
     for band in band_specs:
@@ -147,7 +179,10 @@ class GeometryClassifier:
       bounds:     fixed site (lo, hi): one grid for every cloud.
       trim_entries: with ``bounds``, ``fit`` sizes and caches the
                   serving specs from the fit cloud's occupancy.
-      backend:    "packed" ("auto" resolves to it).
+      backend:    "packed" (dense packed candidate blocks; "auto"
+                  resolves to it) or "pallas" (the span kernel reads
+                  candidate spans in place).  Both fit on the packed
+                  path.
       device:     the torch device everything runs on.
     """
 
@@ -163,10 +198,13 @@ class GeometryClassifier:
         if kind != "minimal":
             raise NotImplementedError(
                 f"kind={kind!r} is not ported yet (ROADMAP.md)")
-        if backend not in ("auto", "packed"):
+        if backend == "xla":
             raise NotImplementedError(
-                f"backend={backend!r}: the port serves the packed backend "
-                "only")
+                "backend='xla' (the candidate-table path) is not ported "
+                "(ROADMAP.md Queue A #11)")
+        if backend not in ("auto", "packed", "pallas"):
+            raise ValueError("backend must be packed, pallas or auto")
+        self._backend = "packed" if backend == "auto" else backend
         if transfer_dtype not in ("float32", "uint16"):
             raise ValueError("transfer_dtype must be float32 or uint16")
         self.kind = kind
@@ -191,8 +229,8 @@ class GeometryClassifier:
 
     @property
     def backend(self):
-        """The serving backend: "packed", the only one ported."""
-        return "packed"
+        """The serving backend: "packed" or "pallas"."""
+        return self._backend
 
     # -- features -------------------------------------------------------------
 
@@ -277,12 +315,17 @@ class GeometryClassifier:
 
     def _fused_band_specs(self, cloud, bounds=None):
         """Static per-band specs ``(vox_spec, dev_spec, radii, None,
-        v_cap, c_cap)`` of the serving step, sized on the host: entry
-        capacity from the cloud's segment occupancy, per-band candidate
-        capacities (split into rank buckets) from the host mirror of the
-        shared plan, and per-band voxel capacities from the real voxel
-        count (1.25x + 4096).  Raises where the reference would serve in
-        entry chunks (not ported)."""
+        v_cap, c_cap)`` of the serving step, sized on the host.
+
+        Packed: entry capacity from the cloud's segment occupancy,
+        per-band candidate capacities (split into rank buckets) from the
+        host mirror of the shared plan, and per-band voxel capacities
+        from the real voxel count (1.25x + 4096); raises where the
+        reference would serve in entry chunks (not ported).  Span
+        (``backend="pallas"``): q_cap 256 and the grid's worst-case
+        entry capacity, no voxel or candidate capacity; with
+        ``trim_entries``, :meth:`_size_serving` then sizes the entry
+        and voxel capacities from the fit cloud."""
         key = self._spec_key(cloud.shape[0])
         if self._spec_cache is not None and self._spec_cache[0] == key:
             return self._spec_cache[1]
@@ -294,6 +337,28 @@ class GeometryClassifier:
         lo = np.asarray(bounds[0], np.float64)
         hi = np.asarray(bounds[1], np.float64)
         q_bucket = multiscale._pow2_bucket(cloud.shape[0])
+        if self.backend == "pallas":
+            specs = self._span_band_specs(lo, hi, q_bucket)
+        else:
+            specs = self._packed_band_specs(cloud, lo, hi, q_bucket)
+        if self.bounds is not None:
+            if len(self._stage_spec_cache) > 8:
+                self._stage_spec_cache.clear()
+            self._stage_spec_cache[key] = specs
+        return specs
+
+    def _span_band_specs(self, lo, hi, q_bucket):
+        """Span backend: every band on its own grid, q_cap 256."""
+        return tuple(
+            (packing.GridSpec.fit_bounds(lo, hi, edge),
+             device_grid.make_spec(lo, hi, max(radii), n_query=q_bucket,
+                                   voxel_edge=edge, q_cap=256,
+                                   m=self.tile_m, x_seg=32),
+             radii, None, None, None)
+            for edge, radii in self.scaleset)
+
+    def _packed_band_specs(self, cloud, lo, hi, q_bucket):
+        """Packed backend: capacities measured on ``cloud``."""
         q3 = np.asarray(cloud, np.float32)[:, :3]
         dev_specs = [device_grid.with_entry_estimate(device_grid.make_spec(
             lo, hi, max(radii), n_query=q_bucket, voxel_edge=edge,
@@ -322,12 +387,7 @@ class GeometryClassifier:
             if v_cap >= q_bucket:
                 v_cap = None
             specs.append((vox_spec, dev_spec, radii, None, v_cap, c_cap))
-        specs = tuple(specs)
-        if self.bounds is not None:
-            if len(self._stage_spec_cache) > 8:
-                self._stage_spec_cache.clear()
-            self._stage_spec_cache[key] = specs
-        return specs
+        return tuple(specs)
 
     def stage(self, cloud, search=None):
         """Host prep + upload of one cloud: quantize (uint16) or pad, and
@@ -357,7 +417,9 @@ class GeometryClassifier:
         ``interp_dropped``, ``dropped_candidates``) as device scalars;
         nonzero means the cloud is denser than the capacities were
         sized for."""
-        labels, probs, diag = _fused_predict_step(
+        step = _span_predict_step if self.backend == "pallas" \
+            else _fused_predict_step
+        labels, probs, diag = step(
             staged["query"],
             torch.arange(staged["q_bucket"], device=self.device)
             < staged["n_query"],

@@ -28,11 +28,13 @@ def make_bench_cloud(n=BENCH_N_POINTS, seed=0):
     return cloud, labels
 
 
-def make_bench_model(cloud, epochs=10, device="cuda", **kwargs):
+def make_bench_model(cloud, backend="packed", epochs=10, device="cuda",
+                     **kwargs):
     """The serving configuration bench.py measures: three bands
     (edge, radius) (0.25, 0.5), (0.5, 1.0), (1.0, 2.0), minimal layout,
     linear classifier, uint16 uploads, fixed site bounds, trimmed
-    entries, on ``device``."""
+    entries, on ``device``; ``backend`` "packed" or "pallas" (span
+    serving)."""
     from nimrud_tpu_torch.pipeline import GeometryClassifier
 
     scaleset = [(edge, (radius,))
@@ -40,6 +42,6 @@ def make_bench_model(cloud, epochs=10, device="cuda", **kwargs):
     return GeometryClassifier(
         scaleset, kind="minimal", classifier="linear",
         classifier_kwargs={"epochs": epochs, "seed": 0},
-        transfer_dtype="uint16", backend="packed",
+        transfer_dtype="uint16", backend=backend,
         bounds=(cloud.min(0), cloud.max(0)), trim_entries=True,
         device=device, **kwargs)

@@ -1,7 +1,8 @@
 """
 Tests that need a CUDA card (marker ``gpu``): the hand-written Hopper
-``packed_moments`` kernel against its plain PyTorch twin on the card,
-and a small serving run on the card against the same model on the CPU.
+kernels (``packed_moments``, ``span_moments``, ``entry_moments``)
+against their plain PyTorch twins on the card, and small serving runs
+of both backends on the card against the same model on the CPU.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 from nimrud_tpu_torch.utils import workload
 
@@ -57,12 +60,78 @@ def test_kernel_matches_plain_on_card(cuda, q_cap, c_cap, radii):
     assert bool(torch.isfinite(got).all())
 
 
-def test_serving_on_card_matches_cpu(cuda):
+def _span_problem(n_entries, q_cap, n_span, span_rows, seed):
+    """Spans over a shared cloud: random starts and lengths (a third of
+    them empty), lengths up to past ``span_rows`` (clamped)."""
+    rng = np.random.default_rng(seed)
+    n_pts = 20000
+    centers = (rng.random((n_entries, 3)) * 50).astype(np.float32)
+    owner = rng.integers(0, n_entries, n_pts)
+    pts = (centers[owner] + rng.uniform(-3, 3, (n_pts, 3))).astype(
+        np.float32)
+    order = np.argsort(owner, kind="stable")
+    pts, owner = pts[order], owner[order]
+    first = np.searchsorted(owner, np.arange(n_entries))
+    size = np.bincount(owner, minlength=n_entries)
+    lens = rng.integers(0, span_rows + 8, (n_entries, n_span))
+    lens[rng.random((n_entries, n_span)) < 1 / 3] = 0
+    lens = np.minimum(lens, size[:, None])
+    starts = first[:, None] + (rng.random((n_entries, n_span))
+                               * (size[:, None] - lens + 1)).astype(int)
+    q_local = rng.uniform(-2, 2, (n_entries, q_cap, 3)).astype(np.float32)
+    return (q_local, centers, starts.astype(np.int32),
+            lens.astype(np.int32), pts)
+
+
+@pytest.mark.parametrize("q_cap,n_span,span_rows,radii", [
+    (256, 25, 3136, (0.5,)), (130, 9, 64, (0.5, 2.0)),
+    (16, 100, 40, (0.5, 1.0, 1.5, 2.0))])
+def test_span_kernel_matches_plain_on_card(cuda, q_cap, n_span, span_rows,
+                                           radii):
+    args = [torch.from_numpy(a).to(cuda) for a in
+            _span_problem(41, q_cap, n_span, span_rows, seed=q_cap)]
+    before = gk.span_moments.launches
+    got = gk.span_moments(*args, radii, span_rows)
+    torch.cuda.synchronize()
+    assert gk.span_moments.launches == before + 1
+    ref = gk.span_moments_plain(*args, radii, span_rows)
+    counts = slice(0, None, 16)
+    assert torch.equal(got[..., counts], ref[..., counts])
+    assert ref[..., counts].max() > 0
+    tol = gk.span_tolerance(ref, *args[1:], span_rows)
+    assert bool(((got - ref).abs() <= tol).all())
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("q_cap,flat,radii", [
+    (256, 4000, (0.5,)), (100, 1000, (1.0, 0.5)),
+    (16, 300, (0.5, 1.0, 1.5, 2.0))])
+def test_entry_kernel_matches_plain_on_card(cuda, q_cap, flat, radii):
+    rng = np.random.default_rng(flat)
+    q = rng.uniform(-1.5, 1.5, (19, q_cap, 3)).astype(np.float32)
+    s = rng.uniform(-2.5, 2.5, (19, flat, 3)).astype(np.float32)
+    valid = rng.random((19, flat)) < 0.7
+    args = [torch.from_numpy(a).to(cuda) for a in (q, s, valid)]
+    before = mk.entry_moments.launches
+    got = mk.entry_moments(*args, radii)
+    torch.cuda.synchronize()
+    assert mk.entry_moments.launches == before + 1
+    ref = mk.entry_moments_plain(*args, radii)
+    counts = slice(0, None, 16)
+    assert torch.equal(got[..., counts], ref[..., counts])
+    assert ref[..., counts].max() > 0
+    tol = mk.entry_tolerance(ref, args[1], args[2])
+    assert bool(((got - ref).abs() <= tol).all())
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("backend", ["packed", "pallas"])
+def test_serving_on_card_matches_cpu(cuda, backend):
     cloud, labels = workload.make_bench_cloud(30000, seed=0)
-    gpu = workload.make_bench_model(cloud, device=cuda)
+    gpu = workload.make_bench_model(cloud, backend=backend, device=cuda)
     gpu.fit(cloud, labels, sample=15000)
     clf = gpu.classifier
-    cpu = workload.make_bench_model(cloud, device="cpu")
+    cpu = workload.make_bench_model(cloud, backend=backend, device="cpu")
     cpu.install_classifier(SoftmaxClassifier.from_state(
         clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
         clf.scale_.cpu(), device="cpu"), cloud)

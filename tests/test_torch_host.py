@@ -1,7 +1,8 @@
 """
 The port's host-side copies (NumPy sizing) against the JAX package's
 originals: equal outputs, bit for bit.  Also: importing the port loads
-no jax.
+no jax, and the kernels' nvcc build helper (driven by a stand-in nvcc)
+caches by content and reports failures.
 """
 
 import os
@@ -21,6 +22,7 @@ from nimrud_tpu_torch.features import multiscale as tms
 from nimrud_tpu_torch.ops import device_grid as tdg
 from nimrud_tpu_torch.ops import packing as tpk
 from nimrud_tpu_torch.ops import span_host as tsh
+from nimrud_tpu_torch.ops.kernels import cuda_build
 from nimrud_tpu_torch.utils import workload as twl
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,7 +106,9 @@ def test_pack_plan_and_split_caps_equal():
 
 def test_import_loads_no_jax():
     code = ("import sys, nimrud_tpu_torch, nimrud_tpu_torch.pipeline, "
-            "nimrud_tpu_torch.utils.workload; "
+            "nimrud_tpu_torch.utils.workload, nimrud_tpu_torch.ops.grid, "
+            "nimrud_tpu_torch.ops.kernels.gather_kernel, "
+            "nimrud_tpu_torch.ops.kernels.cuda_build; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nimrud_tpu.')) or m == 'nimrud_tpu');"
             " assert not bad, bad")
@@ -113,3 +117,57 @@ def test_import_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+_NVCC_OK = """
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo call >> "$(dirname "$0")/calls"
+echo library > "$out"
+echo "ptxas info    : Used 40 registers, used 1 barriers, 9216 bytes smem" >&2
+"""
+
+
+def _stand_in_nvcc(tmp_path, monkeypatch, body):
+    """An nvcc on PATH that runs ``body``; builds go under tmp_path."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    return bin_dir / "calls"
+
+
+def test_kernel_build_runs_nvcc_once_per_source(tmp_path, monkeypatch):
+    calls = _stand_in_nvcc(tmp_path, monkeypatch, _NVCC_OK)
+    built = cuda_build.build_all()
+    assert sorted(built) == sorted(cuda_build.KERNELS)
+    for name, (lib, report) in built.items():
+        assert os.path.dirname(lib) == str(tmp_path / "build")
+        assert os.path.basename(lib).startswith(name + "-")
+        assert os.path.exists(lib)
+        assert cuda_build.ptxas_usage(report) == [
+            "Used 40 registers, used 1 barriers, 9216 bytes smem"]
+    assert len(calls.read_text().split()) == len(cuda_build.KERNELS)
+    # an unchanged source is not rebuilt, and its report is kept
+    assert cuda_build.build("span_moments") == built["span_moments"]
+    assert cuda_build.build_all() == built
+    assert len(calls.read_text().split()) == len(cuda_build.KERNELS)
+
+
+def test_kernel_build_failure_raises_with_nvcc_stderr(tmp_path,
+                                                       monkeypatch):
+    _stand_in_nvcc(tmp_path, monkeypatch,
+                   'echo "error: no such intrinsic" >&2\nexit 2\n')
+    with pytest.raises(RuntimeError) as err:
+        cuda_build.build_all()
+    for name in cuda_build.KERNELS:            # every build was waited for
+        assert f"{name}.cu" in str(err.value)
+    assert "no such intrinsic" in str(err.value)
+    left = os.listdir(tmp_path / "build")
+    assert not [f for f in left if f.endswith((".so", ".txt"))]
