@@ -10,12 +10,18 @@ Phases, one or more lines each:
 1. card    -- nvidia-smi name and power limit, torch's device name.
 2. build   -- one nvcc per kernel, all started together: csrc/
               packed_moments.cu, span_moments.cu and entry_moments.cu
-              for sm_90a; ptxas's registers / shared memory / spills.
+              for sm_90a; ptxas's registers / shared memory / spills (no
+              kernel may spill) and, from ``cuobjdump -sass``, the HMMA
+              (tensor-core) instructions of each kernel: every template
+              instance of the two tensor-core kernels must hold some.
 3. kernel  -- the CUDA ``packed_moments`` against its plain PyTorch twin
               on the card, at the packed path's shapes (serving: q_cap
-              512, band-1 capacity buckets; fit: q_cap 256): counts
-              equal, moments within ``moment_tolerance``; CUDA-event
-              times.
+              512, band-1 capacity buckets; fit: q_cap 256), at both
+              precisions: counts equal, moments within
+              ``moment_tolerance``; CUDA-event times, the pairs and the
+              bound reckoned from the inputs (``packed_moments_work``),
+              the share of the bound, the largest error as a share of
+              its tolerance; the SM clock read right after.
 4. main    -- the packed path: ``make_bench_cloud(1_000_000)``,
               ``make_bench_model``, ``fit(sample=100_000)``, then
               ``stage`` + ``predict_staged`` on three clouds (seeds 0, 1,
@@ -35,7 +41,7 @@ Phases, one or more lines each:
               rounding bound of r^2, the other features within their
               f32 rounding bounds where no candidate is that close.
               Then ``span_moments`` against its plain twin at the
-              path's band-1 shapes.
+              path's band-1 shapes, as in phase 3.
 6. tiled   -- the tiled entry path, per band: ``build_tiled_problem``
               on the host (voxel centers as the search cloud, tile edge
               = radius, m = 3, entry batch 256), ``tiled_features`` on
@@ -60,7 +66,9 @@ wall time of ``predict_staged`` + synchronize, the device's idle share
 and the largest kernels by device time; the chrome traces and the full
 kernel tables go to ``DIR``.
 
-Then a JSON line with the kernel records and, last, the result line.
+Then a JSON line with the kernel records (times, pairs, bound, launches
+on the paths; ``library_ms`` is null: no single PyTorch call computes a
+masked moment sum) and, last, the result line.
 Any failure raises (exit code 1).  Without a CUDA device it exits with
 code 2 and prints no result.
 """
@@ -91,6 +99,7 @@ WITNESS_SAMPLE = 4096      # points a cloud held against float64 counts
 EPS32 = 2.0 ** -24         # f32 unit roundoff
 TILED_BATCH = 256
 COUNT_COLS = slice(0, None, 16)
+MMA_KERNELS = ("packed_moments", "span_moments")   # tensor-core sums
 
 
 def _check(ok, what):
@@ -111,21 +120,54 @@ def _events_ms(fn, repeat):
     return start.elapsed_time(stop) / repeat
 
 
-def _hold(what, kernel, plain, tolerance):
-    """One kernel launch against its plain twin on the same inputs:
-    counts equal, moments within ``tolerance(ref)``, finite.  Returns
-    (max abs error, kernel ms, plain ms)."""
+def _compare(what, got, ref, tolerance):
+    """Counts equal, moments within ``tolerance``, finite.  Returns (max
+    abs error, the largest error as a share of its tolerance)."""
     import torch
-    got = kernel()
-    torch.cuda.synchronize()
-    ref = plain()
     _check(torch.equal(got[..., COUNT_COLS], ref[..., COUNT_COLS]),
            f"{what}: counts differ")
     err = (got - ref).abs()
-    _check(bool((err <= tolerance(ref)).all()),
-           f"{what}: moments outside tolerance")
+    _check(bool((err <= tolerance).all()), f"{what}: moments outside "
+           "tolerance")
     _check(bool(torch.isfinite(got).all()), f"{what}: non-finite slabs")
-    return float(err.max()), _events_ms(kernel, 5), _events_ms(plain, 3)
+    share = torch.where(tolerance > 0, err / tolerance, torch.zeros_like(err))
+    return float(err.max()), float(share.max())
+
+
+def _hold(what, kernel, plain, tolerance,
+          precisions=("highest", "bf16x2")):
+    """One kernel launch against its plain twin on the same inputs, at
+    each of ``precisions`` (``kernel`` and ``plain`` take the precision),
+    then timed at the first.  Returns a dict of the numbers."""
+    import torch
+    rec = {"max_abs_err": 0.0}
+    for precision in precisions:
+        got = kernel(precision)
+        torch.cuda.synchronize()
+        ref = plain(precision)
+        tol = tolerance(ref)
+        err, share = _compare(f"{what} {precision}", got, ref, tol)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec[f"{precision}_err_share"] = share
+        del got, ref, tol
+    rec["ms"] = _events_ms(lambda: kernel(precisions[0]), 5)
+    rec["plain_ms"] = _events_ms(lambda: plain(precisions[0]), 3)
+    return rec
+
+
+def _work_text(rec, work):
+    """The kernel line's numbers: pairs, bound, share, errors."""
+    share = work["bound_ms"] / rec["ms"]
+    text = (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; "
+            f"{work['pairs']} pairs, bound {work['bound_ms']:.4f} ms "
+            f"({work['bound_term']}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in work["terms_ms"].items())
+            + f"), {100 * share:.1f}% of bound; max_abs_err "
+            f"{rec['max_abs_err']:.3g}, largest error as a share of its "
+            "tolerance " + ", ".join(
+                f"{k[:-10]} {v:.3g}" for k, v in rec.items()
+                if k.endswith("_err_share")))
+    return text
 
 
 def _kernels():
@@ -165,13 +207,13 @@ def _staged_band1(model, cloud, device):
     return band, query, valid, centers, mask
 
 
-def _packed_kernel_phase(model, cloud, device):
-    """packed_moments vs plain at the shapes the packed path gives it."""
+def _packed_problems(model, cloud, device):
+    """The packed path's band-1 kernel inputs: ``(side, (q_t, cand_t,
+    centers), radii)`` per serving bucket and fit bucket."""
     import numpy as np
     import torch
     from nimrud_tpu_torch.features import multiscale
     from nimrud_tpu_torch.ops import device_grid, packing, span_host, unique
-    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 
     problems = []
     # serving: band 1 (the pack grid) at q_cap 512, split capacities
@@ -205,36 +247,58 @@ def _packed_kernel_phase(model, cloud, device):
         prob["span_lens"], device_grid._far_extended(prob["sorted_pts"]),
         int(cap))
     problems += [("fit", b[:3], radii) for b in buckets]
+    return problems
 
-    rows, max_err = [], 0.0
-    ms = {"serve": [0.0, 0.0], "fit": [0.0, 0.0]}
-    for side, (q_t, cand_t, cen), rr in problems:
+
+def _packed_kernel_phase(model, cloud, device):
+    """packed_moments vs plain at the shapes the packed path gives it."""
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+
+    sides = {"serve": [], "fit": []}
+    for side, (q_t, cand_t, cen), rr in _packed_problems(model, cloud,
+                                                         device):
         c_cap = cand_t.shape[1] // q_t.shape[0]
-        shape = f"E={q_t.shape[0]} q_cap={q_t.shape[2]} c_cap={c_cap}"
-        err, k_ms, p_ms = _hold(
+        shape = (f"E={q_t.shape[0]} q_cap={q_t.shape[2]} c_cap={c_cap} "
+                 f"radii={len(rr)}")
+        work = pm.packed_moments_work(q_t, cand_t, cen, rr)
+        rec = _hold(
             f"packed_moments {side} {shape}",
-            lambda: pm.packed_moments(q_t, cand_t, cen, rr),
-            lambda: pm.packed_moments_plain(q_t, cand_t, cen, rr),
+            lambda p: pm.packed_moments(q_t, cand_t, cen, rr, precision=p),
+            lambda p: pm.packed_moments_plain(q_t, cand_t, cen, rr,
+                                              precision=p),
             lambda ref: pm.moment_tolerance(ref, cand_t, cen))
-        max_err = max(max_err, err)
-        ms[side][0] += k_ms
-        ms[side][1] += p_ms
-        rows.append(f"{side} {shape} kernel {k_ms:.4f} ms plain "
-                    f"{p_ms:.4f} ms max_abs_err {err:.3g}")
-    for row in rows:
-        print(f"[kernel] packed_moments {row}")
-    print(f"[kernel] packed_moments serving band-1 total: kernel "
-          f"{ms['serve'][0]:.4f} ms, plain {ms['serve'][1]:.4f} ms; fit "
-          f"band-1 total: kernel {ms['fit'][0]:.4f} ms, plain "
-          f"{ms['fit'][1]:.4f} ms", flush=True)
-    return max_err, ms["serve"][0], ms["serve"][1]
+        live = work["pairs"] / (q_t.shape[0] * c_cap * q_t.shape[2])
+        print(f"[kernel] packed_moments {side} {shape} (live share of "
+              f"lanes {live:.3f}): {_work_text(rec, work)}", flush=True)
+        sides[side].append((rec, work))
+    totals = {side: _total(rows) for side, rows in sides.items()}
+    for side, (rec, work) in totals.items():
+        print(f"[kernel] packed_moments {side} band-1 total: "
+              f"{_work_text(rec, work)}", flush=True)
+    return totals["serve"]
 
 
-def _span_kernel_phase(model, cloud, device):
-    """span_moments vs plain at the span serving path's band-1 shapes."""
+def _total(rows):
+    """Sum the records and works of one call's buckets: times, pairs
+    and bounds add; errors take the largest."""
+    rec, work = {}, {"terms_ms": {}}
+    for r, w in rows:
+        for k, v in r.items():
+            add = k.endswith("ms")
+            rec[k] = rec.get(k, 0.0) + v if add else max(rec.get(k, 0.0), v)
+        work["pairs"] = work.get("pairs", 0) + w["pairs"]
+        work["bound_ms"] = work.get("bound_ms", 0.0) + w["bound_ms"]
+        for k, v in w["terms_ms"].items():
+            work["terms_ms"][k] = work["terms_ms"].get(k, 0.0) + v
+    work["bound_term"] = max(work["terms_ms"], key=work["terms_ms"].get)
+    return rec, work
+
+
+def _span_problem(model, cloud, device):
+    """The span serving path's band-1 kernel inputs: (args, radii,
+    span_rows)."""
     import torch
     from nimrud_tpu_torch.ops import device_grid
-    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
 
     band, query, valid, centers, mask = _staged_band1(model, cloud, device)
     prob = device_grid._span_problem(query, valid, centers, mask, band[1])
@@ -242,19 +306,31 @@ def _span_kernel_phase(model, cloud, device):
             prob["span_starts"].to(torch.int32).contiguous(),
             prob["span_lens"].to(torch.int32).contiguous(),
             prob["sorted_pts"].contiguous())
-    radii, span_rows = band[2], prob["span_rows"]
+    return args, band[2], prob["span_rows"]
+
+
+def _span_kernel_phase(model, cloud, device):
+    """span_moments vs plain at the span serving path's band-1 shapes."""
+    import torch
+    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+
+    args, radii, span_rows = _span_problem(model, cloud, device)
+    totals = torch.clamp(args[3], 0, span_rows).sum(1)
     shape = (f"E={args[0].shape[0]} q_cap={args[0].shape[1]} "
              f"n_span={args[2].shape[1]} span_rows={span_rows} "
-             f"live rows {int(args[3].sum())}")
-    err, k_ms, p_ms = _hold(
+             f"live rows {int(totals.sum())}, "
+             f"{int((totals % 16 != 0).sum())} entries of a total not a "
+             "multiple of 16")
+    work = gk.span_moments_work(*args, radii, span_rows)
+    rec = _hold(
         f"span_moments {shape}",
-        lambda: gk.span_moments(*args, radii, span_rows),
-        lambda: gk.span_moments_plain(*args, radii, span_rows),
+        lambda p: gk.span_moments(*args, radii, span_rows, precision=p),
+        lambda p: gk.span_moments_plain(*args, radii, span_rows,
+                                        precision=p),
         lambda ref: gk.span_tolerance(ref, *args[1:], span_rows))
-    print(f"[kernel] span_moments serving band 1 {shape}: kernel "
-          f"{k_ms:.4f} ms plain {p_ms:.4f} ms max_abs_err {err:.3g}",
-          flush=True)
-    return err, k_ms, p_ms
+    print(f"[kernel] span_moments serving band 1 {shape}: "
+          f"{_work_text(rec, work)}", flush=True)
+    return rec, work
 
 
 def _entry_kernel_phase(problem, cloud, search, radii, device):
@@ -279,15 +355,16 @@ def _entry_kernel_phase(problem, cloud, search, radii, device):
     args = (q_local.contiguous(), s_local.contiguous(), s_valid.contiguous())
     shape = (f"E={q_local.shape[0]} Q={q_local.shape[1]} "
              f"F={s_local.shape[1]}")
-    err, k_ms, p_ms = _hold(
+    work = mk.entry_moments_work(*args, radii)
+    rec = _hold(
         f"entry_moments {shape}",
-        lambda: mk.entry_moments(*args, radii),
-        lambda: mk.entry_moments_plain(*args, radii),
-        lambda ref: mk.entry_tolerance(ref, args[1], args[2]))
+        lambda _: mk.entry_moments(*args, radii),
+        lambda _: mk.entry_moments_plain(*args, radii),
+        lambda ref: mk.entry_tolerance(ref, args[1], args[2]),
+        precisions=("highest",))
     print(f"[kernel] entry_moments tiled band 1, first batch {shape}: "
-          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms max_abs_err "
-          f"{err:.3g}", flush=True)
-    return err, k_ms, p_ms
+          f"{_work_text(rec, work)}", flush=True)
+    return rec, work
 
 
 def _serve(model, clouds, with_proba=False):
@@ -713,6 +790,35 @@ def _profile_phase(model, out_dir):
               f"{n / n_steps:g} calls/step: {name[:90]}", flush=True)
 
 
+def _build_phase(cuda_build):
+    """Build every kernel, all nvcc processes together; print ptxas's
+    usage and the tensor-core instructions of each kernel.  No kernel
+    may spill, and every instance of a tensor-core kernel must hold HMMA
+    instructions."""
+    t0 = time.perf_counter()
+    built = cuda_build.build_all()
+    print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for kernel, (path, report) in built.items():
+        hmma = cuda_build.count_sass(cuda_build.sass(path))
+        print(f"[build] {kernel} ptxas: "
+              + " | ".join(cuda_build.ptxas_usage(report)), flush=True)
+        print(f"[build] {kernel} HMMA instructions (cuobjdump -sass): "
+              + ", ".join(f"{k} {v}" for k, v in hmma.items()), flush=True)
+        _check(cuda_build.spill_bytes(report) == 0, f"{kernel} spills")
+        if kernel in MMA_KERNELS:
+            _check(len(hmma) == 4 and min(hmma.values()) > 0,
+                   f"{kernel}: a template instance without HMMA {hmma}")
+
+
+def _smi(query):
+    """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -729,27 +835,18 @@ def main():
     from nimrud_tpu_torch.utils import workload
 
     device = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    print(smi)
+    print(_smi("name,power.limit"))
     print(f"[card] {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices {torch.cuda.device_count()}",
           flush=True)
-
-    t0 = time.perf_counter()
-    built = cuda_build.build_all()
-    print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for kernel, (_, report) in built.items():
-        print(f"[build] {kernel} ptxas: "
-              + " | ".join(cuda_build.ptxas_usage(report)), flush=True)
+    _build_phase(cuda_build)
 
     cloud, labels = workload.make_bench_cloud(N_POINTS, seed=0)
     model = workload.make_bench_model(cloud, device=device)
     record = {"packed_moments": _packed_kernel_phase(model, cloud, device)}
+    print("[kernel] SM clock, max SM clock: "
+          + _smi("clocks.sm,clocks.max.sm"), flush=True)
 
     # -- the packed path, counted from zero ----------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -770,7 +867,8 @@ def main():
     accs = _check_served("packed", diags, packed_labels, truths)
     print(f"[main] fit {fit_s:.3f} s ({fit_counts['packed_moments']} "
           f"kernel launches); serve steps ms (total, stage, predict+sync): "
-          f"{_steps_text(steps)}; {serve_launches} serve launches; "
+          f"{_steps_text(steps)}; {serve_launches} serve launches "
+          f"({serve_launches / len(clouds):g} a step); "
           "accuracy " + ", ".join(f"{a:.4f}" for a in accs)
           + f"; counters {diags}; launches {counts}; peak {peak_gb:.3f} GiB",
           flush=True)
@@ -786,19 +884,29 @@ def main():
         model, packed_labels, clouds, truths, cloud, device, args.profile)
     launches["entry_moments"], record["entry_moments"] = _tiled_phase(
         model, cloud, device)
+    print(f"[launches] packed_moments: fit {fit_counts['packed_moments']}, "
+          f"serving {serve_launches / len(clouds):g} a step; span_moments "
+          f"{launches['span_moments'] / len(clouds):g} a step; entry_moments "
+          f"{launches['entry_moments']} a tiled run ({len(model.scaleset)} "
+          "bands)", flush=True)
     _e2e_phase(device)
 
     sources = {
         "packed_moments": "nimrud_tpu/ops/pallas/packed_kernel.py:236",
         "span_moments": "nimrud_tpu/ops/pallas/gather_kernel.py:330",
         "entry_moments": "nimrud_tpu/ops/pallas/multiscale_kernel.py:84"}
+    # no single PyTorch call computes a masked moment sum: library_ms null
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",
         "source": f"nimrud_tpu_torch/csrc/{kernel}.cu",
         "replaces": replaces, "launches": launches[kernel],
-        "max_abs_err": record[kernel][0], "ms": record[kernel][1],
-        "plain_ms": record[kernel][2]}
-        for kernel, replaces in sources.items()]}))
+        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"], "pairs": work["pairs"],
+        "bound_ms": work["bound_ms"],
+        "bound_by": "bytes" if work["bound_term"] == "bytes" else "operations",
+        "library_ms": None}
+        for kernel, replaces in sources.items()
+        for rec, work in [record[kernel]]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

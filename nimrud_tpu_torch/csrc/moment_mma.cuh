@@ -1,0 +1,279 @@
+// Tensor-core masked moment sums, shared by packed_moments.cu and
+// span_moments.cu.
+//
+// A block takes one entry and kWarps * 16 * MT of its queries; each warp
+// owns MT m16 query tiles.  Candidates are staged in shared memory in
+// tiles of kTile (one per thread): the entry-local f32 coordinates for
+// the distance, and the row aug = [1, x, y, z, xx, xy, xz, yy, yz, zz]
+// split into bf16 hi + mid + lo (three bf16 terms rebuild an f32
+// exactly), stored as the 32 columns of an mma B operand:
+//
+//   column 0        1 (the count; 1.0 is exact in bf16)
+//   columns 1..9    hi of x .. zz
+//   columns 10..18  mid
+//   columns 19..27  lo
+//   columns 28..31  0
+//
+// For each k16 step a lane forms the distances of its 2 query rows x 4
+// candidate columns of the m16 x k16 A fragment in the reference's exact
+// order (dx = q - x, (dx*dx + dy*dy) + dz*dz, every operation rounded on
+// its own, no FMA), compares each with the caller's f32(r*r) and packs
+// the 0/1 results as bf16 pairs.  Per radius, four mma.sync m16n8k16
+// (bf16 in, f32 accumulate) multiply that mask by the 32 columns.  The
+// products are exact (0/1 times a bf16 term), so counts are exact and
+// the moments differ from an f32 sum only in the order of the sums.  The
+// epilogue adds hi + mid + lo per moment in f32 and writes the
+// (q_cap, 16 * NR) slab rows; rows past q_cap are never stored.
+//
+// A k16 group of candidates that holds only dead rows (the FAR sentinel
+// at all three coordinates, or the pad past a ragged tail) is skipped:
+// its rows would add 0.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace moment_mma {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = kThreads;         // candidates per tile, one a thread
+constexpr int kGroups = kTile / 16;     // k16 steps per tile
+constexpr int kCols = 32;               // B columns (see the header)
+constexpr int kLd = kTile + 8;          // B column stride: 16-byte pad, so
+                                        // ldmatrix rows hit distinct banks
+constexpr int kPad = 16;                // slab width per radius (MOMENT_PAD)
+constexpr int kMaxRadii = 4;
+constexpr float kFar = 1.0e6f;
+
+struct Radii {
+  float r2[kMaxRadii];
+};
+
+// m16 query tiles per warp: two at one radius (the main path), one at
+// more radii so the accumulators stay in registers
+template <int NR>
+struct Shape {
+  static constexpr int kMT = NR == 1 ? 2 : 1;
+  static constexpr int kQueries = kWarps * 16 * kMT;   // per block
+};
+
+struct Tile {
+  float x[kTile], y[kTile], z[kTile];
+  alignas(16) unsigned short aug[kCols * kLd];   // bf16 bits
+  int live[kGroups];
+};
+
+union Smem {
+  Tile tile;
+  float epi[kWarps][16][kCols + 1];     // per-warp epilogue staging
+};
+
+__device__ __forceinline__ void split3(float v, __nv_bfloat16& hi,
+                                       __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(v);
+  const float rem = __fsub_rn(v, __bfloat162float(hi));
+  mid = __float2bfloat16_rn(rem);
+  lo = __float2bfloat16_rn(__fsub_rn(rem, __bfloat162float(mid)));
+}
+
+// Stage candidate j (global coordinates p*, entry center c*) into the
+// tile.  Dead rows -- all three coordinates at the FAR sentinel -- keep
+// their far local coordinates (every distance test fails) and a zero
+// aug row.  Every thread of the block calls this once per tile; the
+// warp then publishes one live flag per k16 group.
+__device__ __forceinline__ void stage_row(Tile& s, float px, float py,
+                                          float pz, float cx, float cy,
+                                          float cz) {
+  const int j = threadIdx.x;
+  const bool live = !(px == kFar && py == kFar && pz == kFar);
+  const float x = __fsub_rn(px, cx);
+  const float y = __fsub_rn(py, cy);
+  const float z = __fsub_rn(pz, cz);
+  s.x[j] = x;
+  s.y[j] = y;
+  s.z[j] = z;
+  const float v[9] = {x, y, z,
+                      __fmul_rn(x, x), __fmul_rn(x, y), __fmul_rn(x, z),
+                      __fmul_rn(y, y), __fmul_rn(y, z), __fmul_rn(z, z)};
+  unsigned short* col = s.aug + j;
+  col[0] = live ? 0x3f80 : 0;                        // bf16 1.0 or 0
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    __nv_bfloat16 hi, mid, lo;
+    split3(live ? v[i] : 0.f, hi, mid, lo);
+    col[(1 + i) * kLd] = __bfloat16_as_ushort(hi);
+    col[(10 + i) * kLd] = __bfloat16_as_ushort(mid);
+    col[(19 + i) * kLd] = __bfloat16_as_ushort(lo);
+  }
+#pragma unroll
+  for (int c = 28; c < kCols; ++c) col[c * kLd] = 0;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  const int lane = threadIdx.x & 31;
+  if ((lane & 15) == 0)
+    s.live[j >> 4] = ((ballot >> (lane & 16)) & 0xffffu) != 0;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The reference's distance: no FMA, every operation rounded on its own.
+__device__ __forceinline__ float dist2(float qx, float qy, float qz,
+                                       float x, float y, float z) {
+  const float dx = __fsub_rn(qx, x);
+  const float dy = __fsub_rn(qy, y);
+  const float dz = __fsub_rn(qz, z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+// Two 0/1 masks as a bf16 pair, the lower column in the low half:
+// (d2 <= r2) is 1.0f = 0x3f800000 or 0, whose high half is bf16 1 or 0.
+__device__ __forceinline__ uint32_t mask_pair(float d2_lo, float d2_hi,
+                                              float r2) {
+  return __byte_perm(__float_as_uint(d2_lo <= r2 ? 1.f : 0.f),
+                     __float_as_uint(d2_hi <= r2 ? 1.f : 0.f), 0x7632);
+}
+
+// One warp's query tiles: entry-local coordinates of rows g and g + 8 of
+// each m16 tile, and the accumulators (per radius, tile and n8 tile).
+template <int NR>
+struct Warp {
+  static constexpr int MT = Shape<NR>::kMT;
+  float q[MT][2][3];
+  float acc[NR][MT][4][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[r][m][n][k] = 0.f;
+  }
+
+  // Sum the first n_groups k16 groups of the staged tile.
+  __device__ __forceinline__ void accumulate(const Tile& s, int n_groups,
+                                             const float (&r2)[NR]) {
+    const int lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    // this lane's ldmatrix row: matrix lane >> 3 is (n8 tile, k half)
+    // = ((lane >> 4), (lane >> 3) & 1) of the first x4, n8 tiles 2 and
+    // 3 in the second
+    const int mat = lane >> 3;
+    const uint32_t base =
+        static_cast<uint32_t>(__cvta_generic_to_shared(s.aug)) +
+        2u * static_cast<uint32_t>(((mat >> 1) * 8 + (lane & 7)) * kLd +
+                                   (mat & 1) * 8);
+    for (int kg = 0; kg < n_groups; ++kg) {
+      if (!s.live[kg]) continue;                       // warp-uniform
+      const int k0 = kg * 16;
+      uint32_t b_lo[4], b_hi[4];
+      ldmatrix_x4(b_lo, base + 2u * k0);               // n8 tiles 0, 1
+      ldmatrix_x4(b_hi, base + 2u * (k0 + 16 * kLd));  // n8 tiles 2, 3
+      const uint32_t b[8] = {b_lo[0], b_lo[1], b_lo[2], b_lo[3],
+                             b_hi[0], b_hi[1], b_hi[2], b_hi[3]};
+      // candidate columns 2t, 2t + 1, 2t + 8, 2t + 9 of this k16 step
+      const float2 xa = *reinterpret_cast<const float2*>(s.x + k0 + 2 * t);
+      const float2 xb =
+          *reinterpret_cast<const float2*>(s.x + k0 + 8 + 2 * t);
+      const float2 ya = *reinterpret_cast<const float2*>(s.y + k0 + 2 * t);
+      const float2 yb =
+          *reinterpret_cast<const float2*>(s.y + k0 + 8 + 2 * t);
+      const float2 za = *reinterpret_cast<const float2*>(s.z + k0 + 2 * t);
+      const float2 zb =
+          *reinterpret_cast<const float2*>(s.z + k0 + 8 + 2 * t);
+      const float cx[4] = {xa.x, xa.y, xb.x, xb.y};
+      const float cy[4] = {ya.x, ya.y, yb.x, yb.y};
+      const float cz[4] = {za.x, za.y, zb.x, zb.y};
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float d2[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            d2[i][j] = dist2(q[m][i][0], q[m][i][1], q[m][i][2], cx[j],
+                             cy[j], cz[j]);
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          // A fragment: {row g, cols 2t..}, {row g+8, cols 2t..},
+          // {row g, cols 2t+8..}, {row g+8, cols 2t+8..}
+          const uint32_t a[4] = {mask_pair(d2[0][0], d2[0][1], r2[r]),
+                                 mask_pair(d2[1][0], d2[1][1], r2[r]),
+                                 mask_pair(d2[0][2], d2[0][3], r2[r]),
+                                 mask_pair(d2[1][2], d2[1][3], r2[r])};
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_bf16(acc[r][m][n], a, b[2 * n], b[2 * n + 1]);
+        }
+      }
+    }
+  }
+
+  // Write the slab rows of this warp's queries [q_first, q_first + 16 MT)
+  // of `entry` that lie below q_cap.  The tile's shared memory is free
+  // (the caller synchronised the block after the last accumulate).
+  __device__ __forceinline__ void store(Smem& sm, float* __restrict__ out,
+                                        long long entry, int q_first,
+                                        int q_cap) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    float(*epi)[kCols + 1] = sm.epi[threadIdx.x >> 5];
+    const int row = lane & 15, half = lane >> 4;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int qi = q_first + m * 16 + row;
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        __syncwarp();
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          epi[g][n * 8 + 2 * t] = acc[r][m][n][0];
+          epi[g][n * 8 + 2 * t + 1] = acc[r][m][n][1];
+          epi[g + 8][n * 8 + 2 * t] = acc[r][m][n][2];
+          epi[g + 8][n * 8 + 2 * t + 1] = acc[r][m][n][3];
+        }
+        __syncwarp();
+        if (qi < q_cap) {
+          float o[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int k = half * 8 + c;          // slab column
+            o[c] = k == 0 ? epi[row][0]
+                 : k < 10 ? __fadd_rn(__fadd_rn(epi[row][k], epi[row][9 + k]),
+                                      epi[row][18 + k])
+                          : 0.f;
+          }
+          float4* dst = reinterpret_cast<float4*>(
+              out + (entry * q_cap + qi) * (NR * kPad) + r * kPad + half * 8);
+          dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+          dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+        }
+      }
+    }
+  }
+};
+
+}  // namespace moment_mma

@@ -7,137 +7,115 @@
 // against each radius, and sums [1, x, y, z, xx, xy, xz, yy, yz, zz] of
 // the candidates inside, one 16-wide slab per radius (rows 10..15 zero).
 //
-// What bounds it on an H100: the pair tests.  At the 1M-point serving
-// workload each band packs about 2.3-3.0M candidate lanes against 512
-// queries per entry, about 1.5G pair tests per band and 4.6G per step;
-// at about 25 f32 operations per pair that is about 115 GFLOP against
-// tens of MB of input, so CUDA-core f32 throughput is the limit, not
-// HBM (estimate from the code's shapes, not measured).
+// What bounds it on an H100: the distance test on the CUDA cores.  The
+// contract forbids fusing any of its 8 f32 operations (3 sub, 3 mul, 2
+// add), so at 132 SMs x 128 lanes x 1.98 GHz the card tests at most
+// 4.2e12 pairs a second; the masked sums, as bf16 products on the
+// tensor cores, need a quarter of that time at one radius, and the bytes
+// (candidates, queries, slabs) well under a tenth.
 //
-// What the design does about it: one thread owns one query and keeps
-// its 10 x n_r sums in registers; a block of 128 queries of one entry
-// streams the entry's candidates through shared memory in tiles of 256,
-// where each candidate's local coordinates and its six products are
-// formed once for the whole block and then read as broadcasts, so the
-// per-pair work is the distance, the compares and ten fused adds.  The
-// mask products are left on the CUDA cores; moving them onto the tensor
-// cores is later work.
+// What the design does about it: the masked sums leave the CUDA cores.
+// The TPU kernel sums with a dot product on the MXU, and its bf16x2
+// branch splits aug into bf16 hi + mid + lo; here moment_mma.cuh does the
+// same with mma.sync m16n8k16 (bf16 in, f32 accumulate), the 0/1 mask
+// built in registers straight from the distance test.  Per pair the CUDA
+// cores do the 8 distance operations and about 1.5 more per radius (a
+// compare, half a byte permute).  A block takes one entry and 256 (one
+// radius) or 128 of its queries and stages its candidates 256 at a time,
+// the next tile's read into registers while the current one is summed;
+// k16 groups holding only FAR lanes are skipped, so the dead tail of a
+// packed block costs its staging only.
 //
-// Contracts kept (the reference's exact boundary ownership): the
-// distance uses no FMA -- every product and sum is rounded on its own
-// (__fmul_rn / __fadd_rn / __fsub_rn), in the reference's order -- and
-// is compared against the f32 value of r*r, computed by the caller.
-// Dead slots hold the FAR = 1e6 sentinel: d2 ~ 3e12 fails every radius
-// and their finite products add m * v = 0.  Counts are exact (f32 sums
-// of 1.0 below 2^24).
+// Contracts kept: the distance keeps the reference's exact boundary
+// ownership (no FMA, the reference's order, a compare against the
+// caller's f32(r*r)).  Counts are exact: sums of 0/1 products in f32,
+// below 2^24.  The other moments differ from an f32 sum only in the
+// order of the sums.  FAR lanes (the 1e6 sentinel at all three
+// coordinates) add 0.  precision="highest" and "bf16x2" run this one
+// kernel.
 //
 // Built as a plain C library (nvcc -shared) and called through ctypes:
 // the launcher runs on the caller's stream and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "moment_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // queries per block, one per thread
-constexpr int kTile = 256;      // candidates per shared-memory tile
-constexpr int kPad = 16;        // slab width per radius (MOMENT_PAD)
-constexpr int kMaxRadii = 4;
-
-struct Radii {
-  float r2[kMaxRadii];
-};
+namespace mm = moment_mma;
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mm::kThreads)
 packed_moments_kernel(const float* __restrict__ q_t,
                       const float* __restrict__ cand_t,
-                      const float* __restrict__ centers, Radii radii,
+                      const float* __restrict__ centers, mm::Radii radii,
                       int q_cap, int c_cap, long long lanes,
                       float* __restrict__ out) {
-  __shared__ float4 s_a[kTile];   // x, y, z, xx (entry-local)
-  __shared__ float4 s_b[kTile];   // xy, xz, yy, yz
-  __shared__ float s_c[kTile];    // zz
+  __shared__ mm::Smem smem;
+  using W = mm::Warp<NR>;
 
   const int e = blockIdx.x;
-  const int q = blockIdx.y * kThreads + threadIdx.x;
-  const bool live = q < q_cap;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q_first = blockIdx.y * mm::Shape<NR>::kQueries
+                      + warp * 16 * W::MT;
+  const bool busy = q_first < q_cap;      // a warp of dead rows only stages
   const float cx = centers[3 * e + 0];
   const float cy = centers[3 * e + 1];
   const float cz = centers[3 * e + 2];
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    const float* qe = q_t + static_cast<size_t>(e) * 3 * q_cap;
-    qx = __fsub_rn(qe[q], cx);
-    qy = __fsub_rn(qe[q_cap + q], cy);
-    qz = __fsub_rn(qe[2 * q_cap + q], cz);
-  }
-
+  W w;
+  w.zero();
+  const float* qe = q_t + static_cast<size_t>(e) * 3 * q_cap;
+#pragma unroll
+  for (int m = 0; m < W::MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = q_first + m * 16 + (lane >> 2) + 8 * i;
+      const bool live = q < q_cap;
+      w.q[m][i][0] = live ? __fsub_rn(qe[q], cx) : 0.f;
+      w.q[m][i][1] = live ? __fsub_rn(qe[q_cap + q], cy) : 0.f;
+      w.q[m][i][2] = live ? __fsub_rn(qe[2 * q_cap + q], cz) : 0.f;
+    }
   float r2[NR];
-  float acc[NR][10];
 #pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    r2[r] = radii.r2[r];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) acc[r][k] = 0.f;
-  }
+  for (int r = 0; r < NR; ++r) r2[r] = radii.r2[r];
 
   const size_t first = static_cast<size_t>(e) * c_cap;
   const float* cand_x = cand_t + first;
   const float* cand_y = cand_t + lanes + first;
   const float* cand_z = cand_t + 2 * lanes + first;
 
-  for (int tile = 0; tile < c_cap; tile += kTile) {
-    const int w = min(kTile, c_cap - tile);
+  // this thread's candidate of a tile, FAR past c_cap; the next tile's
+  // is loaded before the current one is summed, to hide its latency
+  auto load = [&](int tile, float& px, float& py, float& pz) {
+    const int j = tile + threadIdx.x;
+    const bool in = j < c_cap;
+    px = in ? cand_x[j] : mm::kFar;
+    py = in ? cand_y[j] : mm::kFar;
+    pz = in ? cand_z[j] : mm::kFar;
+  };
+  float px, py, pz;
+  load(0, px, py, pz);
+  for (int tile = 0; tile < c_cap; tile += mm::kTile) {
+    const int w_tile = min(mm::kTile, c_cap - tile);   // a multiple of 128
     __syncthreads();   // the previous tile is consumed
-    for (int j = threadIdx.x; j < w; j += kThreads) {
-      const float x = __fsub_rn(cand_x[tile + j], cx);
-      const float y = __fsub_rn(cand_y[tile + j], cy);
-      const float z = __fsub_rn(cand_z[tile + j], cz);
-      s_a[j] = make_float4(x, y, z, __fmul_rn(x, x));
-      s_b[j] = make_float4(__fmul_rn(x, y), __fmul_rn(x, z),
-                           __fmul_rn(y, y), __fmul_rn(y, z));
-      s_c[j] = __fmul_rn(z, z);
-    }
+    mm::stage_row(smem.tile, px, py, pz, cx, cy, cz);
     __syncthreads();
-    for (int j = 0; j < w; ++j) {
-      const float4 a = s_a[j];
-      const float4 b = s_b[j];
-      const float c = s_c[j];
-      const float dx = __fsub_rn(qx, a.x);
-      const float dy = __fsub_rn(qy, a.y);
-      const float dz = __fsub_rn(qz, a.z);
-      const float d2 = __fadd_rn(
-          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-          __fmul_rn(dz, dz));
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        // m is exactly 0 or 1, so fmaf(m, v, s) is s or round(s + v)
-        const float m = d2 <= r2[r] ? 1.f : 0.f;
-        acc[r][0] = __fadd_rn(acc[r][0], m);
-        acc[r][1] = fmaf(m, a.x, acc[r][1]);
-        acc[r][2] = fmaf(m, a.y, acc[r][2]);
-        acc[r][3] = fmaf(m, a.z, acc[r][3]);
-        acc[r][4] = fmaf(m, a.w, acc[r][4]);
-        acc[r][5] = fmaf(m, b.x, acc[r][5]);
-        acc[r][6] = fmaf(m, b.y, acc[r][6]);
-        acc[r][7] = fmaf(m, b.z, acc[r][7]);
-        acc[r][8] = fmaf(m, b.w, acc[r][8]);
-        acc[r][9] = fmaf(m, c, acc[r][9]);
-      }
-    }
+    load(tile + mm::kTile, px, py, pz);
+    if (busy) w.accumulate(smem.tile, w_tile / 16, r2);
   }
+  __syncthreads();     // the tile's shared memory becomes the epilogue's
+  if (busy) w.store(smem, out, e, q_first, q_cap);
+}
 
-  if (!live) return;
-  float* o = out + (static_cast<size_t>(e) * q_cap + q) * (NR * kPad);
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-#pragma unroll
-    for (int k = 0; k < 10; ++k) o[r * kPad + k] = acc[r][k];
-#pragma unroll
-    for (int k = 10; k < kPad; ++k) o[r * kPad + k] = 0.f;
-  }
+template <int NR>
+void launch(int n_entries, int q_cap, cudaStream_t s, const float* q_t,
+            const float* cand_t, const float* centers,
+            const mm::Radii& radii, int c_cap, long long lanes, float* out) {
+  constexpr int kQ = mm::Shape<NR>::kQueries;
+  const dim3 grid(n_entries, (q_cap + kQ - 1) / kQ);
+  packed_moments_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
+      q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
 }
 
 }  // namespace
@@ -153,26 +131,21 @@ extern "C" int packed_moments_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_entries <= 0 || q_cap <= 0) return 0;
-  const Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
-  const dim3 grid(n_entries, (q_cap + kThreads - 1) / kThreads);
+  const mm::Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
   const long long lanes = static_cast<long long>(n_entries) * c_cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_radii) {
-    case 1:
-      packed_moments_kernel<1><<<grid, kThreads, 0, s>>>(
-          q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
+    case 1: launch<1>(n_entries, q_cap, s, q_t, cand_t, centers, radii,
+                      c_cap, lanes, out);
       break;
-    case 2:
-      packed_moments_kernel<2><<<grid, kThreads, 0, s>>>(
-          q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
+    case 2: launch<2>(n_entries, q_cap, s, q_t, cand_t, centers, radii,
+                      c_cap, lanes, out);
       break;
-    case 3:
-      packed_moments_kernel<3><<<grid, kThreads, 0, s>>>(
-          q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
+    case 3: launch<3>(n_entries, q_cap, s, q_t, cand_t, centers, radii,
+                      c_cap, lanes, out);
       break;
-    case 4:
-      packed_moments_kernel<4><<<grid, kThreads, 0, s>>>(
-          q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
+    case 4: launch<4>(n_entries, q_cap, s, q_t, cand_t, centers, radii,
+                      c_cap, lanes, out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -12,85 +12,91 @@
 // zero).  Every live row of a span counts; spans of length 0 add
 // nothing.
 //
-// What bounds it on an H100: the pair tests, as in packed_moments.cu
-// (about 25 f32 operations a pair, tens of MB of input a band at the 1M
-// bench scene; estimate from the code's shapes, not measured).  What
-// the TPU kernel fought -- the latency of one DMA per short span (real
-// spans hold about 17 live rows) -- becomes the cost of a barrier per
-// span if spans are staged one by one.
+// What bounds it on an H100: the distance test on the CUDA cores, as in
+// packed_moments.cu (8 unfusable f32 operations a pair; the tensor-core
+// sums a quarter of that at one radius, the bytes far less).  What the
+// TPU kernel fought -- the latency of one DMA per short span (real spans
+// hold about 17 live rows) -- becomes the cost of a barrier per span if
+// spans are staged one by one.
 //
-// What the design does about it: one block per (entry, 128 queries),
-// one thread per query with its 10 x n_r sums in registers.  The block
-// loads the entry's span lengths into shared memory and takes their
-// exclusive scan, then streams the CONCATENATION of the live spans
-// through shared memory in chunks of 1024 rows: chunk slot j maps back
-// to its span by a binary search over the scan and to row start + (j -
-// offset).  So loads stay coalesced within a span and the block pays
-// one __syncthreads pair per chunk, not per span.  Each row's local
-// coordinates and six products are formed once per block and read as
-// broadcasts.
+// What the design does about it: the block loads the entry's span
+// lengths into shared memory and takes their exclusive scan, then
+// streams the CONCATENATION of the live spans through shared memory in
+// tiles of 256 rows: slot j maps back to its span by a binary search
+// over the scan and to row start + (j - offset).  Loads stay coalesced
+// within a span and the block pays one barrier pair per tile, not per
+// span; the next tile's rows are read into registers while the current
+// one is summed.  Each row is staged once per block as local f32
+// coordinates and its aug row split into bf16 hi + mid + lo; the masked
+// sums run on the tensor cores (moment_mma.cuh: mma.sync m16n8k16, the mask built in
+// registers from the distance test).  The ragged tail of the
+// concatenation is padded to a multiple of 16 with FAR rows, whose mask
+// is 0; nothing past the concatenated total is read.
 //
-// Contracts kept (the reference's exact boundary ownership): no FMA in
-// the distance -- every product and sum rounded on its own
-// (__fmul_rn / __fadd_rn / __fsub_rn) in the reference's order -- and a
-// compare against the f32 value of r*r, computed by the caller.  Sums
-// use fmaf(m, v, s) with m in {0, 1}.  Lengths are clamped to
-// [0, span_rows] as the plan clamps them; a row outside the cloud
-// (never produced by the plan) is read as a far point and adds nothing.
+// Contracts kept: no FMA in the distance -- every product and sum
+// rounded on its own in the reference's order -- and a compare against
+// the caller's f32(r*r).  Counts are exact (sums of 0/1 products in f32
+// below 2^24); the other moments differ from an f32 sum only in the
+// order of the sums.  Lengths are clamped to [0, span_rows] as the plan
+// clamps them; a row outside the cloud (never produced by the plan) is
+// read as a far point and adds nothing.  precision="highest" and
+// "bf16x2" run this one kernel.
 //
 // Built as a plain C library (nvcc -shared) and called through ctypes:
 // the launcher runs on the caller's stream and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "moment_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // queries per block, one per thread
-constexpr int kChunk = 1024;    // span rows per shared-memory chunk
-constexpr int kMaxSpans = 256;  // spans per entry ((m + 2)^2, m <= 8)
-constexpr int kPad = 16;        // slab width per radius (MOMENT_PAD)
-constexpr int kMaxRadii = 4;
-constexpr float kFar = 1.0e6f;
+namespace mm = moment_mma;
 
-struct Radii {
-  float r2[kMaxRadii];
-};
+constexpr int kMaxSpans = 256;  // spans per entry ((m + 2)^2, m <= 8)
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mm::kThreads)
 span_moments_kernel(const float* __restrict__ q_local,
                     const float* __restrict__ centers,
                     const int* __restrict__ span_starts,
                     const int* __restrict__ span_lens,
                     const float* __restrict__ pts, long long n_pts,
-                    Radii radii, int q_cap, int n_span, int span_rows,
+                    mm::Radii radii, int q_cap, int n_span, int span_rows,
                     float* __restrict__ out) {
-  __shared__ float4 s_a[kChunk];   // x, y, z, xx (entry-local)
-  __shared__ float4 s_b[kChunk];   // xy, xz, yy, yz
-  __shared__ float s_c[kChunk];    // zz
+  __shared__ mm::Smem smem;
   __shared__ int s_off[kMaxSpans + 1];
   __shared__ int s_start[kMaxSpans];
+  using W = mm::Warp<NR>;
 
   const int e = blockIdx.x;
-  const int q = blockIdx.y * kThreads + threadIdx.x;
-  const bool live = q < q_cap;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q_first = blockIdx.y * mm::Shape<NR>::kQueries
+                      + warp * 16 * W::MT;
+  const bool busy = q_first < q_cap;      // a warp of dead rows only stages
   const float cx = centers[3 * e + 0];
   const float cy = centers[3 * e + 1];
   const float cz = centers[3 * e + 2];
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    const float* qe = q_local + (static_cast<size_t>(e) * q_cap + q) * 3;
-    qx = qe[0];
-    qy = qe[1];
-    qz = qe[2];
-  }
+  W w;
+  w.zero();
+#pragma unroll
+  for (int m = 0; m < W::MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = q_first + m * 16 + (lane >> 2) + 8 * i;
+      const float* qe = q_local + (static_cast<size_t>(e) * q_cap + q) * 3;
+      const bool live = q < q_cap;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) w.q[m][i][k] = live ? qe[k] : 0.f;
+    }
+  float r2[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) r2[r] = radii.r2[r];
 
   // the entry's span table; s_off[k + 1] holds span k's clamped length
   // until thread 0 turns the lengths into their exclusive scan
   const size_t first_span = static_cast<size_t>(e) * n_span;
-  for (int k = threadIdx.x; k < n_span; k += kThreads) {
+  for (int k = threadIdx.x; k < n_span; k += mm::kThreads) {
     s_start[k] = span_starts[first_span + k];
     s_off[k + 1] = min(max(span_lens[first_span + k], 0), span_rows);
   }
@@ -102,89 +108,50 @@ span_moments_kernel(const float* __restrict__ q_local,
   __syncthreads();
   const int total = s_off[n_span];
 
-  float r2[NR];
-  float acc[NR][10];
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    r2[r] = radii.r2[r];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) acc[r][k] = 0.f;
-  }
-
-  for (int base = 0; base < total; base += kChunk) {
-    const int w = min(kChunk, total - base);
-    __syncthreads();   // the previous chunk is consumed
-    for (int j = threadIdx.x; j < w; j += kThreads) {
-      const int slot = base + j;
-      // the last span whose offset is <= slot owns it (empty spans
-      // share their successor's offset and are skipped)
-      int lo = 0, hi = n_span - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (s_off[mid] <= slot) lo = mid; else hi = mid - 1;
-      }
-      const long long row =
-          static_cast<long long>(s_start[lo]) + (slot - s_off[lo]);
-      float px = kFar, py = kFar, pz = kFar;
-      if (row >= 0 && row < n_pts) {
-        px = pts[3 * row + 0];
-        py = pts[3 * row + 1];
-        pz = pts[3 * row + 2];
-      }
-      const float x = __fsub_rn(px, cx);
-      const float y = __fsub_rn(py, cy);
-      const float z = __fsub_rn(pz, cz);
-      s_a[j] = make_float4(x, y, z, __fmul_rn(x, x));
-      s_b[j] = make_float4(__fmul_rn(x, y), __fmul_rn(x, z),
-                           __fmul_rn(y, y), __fmul_rn(y, z));
-      s_c[j] = __fmul_rn(z, z);
+  // this thread's row of a tile (FAR past the concatenated total or
+  // outside the cloud); the next tile's is loaded before the current one
+  // is summed, to hide its latency
+  auto load = [&](int base, float& px, float& py, float& pz) {
+    const int slot = base + threadIdx.x;
+    px = py = pz = mm::kFar;
+    if (slot >= total) return;
+    // the last span whose offset is <= slot owns it (empty spans share
+    // their successor's offset and are skipped)
+    int lo = 0, hi = n_span - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (s_off[mid] <= slot) lo = mid; else hi = mid - 1;
     }
+    const long long row =
+        static_cast<long long>(s_start[lo]) + (slot - s_off[lo]);
+    if (row >= 0 && row < n_pts) {
+      px = pts[3 * row + 0];
+      py = pts[3 * row + 1];
+      pz = pts[3 * row + 2];
+    }
+  };
+  float px, py, pz;
+  load(0, px, py, pz);
+  for (int base = 0; base < total; base += mm::kTile) {
+    const int w_tile = min(mm::kTile, total - base);
+    __syncthreads();   // the previous tile is consumed
+    mm::stage_row(smem.tile, px, py, pz, cx, cy, cz);
     __syncthreads();
-    for (int j = 0; j < w; ++j) {
-      const float4 a = s_a[j];
-      const float4 b = s_b[j];
-      const float c = s_c[j];
-      const float dx = __fsub_rn(qx, a.x);
-      const float dy = __fsub_rn(qy, a.y);
-      const float dz = __fsub_rn(qz, a.z);
-      const float d2 = __fadd_rn(
-          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-          __fmul_rn(dz, dz));
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        // m is exactly 0 or 1, so fmaf(m, v, s) is s or round(s + v)
-        const float m = d2 <= r2[r] ? 1.f : 0.f;
-        acc[r][0] = __fadd_rn(acc[r][0], m);
-        acc[r][1] = fmaf(m, a.x, acc[r][1]);
-        acc[r][2] = fmaf(m, a.y, acc[r][2]);
-        acc[r][3] = fmaf(m, a.z, acc[r][3]);
-        acc[r][4] = fmaf(m, a.w, acc[r][4]);
-        acc[r][5] = fmaf(m, b.x, acc[r][5]);
-        acc[r][6] = fmaf(m, b.y, acc[r][6]);
-        acc[r][7] = fmaf(m, b.z, acc[r][7]);
-        acc[r][8] = fmaf(m, b.w, acc[r][8]);
-        acc[r][9] = fmaf(m, c, acc[r][9]);
-      }
-    }
+    load(base + mm::kTile, px, py, pz);
+    if (busy) w.accumulate(smem.tile, (w_tile + 15) / 16, r2);
   }
-
-  if (!live) return;
-  float* o = out + (static_cast<size_t>(e) * q_cap + q) * (NR * kPad);
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-#pragma unroll
-    for (int k = 0; k < 10; ++k) o[r * kPad + k] = acc[r][k];
-#pragma unroll
-    for (int k = 10; k < kPad; ++k) o[r * kPad + k] = 0.f;
-  }
+  __syncthreads();     // the tile's shared memory becomes the epilogue's
+  if (busy) w.store(smem, out, e, q_first, q_cap);
 }
 
 template <int NR>
-void launch(dim3 grid, cudaStream_t s, const float* q_local,
+void launch(int n_entries, int q_cap, cudaStream_t s, const float* q_local,
             const float* centers, const int* starts, const int* lens,
-            const float* pts, long long n_pts, const Radii& radii,
-            int q_cap, int n_span, int span_rows, float* out) {
-  span_moments_kernel<NR><<<grid, kThreads, 0, s>>>(
+            const float* pts, long long n_pts, const mm::Radii& radii,
+            int n_span, int span_rows, float* out) {
+  constexpr int kQ = mm::Shape<NR>::kQueries;
+  const dim3 grid(n_entries, (q_cap + kQ - 1) / kQ);
+  span_moments_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
       q_local, centers, starts, lens, pts, n_pts, radii, q_cap, n_span,
       span_rows, out);
 }
@@ -206,21 +173,20 @@ extern "C" int span_moments_launch(
   if (n_entries <= 0 || q_cap <= 0) return 0;
   if (n_span < 1 || n_span > kMaxSpans)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
-  const dim3 grid(n_entries, (q_cap + kThreads - 1) / kThreads);
+  const mm::Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_radii) {
-    case 1: launch<1>(grid, s, q_local, centers, span_starts, span_lens,
-                      pts, n_pts, radii, q_cap, n_span, span_rows, out);
+    case 1: launch<1>(n_entries, q_cap, s, q_local, centers, span_starts,
+                      span_lens, pts, n_pts, radii, n_span, span_rows, out);
       break;
-    case 2: launch<2>(grid, s, q_local, centers, span_starts, span_lens,
-                      pts, n_pts, radii, q_cap, n_span, span_rows, out);
+    case 2: launch<2>(n_entries, q_cap, s, q_local, centers, span_starts,
+                      span_lens, pts, n_pts, radii, n_span, span_rows, out);
       break;
-    case 3: launch<3>(grid, s, q_local, centers, span_starts, span_lens,
-                      pts, n_pts, radii, q_cap, n_span, span_rows, out);
+    case 3: launch<3>(n_entries, q_cap, s, q_local, centers, span_starts,
+                      span_lens, pts, n_pts, radii, n_span, span_rows, out);
       break;
-    case 4: launch<4>(grid, s, q_local, centers, span_starts, span_lens,
-                      pts, n_pts, radii, q_cap, n_span, span_rows, out);
+    case 4: launch<4>(n_entries, q_cap, s, q_local, centers, span_starts,
+                      span_lens, pts, n_pts, radii, n_span, span_rows, out);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

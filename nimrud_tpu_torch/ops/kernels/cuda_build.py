@@ -3,8 +3,10 @@ The one nvcc build of the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` is a plain C library (no PyTorch headers),
 compiled for sm_90a into ``_build/<name>-<hash>.so`` at first use and
-loaded through ctypes.  The hash covers the source and the flags, so an
-edited kernel rebuilds and an unchanged one is reused.  Every build
+loaded through ctypes.  The hash covers the source, every header of
+its directory that it includes (``#include "x.cuh"``, followed
+recursively) and the flags, so an edited kernel or header rebuilds and
+an unchanged one is reused.  Every build
 keeps what ``-Xptxas -v`` printed (registers, shared memory, spills)
 beside the library.  A failed build raises with nvcc's stderr.
 
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -38,13 +41,33 @@ def _nvcc():
                        "build the kernels in csrc/")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_key(src):
+    """Hash of a source file, the local headers it includes (each once,
+    recursively) and the nvcc flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as handle:
+            text = handle.read()
+        digest.update(os.path.basename(path).encode() + b"\0" + text)
+        for inc in _INCLUDE.findall(text):
+            header = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(header):
+                todo.append(os.path.abspath(header))
+    return digest.hexdigest()[:16]
+
+
 def _paths(name):
     """(source, library, ptxas report) paths of one kernel."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as handle:
-        digest = hashlib.sha256(
-            handle.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    lib = os.path.join(BUILD_DIR, f"{name}-{source_key(src)}.so")
     return src, lib, lib[:-3] + ".ptxas.txt"
 
 
@@ -107,3 +130,38 @@ def ptxas_usage(report):
     and spills."""
     return [ln.split("info    :")[-1].strip() for ln in report.splitlines()
             if "Used" in ln or "spill" in ln]
+
+
+def spill_bytes(report):
+    """Bytes of spill stores plus spill loads over every function of a
+    ptxas report."""
+    return sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", report))
+
+
+_FUNCTION = re.compile(r"Function : (\S+)")
+_TEMPLATE = re.compile(r"([a-z][a-z_]*_kernel)ILi(\d+)E")
+
+
+def count_sass(sass, opcode="HMMA"):
+    """Instructions of ``opcode`` per kernel function in the text of
+    ``cuobjdump -sass``; a templated kernel is named ``name<N>``."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = _FUNCTION.search(line)
+        if found:
+            template = _TEMPLATE.search(found.group(1))
+            name = (f"{template.group(1)}<{template.group(2)}>" if template
+                    else found.group(1))
+            counts[name] = 0
+        elif name is not None and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
+
+
+def sass(path):
+    """The SASS of a built library (``cuobjdump -sass``, from nvcc's
+    toolkit)."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout

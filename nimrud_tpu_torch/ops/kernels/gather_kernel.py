@@ -19,15 +19,18 @@ Two versions with one signature and one output layout (that of
   hold it against the JAX kernel, and ``chip_smoke.py`` holds the CUDA
   kernel against it.
 * :func:`span_moments` -- the wrapper of the hand-written Hopper kernel
-  ``csrc/span_moments.cu``.  A CPU tensor goes to the plain version; a
+  ``csrc/span_moments.cu`` (its masked sums on the tensor cores,
+  ``csrc/moment_mma.cuh``).  A CPU tensor goes to the plain version; a
   CUDA tensor launches the kernel or raises.  ``span_moments.launches``
   counts kernel launches.
 
-Not ported (TPU-only): the lanes-major ``(4, n_pad)`` cloud and its
-128-lane window alignment, the DMA ring, the per-step live-span
-compaction, ``entries_per_step``, the resident and debug modes.
-``exclude_radius`` and ``precision="bf16x2"`` raise
-``NotImplementedError`` in both versions.
+``precision`` is "highest" or "bf16x2" (the reference's bf16 hi + mid +
+lo split, in the plain version as the reference sums it; the kernel
+computes that split for both).  Not ported (TPU-only): the lanes-major
+``(4, n_pad)`` cloud and its 128-lane window alignment, the DMA ring,
+the per-step live-span compaction, ``entries_per_step``, the resident
+and debug modes.  ``exclude_radius`` raises ``NotImplementedError`` in
+both versions.
 """
 
 import ctypes
@@ -37,18 +40,20 @@ import torch
 
 from nimrud_tpu_torch.ops.kernels import cuda_build
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import (
-    MOMENT_PAD, PAIR_BUDGET, check_launch, check_radii, check_tensors,
-    padded_radii, slab_tolerance, squared_radii)
+    MOMENT_PAD, PAIR_BUDGET, check_launch, check_precision, check_radii,
+    check_tensors, masked_sum, moment_bound, padded_radii, slab_bytes,
+    slab_tolerance, squared_radii)
 
 MAX_SPANS = 256        # spans per entry the CUDA kernel takes ((m+2)^2)
 
 
 def _check(q_local, centers, span_starts, span_lens, sorted_pts, radii,
            exclude_radius, precision):
-    if exclude_radius is not None or precision != "highest":
+    if exclude_radius is not None:
         raise NotImplementedError(
-            "span_moments is ported without exclude_radius and with "
-            "precision='highest' only (ROADMAP.md Queue A #9)")
+            "span_moments is ported without exclude_radius (ROADMAP.md "
+            "Queue A #9)")
+    check_precision(precision)
     check_radii(radii)
     if q_local.dim() != 3 or q_local.shape[2] != 3:
         raise ValueError(f"q_local must be (E, q_cap, 3), got "
@@ -112,6 +117,9 @@ def span_moments_plain(q_local, centers, span_starts, span_lens, sorted_pts,
                    tile id.
       radii:       tuple of 1..4 radii.
       span_rows:   most live rows a span may hold.
+      precision:   "highest" (one f32 ``matmul``) or "bf16x2" (the rows'
+                   terms split into bf16 hi + mid + lo, three
+                   exact-product ``matmul``s summed in that order).
 
     Returns:
       (E, q_cap, len(radii) * 16) f32: per radius [count, sx, sy, sz,
@@ -141,7 +149,7 @@ def span_moments_plain(q_local, centers, span_starts, span_lens, sorted_pts,
         for ri in range(n_r):
             mask = ((d2 <= r2[ri]) & valid[:, None, :]).to(torch.float32)
             out[sl, :, ri * MOMENT_PAD:ri * MOMENT_PAD + 10] = \
-                torch.matmul(mask, aug)
+                masked_sum(mask, aug, precision)
     return out
 
 
@@ -163,6 +171,20 @@ def span_tolerance(slabs, centers, span_starts, span_lens, sorted_pts,
     return slab_tolerance(slabs, extent, n_terms)
 
 
+def span_moments_work(q_local, centers, span_starts, span_lens, sorted_pts,
+                      radii, span_rows):
+    """:func:`multiscale_kernel.moment_bound` of one call: live span rows
+    x q_cap pairs; bytes are the queries, centers and span tables read
+    once, each live row's 3 coordinates read once and the slabs written
+    once."""
+    n_entries, q_cap = q_local.shape[:2]
+    live = int(torch.clamp(span_lens.to(torch.int64), 0, span_rows).sum())
+    n_bytes = 4 * (q_local.numel() + centers.numel() + span_starts.numel()
+                   + span_lens.numel() + 3 * live) \
+        + slab_bytes(n_entries, q_cap, len(radii))
+    return moment_bound(live * q_cap, len(radii), n_bytes)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = cuda_build.library("span_moments").span_moments_launch
@@ -178,14 +200,16 @@ def span_moments(q_local, centers, span_starts, span_lens, sorted_pts, radii,
     """Raw masked moment slabs over candidate spans (see
     :func:`span_moments_plain` for the arguments and layout).  CPU
     tensors take the plain version; CUDA tensors launch the Hopper
-    kernel, or raise."""
+    kernel, or raise.  Both precisions launch the same kernel (see
+    :func:`packed_moments.packed_moments`)."""
     n_entries, q_cap, n_span = _check(
         q_local, centers, span_starts, span_lens, sorted_pts, radii,
         exclude_radius, precision)
     device = q_local.device
     if device.type == "cpu":
         return span_moments_plain(q_local, centers, span_starts, span_lens,
-                                  sorted_pts, radii, span_rows)
+                                  sorted_pts, radii, span_rows,
+                                  precision=precision)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     if not 1 <= n_span <= MAX_SPANS:

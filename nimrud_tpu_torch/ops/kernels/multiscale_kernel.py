@@ -2,8 +2,9 @@
 Masked moments over flat per-entry candidate blocks: the port of
 ``nimrud_tpu/ops/pallas/multiscale_kernel.py`` (``entry_moments``,
 ``moments_from_slabs``, ``MOMENT_PAD``), plus what the port's three
-moment kernels share (squared radii, launch checks, the f32 tolerance
-between two summation orders).
+moment kernels share (squared radii, launch checks, the masked sum in
+either precision, the f32 tolerance between two summation orders, and
+the least time an H100 could take for a kernel's work).
 
 ``entry_moments`` has two versions with one signature and one layout:
 
@@ -36,6 +37,65 @@ MOMENT_PAD = 16         # 10 moment columns padded to 16 per radius
 MAX_RADII = 4           # the CUDA kernels' template instances
 PAIR_BUDGET = 1 << 25   # (query, candidate) pairs a plain twin forms per
                         # entry chunk
+PRECISIONS = ("highest", "bf16x2")
+
+# The H100 SXM rates a kernel's bound is reckoned against: the CUDA-core
+# f32 rate at the 1.98 GHz boost clock (132 SMs x 128 lanes), the dense
+# bf16 tensor-core peak and the HBM3 rate (NVIDIA's data sheet).
+CUDA_CORE_OPS = 132 * 128 * 1.98e9
+TENSOR_FLOPS = 989e12
+HBM_BYTES = 3.35e12
+DISTANCE_OPS = 8        # difference form: 3 sub, 3 mul, 2 add, none fused
+SPLIT_TERMS = 3         # bf16 hi + mid + lo of each moment term
+
+
+def check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+
+
+def bf16_split3(v):
+    """f32 -> bf16 ``(hi, mid, lo)`` with ``hi + mid + lo == v`` exactly
+    (each a round-to-nearest bf16 of what the terms before it left): the
+    reference's ``precision="bf16x2"`` split."""
+    hi = v.to(torch.bfloat16)
+    rem = v - hi.to(torch.float32)
+    mid = rem.to(torch.bfloat16)
+    lo = (rem - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def masked_sum(mask, aug, precision):
+    """``mask @ aug`` in f32.  With ``precision="bf16x2"`` ``aug`` is
+    split into bf16 hi + mid + lo and the three products are summed in
+    that order, as the reference does; the 0/1 mask is exact in bf16, so
+    every product is exact and the counts stay exact."""
+    if precision == "bf16x2":
+        return sum(torch.matmul(mask, part.to(torch.float32))
+                   for part in bf16_split3(aug))
+    return torch.matmul(mask, aug)
+
+
+def moment_bound(pairs, n_radii, n_bytes, distance_ops=DISTANCE_OPS):
+    """The least time an H100 could take for a moment kernel's work, the
+    largest of three terms: ``pairs`` distance tests of ``distance_ops``
+    unfusable f32 operations on the CUDA cores; the masked sums, 10
+    moments x 3 bf16 terms x 2 flops a pair and radius, on the tensor
+    cores; ``n_bytes`` moved once through HBM.  Returns ``pairs``,
+    ``terms_ms``, ``bound_ms`` and ``bound_term`` (the largest term)."""
+    terms = {"distance": pairs * distance_ops / CUDA_CORE_OPS,
+             "tensor": pairs * n_radii * 10 * SPLIT_TERMS * 2 / TENSOR_FLOPS,
+             "bytes": n_bytes / HBM_BYTES}
+    term = max(terms, key=terms.get)
+    return {"pairs": int(pairs),
+            "terms_ms": {k: 1e3 * v for k, v in terms.items()},
+            "bound_ms": 1e3 * terms[term], "bound_term": term}
+
+
+def slab_bytes(n_entries, q_cap, n_radii):
+    """Bytes of the f32 slabs a moment kernel writes."""
+    return 4 * n_entries * q_cap * n_radii * MOMENT_PAD
 
 
 def squared_radii(radii):
@@ -171,6 +231,18 @@ def entry_tolerance(slabs, s_local, s_valid):
     """:func:`slab_tolerance` for entry slabs: F terms a sum."""
     extent = torch.where(s_valid[..., None], s_local.abs(), 0.0)
     return slab_tolerance(slabs, extent.amax(dim=(1, 2)), s_local.shape[1])
+
+
+def entry_moments_work(q_local, s_local, s_valid, radii):
+    """:func:`moment_bound` of one ``entry_moments`` call: valid
+    candidates x Q pairs, each an expanded-form distance of 9 f32
+    operations (``qs`` 5, ``qq + ss`` 1, ``2 qs`` 1, the difference 1,
+    the clamp 1)."""
+    n_entries, q_cap = q_local.shape[:2]
+    n_bytes = (4 * (q_local.numel() + s_local.numel()) + s_valid.numel()
+               + slab_bytes(n_entries, q_cap, len(radii)))
+    return moment_bound(int(s_valid.sum()) * q_cap, len(radii), n_bytes,
+                        distance_ops=9)
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,16 +9,19 @@ Two versions with one signature and one output layout:
   the card.  It is the oracle: the CPU tests hold it against the JAX
   kernel, and ``chip_smoke.py`` holds the CUDA kernel against it.
 * :func:`packed_moments` -- the wrapper of the hand-written Hopper
-  kernel ``csrc/packed_moments.cu`` (design notes at its top).  A CPU
+  kernel ``csrc/packed_moments.cu`` (design notes at its top; the
+  masked sums run on the tensor cores, ``csrc/moment_mma.cuh``).  A CPU
   tensor goes to the plain version; a CUDA tensor launches the kernel
   or raises.  ``packed_moments.launches`` counts kernel launches.
 
 The kernel is built by ``cuda_build`` at first use and loaded through
 ctypes.
 
-Only the serving path's variant is ported: euclidean metric, no
-exclusion radius, no sazo rows, no attribute rows, full f32.  The
-others raise ``NotImplementedError`` in both versions (ROADMAP.md).
+Ported: the euclidean metric without exclusion radius, sazo rows or
+attribute rows, at ``precision="highest"`` or ``"bf16x2"`` (the plain
+version sums bf16 hi + mid + lo parts as the reference does; the kernel
+computes that split for both precisions).  The other variants raise
+``NotImplementedError`` in both versions (ROADMAP.md).
 """
 
 import ctypes
@@ -28,8 +31,9 @@ import torch
 
 from nimrud_tpu_torch.ops.kernels import cuda_build
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import (
-    MOMENT_PAD, PAIR_BUDGET, check_launch, check_radii, check_tensors,
-    padded_radii, slab_tolerance, squared_radii)
+    MOMENT_PAD, PAIR_BUDGET, check_launch, check_precision, check_radii,
+    check_tensors, masked_sum, moment_bound, padded_radii, slab_bytes,
+    slab_tolerance, squared_radii)
 
 LANES = 128            # c_cap granularity (the packing contract)
 FAR = 1.0e6            # dead-slot sentinel: d2 >= 1e12 fails every
@@ -39,11 +43,12 @@ FAR = 1.0e6            # dead-slot sentinel: d2 >= 1e12 fails every
 def _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
                    metric):
     if exclude_radius is not None or with_sazo or n_attr \
-            or metric != "euclidean" or precision != "highest":
+            or metric != "euclidean":
         raise NotImplementedError(
             "packed_moments is ported for the serving variant only "
-            "(euclidean, no exclude_radius, no sazo, no attributes, "
-            "precision='highest'); see ROADMAP.md Queue B #1")
+            "(euclidean, no exclude_radius, no sazo, no attributes); see "
+            "ROADMAP.md Queue B #1")
+    check_precision(precision)
     check_radii(radii)
 
 
@@ -78,6 +83,9 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
       centers: (E, 3) f32 entry centers; the entry-local frame is
                formed here by f32 subtraction.
       radii:   tuple of 1..4 radii.
+      precision: "highest" (one f32 ``matmul``) or "bf16x2" (the
+               candidates' terms split into bf16 hi + mid + lo, three
+               exact-product ``matmul``s summed in that order).
 
     Returns:
       (E, q_cap, len(radii) * 16) f32: per radius [count, sx, sy, sz,
@@ -108,7 +116,7 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
         for ri in range(n_r):
             mask = (d2 <= r2[ri]).to(torch.float32)
             out[sl, :, ri * MOMENT_PAD:ri * MOMENT_PAD + 10] = \
-                torch.matmul(mask, aug)
+                masked_sum(mask, aug, precision)
     return out
 
 
@@ -125,6 +133,17 @@ def moment_tolerance(slabs, cand_t, centers):
     return slab_tolerance(slabs, extent, c_cap)
 
 
+def packed_moments_work(q_t, cand_t, centers, radii):
+    """:func:`multiscale_kernel.moment_bound` of one call: live lanes
+    (not the FAR sentinel) x q_cap pairs; bytes are the inputs read once
+    and the slabs written once."""
+    n_entries, q_cap, _ = _shapes(q_t, cand_t, centers)
+    live = int((cand_t != FAR).any(0).sum())
+    n_bytes = 4 * (q_t.numel() + cand_t.numel() + centers.numel()) \
+        + slab_bytes(n_entries, q_cap, len(radii))
+    return moment_bound(live * q_cap, len(radii), n_bytes)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = cuda_build.library("packed_moments").packed_moments_launch
@@ -139,11 +158,14 @@ def packed_moments(q_t, cand_t, centers, radii, exclude_radius=None,
                    metric="euclidean"):
     """Raw masked moment slabs (see :func:`packed_moments_plain` for the
     arguments and layout).  CPU tensors take the plain version; CUDA
-    tensors launch the Hopper kernel, or raise."""
+    tensors launch the Hopper kernel, or raise.  Both precisions launch
+    the same kernel: its tensor-core sums take the bf16x2 split, whose
+    exact products make it an f32 sum in another order."""
     _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
                    metric)
     if q_t.device.type == "cpu":
-        return packed_moments_plain(q_t, cand_t, centers, radii)
+        return packed_moments_plain(q_t, cand_t, centers, radii,
+                                    precision=precision)
     if q_t.device.type != "cuda":
         raise ValueError(f"unsupported device {q_t.device}")
     n_entries, q_cap, c_cap = _shapes(q_t, cand_t, centers)

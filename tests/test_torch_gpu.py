@@ -31,30 +31,46 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(n_entries, q_cap, c_cap, seed):
+def _problem(n_entries, q_cap, c_cap, seed, scattered=False):
+    """Candidates about each entry center; dead lanes (FAR) fill the last
+    quarter of each block or, ``scattered``, a random 60% of the lanes
+    and every lane of a few entries."""
     rng = np.random.default_rng(seed)
     centers = (rng.random((n_entries, 3)) * 50).astype(np.float32)
     q_t = (centers[:, :, None]
            + rng.uniform(-2, 2, (n_entries, 3, q_cap))).astype(np.float32)
     cand = (centers.T[:, :, None]
             + rng.uniform(-3, 3, (3, n_entries, c_cap))).astype(np.float32)
-    cand[:, :, c_cap * 3 // 4:] = pm.FAR
+    if scattered:
+        dead = rng.random((n_entries, c_cap)) < 0.6
+        dead[::9] = True
+        cand[:, dead] = pm.FAR
+    else:
+        cand[:, :, c_cap * 3 // 4:] = pm.FAR
     return q_t, np.ascontiguousarray(cand.reshape(3, -1)), centers
 
 
-@pytest.mark.parametrize("q_cap,c_cap,radii", [
-    (512, 1024, (1.0,)), (256, 384, (0.5, 2.0)), (16, 128, (0.5,)),
-    (130, 256, (0.5, 1.0, 1.5, 2.0))])
-def test_kernel_matches_plain_on_card(cuda, q_cap, c_cap, radii):
+@pytest.mark.parametrize("q_cap,c_cap,radii,precision,scattered", [
+    (512, 1024, (1.0,), "highest", False),
+    (256, 384, (0.5, 2.0), "highest", False),
+    (16, 128, (0.5,), "highest", False),
+    (130, 256, (0.5, 1.0, 1.5, 2.0), "highest", False),
+    (130, 256, (0.5, 1.0, 1.5, 2.0), "bf16x2", True),
+    (256, 768, (1.0,), "bf16x2", True)])
+def test_kernel_matches_plain_on_card(cuda, q_cap, c_cap, radii, precision,
+                                      scattered):
     q_t, cand_t, centers = (torch.from_numpy(a).to(cuda) for a in
-                            _problem(37, q_cap, c_cap, seed=q_cap))
+                            _problem(37, q_cap, c_cap, seed=q_cap,
+                                     scattered=scattered))
     before = pm.packed_moments.launches
-    got = pm.packed_moments(q_t, cand_t, centers, radii)
+    got = pm.packed_moments(q_t, cand_t, centers, radii, precision=precision)
     torch.cuda.synchronize()
     assert pm.packed_moments.launches == before + 1
-    ref = pm.packed_moments_plain(q_t, cand_t, centers, radii)
+    ref = pm.packed_moments_plain(q_t, cand_t, centers, radii,
+                                  precision=precision)
     counts = slice(0, None, 16)
     assert torch.equal(got[..., counts], ref[..., counts])
+    assert ref[..., counts].max() > 0
     tol = pm.moment_tolerance(ref, cand_t, centers)
     assert bool(((got - ref).abs() <= tol).all())
     assert bool(torch.isfinite(got).all())
@@ -83,18 +99,23 @@ def _span_problem(n_entries, q_cap, n_span, span_rows, seed):
             lens.astype(np.int32), pts)
 
 
-@pytest.mark.parametrize("q_cap,n_span,span_rows,radii", [
-    (256, 25, 3136, (0.5,)), (130, 9, 64, (0.5, 2.0)),
-    (16, 100, 40, (0.5, 1.0, 1.5, 2.0))])
+@pytest.mark.parametrize("q_cap,n_span,span_rows,radii,precision", [
+    (256, 25, 3136, (0.5,), "highest"), (130, 9, 64, (0.5, 2.0), "highest"),
+    (16, 100, 40, (0.5, 1.0, 1.5, 2.0), "highest"),
+    (130, 25, 40, (0.5, 1.0, 1.5, 2.0), "bf16x2"),
+    (256, 9, 64, (1.0,), "bf16x2")])
 def test_span_kernel_matches_plain_on_card(cuda, q_cap, n_span, span_rows,
-                                           radii):
+                                           radii, precision):
     args = [torch.from_numpy(a).to(cuda) for a in
-            _span_problem(41, q_cap, n_span, span_rows, seed=q_cap)]
+            _span_problem(41, q_cap, n_span, span_rows, seed=q_cap + n_span)]
+    # a ragged tail: most entries' live rows are not a multiple of 16
+    totals = torch.clamp(args[3], 0, span_rows).sum(1)
+    assert int((totals % 16 != 0).sum()) > 20
     before = gk.span_moments.launches
-    got = gk.span_moments(*args, radii, span_rows)
+    got = gk.span_moments(*args, radii, span_rows, precision=precision)
     torch.cuda.synchronize()
     assert gk.span_moments.launches == before + 1
-    ref = gk.span_moments_plain(*args, radii, span_rows)
+    ref = gk.span_moments_plain(*args, radii, span_rows, precision=precision)
     counts = slice(0, None, 16)
     assert torch.equal(got[..., counts], ref[..., counts])
     assert ref[..., counts].max() > 0

@@ -171,3 +171,55 @@ def test_kernel_build_failure_raises_with_nvcc_stderr(tmp_path,
     assert "no such intrinsic" in str(err.value)
     left = os.listdir(tmp_path / "build")
     assert not [f for f in left if f.endswith((".so", ".txt"))]
+
+
+def test_kernel_build_key_follows_included_headers(tmp_path, monkeypatch):
+    # no nvcc runs: the key alone decides whether a library is reused
+    port_csrc = cuda_build.CSRC
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\nint a;\n')
+    (csrc / "b.cuh").write_text('#pragma once\n#include "a.cuh"\nint b;\n')
+    (csrc / "unused.cuh").write_text("int u;\n")
+    key = cuda_build.source_key(str(csrc / "k.cu"))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
+    assert os.path.basename(cuda_build._paths("k")[1]) == f"k-{key}.so"
+    (csrc / "unused.cuh").write_text("int u2;\n")
+    assert cuda_build.source_key(str(csrc / "k.cu")) == key
+    (csrc / "b.cuh").write_text('#pragma once\n#include "a.cuh"\nint c;\n')
+    changed = cuda_build.source_key(str(csrc / "k.cu"))
+    assert changed != key
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\nint a2;\n')
+    assert cuda_build.source_key(str(csrc / "k.cu")) not in (key, changed)
+    # the port's two tensor-core kernels share one header
+    for name in ("packed_moments", "span_moments"):
+        with open(os.path.join(port_csrc, f"{name}.cu")) as handle:
+            assert '#include "moment_mma.cuh"' in handle.read()
+
+
+def test_sass_and_ptxas_report_parsers():
+    # what chip_smoke.py checks of each build: HMMA per template instance
+    # and no spills
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _ZN12_GLOBAL__N_121packed_moments_kernelILi2EEEvPKf",
+        "        /*0100*/   HMMA.16816.F32.BF16 R4, R12, R20, R4 ;",
+        "        /*0110*/   HMMA.16816.F32.BF16 R8, R12, R22, R8 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_121packed_moments_kernelILi1EEEvPKf",
+        "        /*0100*/   FADD R4, R12, R20 ;  // no HMMAX here",
+        "\t\tFunction : plain_c_function",
+        "        /*0100*/   HMMA.1688.F32 R4, R12, R20, R4 ;"])
+    assert cuda_build.count_sass(sass) == {
+        "packed_moments_kernel<2>": 2, "packed_moments_kernel<1>": 0,
+        "plain_c_function": 1}
+    report = ("ptxas info    : Function properties for k\n"
+              "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+              "loads\nptxas info    : Used 80 registers\n"
+              "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+              "loads\n")
+    assert cuda_build.spill_bytes(report) == 12
+    assert cuda_build.spill_bytes(report.split("ptxas info    : Used")[0]) \
+        == 0
+    assert "Used 80 registers" in cuda_build.ptxas_usage(report)

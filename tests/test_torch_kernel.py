@@ -1,9 +1,10 @@
 """
 The plain PyTorch twin of the packed moment kernel against the JAX
-Pallas kernel (interpret mode), on the same NumPy inputs: counts equal,
-moments within ``moment_tolerance`` (both sum the same rounded f32 terms
-in different orders).  Candidates sit exactly on the radius, dead slots
-hold the FAR sentinel.
+Pallas kernel (interpret mode), on the same NumPy inputs, at both
+precisions: counts equal, moments within ``moment_tolerance`` (both sum
+the same rounded f32 terms in different orders).  Candidates sit exactly
+on the radius, dead slots hold the FAR sentinel.  Also the bf16 hi +
+mid + lo split and the kernel's work and bound reckoned from its inputs.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 
 from nimrud_tpu.ops.pallas import packed_kernel as jpk
 
+from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 from nimrud_tpu_torch.ops.kernels import packed_moments as tpm
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import MOMENT_PAD
 
@@ -88,9 +90,115 @@ def test_boundary_candidates_are_counted():
     assert np.all(out[0, 0, 10:].numpy() == 0)
 
 
+@pytest.mark.parametrize("q_cap,c_cap,radii", [
+    (16, 256, (1.0, 0.5, 2.0)), (128, 128, (0.75,))])
+def test_plain_bf16x2_twin_matches_pallas_kernel(q_cap, c_cap, radii):
+    q_t, cand_t, centers = _problem(3, q_cap, c_cap, radii, seed=7 * q_cap
+                                    + c_cap)
+    ref = np.asarray(jpk.packed_moments(
+        jnp.asarray(q_t), jnp.asarray(cand_t), jnp.asarray(centers),
+        radii, interpret=True, entries_per_step=1, precision="bf16x2"))
+    args = [torch.from_numpy(a) for a in (q_t, cand_t, centers)]
+    got_t = tpm.packed_moments_plain(*args, radii, precision="bf16x2")
+    got = got_t.numpy()
+    assert got.shape == ref.shape == (3, q_cap, len(radii) * MOMENT_PAD)
+    counts = slice(0, None, MOMENT_PAD)
+    np.testing.assert_array_equal(got[..., counts], ref[..., counts])
+    assert got[..., counts].max() > 0
+    tol = tpm.moment_tolerance(got_t, args[1], args[2]).numpy()
+    assert np.all(np.abs(got - ref) <= tol)
+    np.testing.assert_array_equal(
+        tpm.packed_moments(*args, radii, precision="bf16x2").numpy(), got)
+
+
+@pytest.mark.parametrize("q_cap,c_cap,radii", [
+    (16, 128, (0.5,)), (130, 256, (0.5, 1.0, 1.5, 2.0))])
+def test_bf16x2_matches_highest(q_cap, c_cap, radii):
+    # random-float candidates, so the split's mid and lo terms are used
+    rng = np.random.default_rng(q_cap)
+    centers = (rng.random((4, 3)) * 50).astype(np.float32)
+    q_t = (centers[:, :, None]
+           + rng.uniform(-2, 2, (4, 3, q_cap))).astype(np.float32)
+    cand = (centers.T[:, :, None]
+            + rng.uniform(-3, 3, (3, 4, c_cap))).astype(np.float32)
+    cand[:, :, c_cap * 3 // 4:] = tpm.FAR
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (q_t, cand.reshape(3, -1), centers)]
+    high = tpm.packed_moments_plain(*args, radii)
+    split = tpm.packed_moments_plain(*args, radii, precision="bf16x2")
+    counts = slice(0, None, MOMENT_PAD)
+    assert torch.equal(split[..., counts], high[..., counts])
+    assert high[..., counts].max() > 0
+    tol = tpm.moment_tolerance(high, args[1], args[2])
+    assert bool(((split - high).abs() <= tol).all())
+
+
+def test_bf16_split3_is_exact():
+    # f32 values over the kernels' ranges: local coordinates up to the
+    # grid extent and below, their products, 0, FAR and FAR^2
+    rng = np.random.default_rng(3)
+    coords = (rng.choice([-1.0, 1.0], 20000)
+              * 2.0 ** rng.uniform(-40, 11, 20000)).astype(np.float32)
+    prods = (coords[:10000] * coords[10000:]).astype(np.float32)
+    values = np.concatenate([
+        coords, prods, coords * coords, rng.uniform(-60, 60, 5000),
+        [0.0, -0.0, tpm.FAR, -tpm.FAR, tpm.FAR * tpm.FAR,
+         (tpm.FAR - 37.25) ** 2]]).astype(np.float32)
+    parts = mk.bf16_split3(torch.from_numpy(values))
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    total = sum(p.to(torch.float64).numpy() for p in parts)
+    np.testing.assert_array_equal(total, values.astype(np.float64))
+    # the reference's split, term for term
+    ref = jpk_split(values)
+    for p, r in zip(parts, ref):
+        np.testing.assert_array_equal(p.to(torch.float32).numpy(), r)
+
+
+def jpk_split(values):
+    """The reference kernel's hi / mid / lo (packed_kernel.py bf16x2
+    branch), as f32 arrays."""
+    aug = jnp.asarray(values)
+    hi = aug.astype(jnp.bfloat16)
+    rem = aug - hi.astype(jnp.float32)
+    mid = rem.astype(jnp.bfloat16)
+    lo = (rem - mid.astype(jnp.float32)).astype(jnp.bfloat16)
+    return [np.asarray(p.astype(jnp.float32)) for p in (hi, mid, lo)]
+
+
+def test_work_and_bound_from_the_inputs():
+    q_t, cand_t, centers = _problem(3, 16, 256, (0.5, 1.0), seed=4)
+    args = [torch.from_numpy(a) for a in (q_t, cand_t, centers)]
+    live = int((cand_t != tpm.FAR).any(0).sum())
+    assert 0 < live < cand_t.shape[1]
+    work = tpm.packed_moments_work(*args, (0.5, 1.0))
+    assert work["pairs"] == live * 16
+    terms = work["terms_ms"]
+    assert terms["distance"] == pytest.approx(
+        1e3 * live * 16 * 8 / (132 * 128 * 1.98e9))
+    # 10 moments x 3 bf16 terms x 2 flops a pair and radius
+    assert terms["tensor"] == pytest.approx(
+        1e3 * live * 16 * 2 * 60 / 989e12)
+    n_bytes = 4 * (q_t.size + cand_t.size + centers.size + 3 * 16 * 32)
+    assert terms["bytes"] == pytest.approx(1e3 * n_bytes / 3.35e12)
+    # at this toy size the slabs' bytes set the bound
+    assert work["bound_term"] == "bytes"
+    assert work["bound_ms"] == max(terms.values())
+    # at a band's size the distance does (pairs and bytes of the fit's
+    # band-1 problem: E 4864, q_cap 256, c_cap 768, three quarters live)
+    band = mk.moment_bound(4864 * 576 * 256, 1,
+                           4 * 4864 * (3 * 256 + 3 * 768 + 3 + 16 * 256))
+    assert band["bound_term"] == "distance"
+    assert band["bound_ms"] == pytest.approx(0.17151, abs=1e-5)
+    # at one radius the tensor-core term is a quarter of the distance's
+    one = mk.moment_bound(1e9, 1, 0)
+    assert one["terms_ms"]["tensor"] / one["terms_ms"]["distance"] \
+        == pytest.approx(0.2537, abs=1e-4)
+    assert mk.moment_bound(10, 1, 1e9)["bound_term"] == "bytes"
+
+
 @pytest.mark.parametrize("kwargs", [
     {"exclude_radius": 0.1}, {"with_sazo": True}, {"n_attr": 2},
-    {"metric": "chebyshev"}, {"precision": "bf16x2"}])
+    {"metric": "chebyshev"}])
 def test_unported_variants_raise(kwargs):
     q_t, cand_t, centers = _problem(1, 16, 128, (0.5,), seed=0)
     args = (torch.from_numpy(q_t), torch.from_numpy(cand_t),
@@ -98,6 +206,15 @@ def test_unported_variants_raise(kwargs):
     for fn in (tpm.packed_moments, tpm.packed_moments_plain):
         with pytest.raises(NotImplementedError):
             fn(*args, **kwargs)
+
+
+def test_unknown_precision_raises():
+    q_t, cand_t, centers = _problem(1, 16, 128, (0.5,), seed=0)
+    args = (torch.from_numpy(q_t), torch.from_numpy(cand_t),
+            torch.from_numpy(centers), (0.5,))
+    for fn in (tpm.packed_moments, tpm.packed_moments_plain):
+        with pytest.raises(ValueError, match="precision"):
+            fn(*args, precision="bf16")
 
 
 def test_wrapper_rejects_bad_shapes():

@@ -4,7 +4,8 @@ the span moment kernel against the JAX Pallas kernel (interpret mode),
 ``fused_extract_spans`` against the reference's, and
 ``extract_scaleset_fused(backend="pallas")`` against the reference's
 ``extract_scaleset(method="fused", tuning={"backend": "pallas"})``, on
-the same NumPy inputs.
+the same NumPy inputs; the plain twin at ``precision="bf16x2"`` against
+the JAX kernel at that precision and against ``"highest"``.
 
 Counts are compared for equality.  Moments may differ by the f32
 accumulation-order bound (``gather_kernel.span_tolerance``: both sum the
@@ -221,14 +222,77 @@ def test_extract_scaleset_fused_span_backend_matches_reference():
     np.testing.assert_allclose(packed, got, atol=1e-3)
 
 
-@pytest.mark.parametrize("kwargs", [{"exclude_radius": 0.1},
-                                    {"precision": "bf16x2"}])
+@pytest.mark.parametrize("kwargs", [{"exclude_radius": 0.1}])
 def test_unported_variants_raise(kwargs):
     args = [torch.from_numpy(a) for a in
             _exact_problem(1, 8, 4, 8, (0.5,), seed=0)]
     for fn in (tgk.span_moments, tgk.span_moments_plain):
         with pytest.raises(NotImplementedError):
             fn(*args, (0.5,), 8, **kwargs)
+    for fn in (tgk.span_moments, tgk.span_moments_plain):
+        with pytest.raises(ValueError, match="precision"):
+            fn(*args, (0.5,), 8, precision="bf16")
+
+
+def _random_problem(n_entries, q_cap, n_span, span_rows, seed):
+    """Spans over per-entry blocks of random-float points, so the bf16
+    split's mid and lo terms are used; a third of the spans empty and a
+    total of live rows per entry that is not a multiple of 16."""
+    rng = np.random.default_rng(seed)
+    centers = (rng.random((n_entries, 3)) * 50).astype(np.float32)
+    q_local = rng.uniform(-2, 2, (n_entries, q_cap, 3)).astype(np.float32)
+    block = 4 * span_rows
+    pts = (centers[:, None, :] + rng.uniform(-3, 3, (n_entries, block, 3))
+           ).reshape(-1, 3).astype(np.float32)
+    lens = rng.integers(0, span_rows + 1, (n_entries, n_span))
+    lens[rng.random((n_entries, n_span)) < 1 / 3] = 0
+    lens[:, 0] = 7
+    starts = (np.arange(n_entries) * block)[:, None] + rng.integers(
+        0, block - span_rows + 1, (n_entries, n_span))
+    return (q_local, centers, starts.astype(np.int32), lens.astype(np.int32),
+            pts)
+
+
+@pytest.mark.parametrize("q_cap,n_span,span_rows,radii,exact", [
+    (16, 9, 40, (0.5, 2.0), True), (24, 25, 24, (1.0,), False),
+    (130, 4, 64, (0.5, 1.0, 1.5, 2.0), False)])
+def test_plain_bf16x2_twin_matches_pallas_kernel(q_cap, n_span, span_rows,
+                                                 radii, exact):
+    make = _exact_problem if exact else _random_problem
+    problem = (make(3, q_cap, n_span, span_rows, radii, seed=q_cap) if exact
+               else make(3, q_cap, n_span, span_rows, seed=q_cap))
+    q_local, centers, starts, lens, pts = problem
+    ref = np.asarray(jgk.span_moments(
+        jnp.asarray(q_local), jnp.asarray(centers), jnp.asarray(starts),
+        jnp.asarray(lens), jnp.asarray(_sorted_t(pts, span_rows)), radii,
+        span_rows, interpret=True, entries_per_step=2, precision="bf16x2"))
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in problem]
+    got_t = tgk.span_moments_plain(*args, radii, span_rows,
+                                   precision="bf16x2")
+    got = got_t.numpy()
+    assert got.shape == ref.shape == (3, q_cap, len(radii) * MOMENT_PAD)
+    np.testing.assert_array_equal(got[..., COUNTS], ref[..., COUNTS])
+    assert got[..., COUNTS].max() > 0
+    tol = tgk.span_tolerance(got_t, *args[1:], span_rows).numpy()
+    assert np.all(np.abs(got - ref) <= tol)
+    np.testing.assert_array_equal(
+        tgk.span_moments(*args, radii, span_rows,
+                         precision="bf16x2").numpy(), got)
+
+
+@pytest.mark.parametrize("q_cap,n_span,span_rows,radii", [
+    (16, 25, 40, (0.5,)), (130, 9, 64, (0.5, 1.0, 1.5, 2.0))])
+def test_bf16x2_matches_highest(q_cap, n_span, span_rows, radii):
+    args = [torch.from_numpy(a) for a in
+            _random_problem(4, q_cap, n_span, span_rows, seed=n_span)]
+    high = tgk.span_moments_plain(*args, radii, span_rows)
+    split = tgk.span_moments_plain(*args, radii, span_rows,
+                                   precision="bf16x2")
+    assert torch.equal(split[..., COUNTS], high[..., COUNTS])
+    assert high[..., COUNTS].max() > 0
+    tol = tgk.span_tolerance(high, *args[1:], span_rows)
+    assert bool(((split - high).abs() <= tol).all())
+    assert not torch.equal(split, high)     # the two orders do differ
 
 
 def test_bad_inputs_raise():
