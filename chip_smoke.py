@@ -13,13 +13,15 @@ Phases, one or more lines each:
               for sm_90a; ptxas's registers / shared memory / spills (no
               kernel may spill) and, from ``cuobjdump -sass``, the HMMA
               (tensor-core) instructions of each kernel: every template
-              instance of the two tensor-core kernels must hold some.
+              instance of the three kernels must hold some.
 3. kernel  -- the CUDA ``packed_moments`` against its plain PyTorch twin
               on the card, at the packed path's shapes (serving: q_cap
-              512, band-1 capacity buckets; fit: q_cap 256), at both
+              512, band-0 capacity buckets; fit: q_cap 256), at both
               precisions: counts equal, moments within
-              ``moment_tolerance``; CUDA-event times, the pairs and the
-              bound reckoned from the inputs (``packed_moments_work``),
+              ``moment_tolerance``; CUDA-event times (launches queued
+              behind a spin kernel, so timed back to back), the pairs
+              and the bound reckoned from the inputs
+              (``packed_moments_work``),
               the share of the bound, the largest error as a share of
               its tolerance; the SM clock read right after.
 4. main    -- the packed path: ``make_bench_cloud(1_000_000)``,
@@ -41,15 +43,16 @@ Phases, one or more lines each:
               rounding bound of r^2, the other features within their
               f32 rounding bounds where no candidate is that close.
               Then ``span_moments`` against its plain twin at the
-              path's band-1 shapes, as in phase 3.
+              path's band-0 shapes, as in phase 3.
 6. tiled   -- the tiled entry path, per band: ``build_tiled_problem``
               on the host (voxel centers as the search cloud, tile edge
               = radius, m = 3, entry batch 256), ``tiled_features`` on
               the card.  ``entry_moments`` launched, features finite,
               the population column equal to the packed extraction's
               for >= 99.9% of points; host and device time per band.
-              Then ``entry_moments`` against its plain twin on band 1's
-              first entry batch.
+              Then ``entry_moments`` against its plain twin on band 0's
+              first entry batch, with the valid share of its candidate
+              slots and the k16 groups the kernel runs per entry.
 7. e2e     -- a 100k-point scene served by both backends on the card
               and, with the same classifier, on the CPU (plain twins):
               labels agree except at near-ties (top-two probability gap
@@ -59,12 +62,13 @@ Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.
 
 With ``--profile DIR`` a profile phase runs after the serving steps of
-phases 4 and 5: ``torch.profiler`` over three steady serving steps of
-that backend (clouds staged before the window), printing device busy
-time (the union of kernel, memcpy and memset intervals), the traced
-wall time of ``predict_staged`` + synchronize, the device's idle share
-and the largest kernels by device time; the chrome traces and the full
-kernel tables go to ``DIR``.
+phases 4 and 5 and after the tiled runs of phase 6: ``torch.profiler``
+over three steady serving steps of that backend (clouds staged before
+the window) or three ``tiled_features`` runs of band 0, printing device
+busy time (the union of kernel, memcpy and memset intervals), the
+traced wall time of each step to synchronize, the device's idle share
+and the largest kernels by device time (per step and per call); the
+chrome traces and the full kernel tables go to ``DIR``.
 
 Then a JSON line with the kernel records (times, pairs, bound, launches
 on the paths; ``library_ms`` is null: no single PyTorch call computes a
@@ -99,7 +103,7 @@ WITNESS_SAMPLE = 4096      # points a cloud held against float64 counts
 EPS32 = 2.0 ** -24         # f32 unit roundoff
 TILED_BATCH = 256
 COUNT_COLS = slice(0, None, 16)
-MMA_KERNELS = ("packed_moments", "span_moments")   # tensor-core sums
+MMA_KERNELS = ("packed_moments", "span_moments", "entry_moments")
 
 
 def _check(ok, what):
@@ -108,10 +112,14 @@ def _check(ok, what):
 
 
 def _events_ms(fn, repeat):
+    """Device ms a call of ``fn``, over ``repeat`` calls queued behind a
+    spin kernel of about 1 ms: a kernel shorter than its wrapper's host
+    time is timed back to back, not at the rate the host launches it."""
     import torch
     fn()                                              # warm-up
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(repeat):
         fn()
@@ -150,7 +158,7 @@ def _hold(what, kernel, plain, tolerance,
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec[f"{precision}_err_share"] = share
         del got, ref, tol
-    rec["ms"] = _events_ms(lambda: kernel(precisions[0]), 5)
+    rec["ms"] = _events_ms(lambda: kernel(precisions[0]), 20)
     rec["plain_ms"] = _events_ms(lambda: plain(precisions[0]), 3)
     return rec
 
@@ -188,8 +196,8 @@ def _counts():
     return {name: fn.launches for name, fn in _kernels().items()}
 
 
-def _staged_band1(model, cloud, device):
-    """Band 1's serving inputs as ``predict_staged`` forms them: the
+def _staged_band0(model, cloud, device):
+    """Band 0's serving inputs as ``predict_staged`` forms them: the
     dequantized upload, its validity and the band's deduplicated,
     trimmed voxel centers."""
     import torch
@@ -208,7 +216,7 @@ def _staged_band1(model, cloud, device):
 
 
 def _packed_problems(model, cloud, device):
-    """The packed path's band-1 kernel inputs: ``(side, (q_t, cand_t,
+    """The packed path's band-0 kernel inputs: ``(side, (q_t, cand_t,
     centers), radii)`` per serving bucket and fit bucket."""
     import numpy as np
     import torch
@@ -216,8 +224,8 @@ def _packed_problems(model, cloud, device):
     from nimrud_tpu_torch.ops import device_grid, packing, span_host, unique
 
     problems = []
-    # serving: band 1 (the pack grid) at q_cap 512, split capacities
-    band, query, valid, centers, mask = _staged_band1(model, cloud, device)
+    # serving: band 0 (the pack grid) at q_cap 512, split capacities
+    band, query, valid, centers, mask = _staged_band0(model, cloud, device)
     plan = device_grid._pack_plan(query, valid, band[1])
     spans = device_grid._band_spans(plan, centers, mask, band[1],
                                     presorted=True)
@@ -226,7 +234,7 @@ def _packed_problems(model, cloud, device):
         spans["span_lens"], device_grid._far_extended(spans["sorted_pts"]),
         band[5])
     problems += [("serve", b[:3], band[2]) for b in buckets]
-    # fit: band 1 at q_cap 256, one capacity (extract_scaleset_fused)
+    # fit: band 0 at q_cap 256, one capacity (extract_scaleset_fused)
     edge, radii = model.scaleset[0]
     lo = np.asarray(model.bounds[0], np.float64)
     hi = np.asarray(model.bounds[1], np.float64)
@@ -273,7 +281,7 @@ def _packed_kernel_phase(model, cloud, device):
         sides[side].append((rec, work))
     totals = {side: _total(rows) for side, rows in sides.items()}
     for side, (rec, work) in totals.items():
-        print(f"[kernel] packed_moments {side} band-1 total: "
+        print(f"[kernel] packed_moments {side} band-0 total: "
               f"{_work_text(rec, work)}", flush=True)
     return totals["serve"]
 
@@ -295,12 +303,12 @@ def _total(rows):
 
 
 def _span_problem(model, cloud, device):
-    """The span serving path's band-1 kernel inputs: (args, radii,
+    """The span serving path's band-0 kernel inputs: (args, radii,
     span_rows)."""
     import torch
     from nimrud_tpu_torch.ops import device_grid
 
-    band, query, valid, centers, mask = _staged_band1(model, cloud, device)
+    band, query, valid, centers, mask = _staged_band0(model, cloud, device)
     prob = device_grid._span_problem(query, valid, centers, mask, band[1])
     args = (prob["q_local"].contiguous(), prob["centers"].contiguous(),
             prob["span_starts"].to(torch.int32).contiguous(),
@@ -310,7 +318,7 @@ def _span_problem(model, cloud, device):
 
 
 def _span_kernel_phase(model, cloud, device):
-    """span_moments vs plain at the span serving path's band-1 shapes."""
+    """span_moments vs plain at the span serving path's band-0 shapes."""
     import torch
     from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
 
@@ -328,17 +336,17 @@ def _span_kernel_phase(model, cloud, device):
         lambda p: gk.span_moments_plain(*args, radii, span_rows,
                                         precision=p),
         lambda ref: gk.span_tolerance(ref, *args[1:], span_rows))
-    print(f"[kernel] span_moments serving band 1 {shape}: "
+    print(f"[kernel] span_moments serving band 0 {shape}: "
           f"{_work_text(rec, work)}", flush=True)
     return rec, work
 
 
-def _entry_kernel_phase(problem, cloud, search, radii, device):
-    """entry_moments vs plain on the first entry batch of a tiled
-    band."""
+def entry_batch(problem, cloud, search, device):
+    """The ``entry_moments`` inputs (q_local, s_local, s_valid) of the
+    first entry batch of a tiled band, as ``tiled_features`` forms
+    them."""
     import torch
     from nimrud_tpu_torch.ops import grid
-    from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 
     def put(array, dtype):
         return torch.as_tensor(array).to(device=device, dtype=dtype)
@@ -352,9 +360,23 @@ def _entry_kernel_phase(problem, cloud, search, radii, device):
         (put(problem.query_index[batch], torch.int64),
          put(problem.neighbor_rows[batch], torch.int64),
          put(problem.entry_centers[batch], torch.float32)))
-    args = (q_local.contiguous(), s_local.contiguous(), s_valid.contiguous())
-    shape = (f"E={q_local.shape[0]} Q={q_local.shape[1]} "
-             f"F={s_local.shape[1]}")
+    return q_local.contiguous(), s_local.contiguous(), s_valid.contiguous()
+
+
+def _entry_kernel_phase(problem, cloud, search, radii, device):
+    """entry_moments vs plain on the first entry batch of a tiled
+    band."""
+    from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
+
+    args = entry_batch(problem, cloud, search, device)
+    q_local, s_local, s_valid = args
+    flat = s_local.shape[1]
+    valid = s_valid.sum(1)
+    shape = (f"E={q_local.shape[0]} Q={q_local.shape[1]} F={flat}; valid "
+             f"share of slots {float(valid.sum()) / s_valid.numel():.4f}, "
+             f"k16 groups run per entry "
+             f"{float(((valid + 15) // 16).float().mean()):.2f} of "
+             f"{-(-flat // 16)}")
     work = mk.entry_moments_work(*args, radii)
     rec = _hold(
         f"entry_moments {shape}",
@@ -362,7 +384,7 @@ def _entry_kernel_phase(problem, cloud, search, radii, device):
         lambda _: mk.entry_moments_plain(*args, radii),
         lambda ref: mk.entry_tolerance(ref, args[1], args[2]),
         precisions=("highest",))
-    print(f"[kernel] entry_moments tiled band 1, first batch {shape}: "
+    print(f"[kernel] entry_moments tiled band 0, first batch {shape}: "
           f"{_work_text(rec, work)}", flush=True)
     return rec, work
 
@@ -637,15 +659,16 @@ def _span_phase(model, packed_labels, clouds, truths, fit_cloud, device,
     print(f"[span] flip witness ({time.perf_counter() - t0:.1f} s): "
           f"{witness}", flush=True)
     if profile_dir:
-        _profile_phase(span, profile_dir)
+        _serving_profile(span, profile_dir)
     return counts["span_moments"], _span_kernel_phase(span, clouds[0],
                                                       device)
 
 
-def _tiled_phase(model, cloud, device):
+def _tiled_phase(model, cloud, device, profile_dir=None):
     """The tiled entry path per band, counted from zero, against the
-    packed extraction's populations; then its kernel held against the
-    plain twin on band 1."""
+    packed extraction's populations (then band 0 profiled, with a
+    ``profile_dir``); then its kernel held against the plain twin on
+    band 0."""
     import torch
     from nimrud_tpu_torch.features import multiscale
     from nimrud_tpu_torch.ops import grid
@@ -653,7 +676,7 @@ def _tiled_phase(model, cloud, device):
     packed = model.extract_device(cloud)
     torch.cuda.synchronize()
     _reset_counts()
-    band1, rows = None, []
+    band0, rows = None, []
     for b, (edge, radii) in enumerate(model.scaleset):
         t0 = time.perf_counter()
         search = multiscale._host_unique_voxels(cloud, edge,
@@ -677,14 +700,19 @@ def _tiled_phase(model, cloud, device):
         _check(agree >= MIN_POP_AGREE,
                f"tiled band {b}: populations agree for {agree}")
         if b == 0:
-            band1 = (problem, search, radii)
+            band0 = (problem, search, radii)
     counts = _counts()
     for row in rows:
         print(f"[tiled] {row}")
     print(f"[tiled] launches {counts}", flush=True)
     _check(counts["entry_moments"] > 0, "entry_moments did not run in the "
            "tiled path")
-    problem, search, radii = band1
+    problem, search, radii = band0
+    if profile_dir:
+        _profile_phase("[profile tiled band 0]", "tiled_band0", [
+            lambda: grid.tiled_features(problem, cloud, search, radii,
+                                        "minimal", entry_batch=TILED_BATCH,
+                                        device=device)] * 3, profile_dir)
     return counts["entry_moments"], _entry_kernel_phase(
         problem, cloud, search, radii, device)
 
@@ -727,29 +755,37 @@ def _e2e_phase(device):
                f"{backend}: too many label flips")
 
 
-def _profile_phase(model, out_dir):
-    """Device busy time, idle share and kernel times of three steady
-    serving steps of ``model``'s backend, from a ``torch.profiler``
-    trace."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _serving_profile(model, out_dir):
+    """Three steady serving steps of ``model``'s backend (clouds staged
+    before the window), profiled."""
     from nimrud_tpu_torch.utils import workload
-
-    os.makedirs(out_dir, exist_ok=True)
     staged = [model.stage(workload.make_bench_cloud(N_POINTS, seed=s)[0])
               for s in (3, 4, 5)]
-    model.predict_staged(staged[0])                    # warm-up
+    _profile_phase(f"[profile {model.backend}]", f"serving_{model.backend}",
+                   [lambda st=st: model.predict_staged(st) for st in staged],
+                   out_dir)
+
+
+def _profile_phase(tag, stem, steps, out_dir):
+    """Device busy time, idle share and kernel times of ``steps`` (calls,
+    each run to synchronize; the first also once before the window), from
+    a ``torch.profiler`` trace.  The chrome trace and the full kernel
+    table go to ``out_dir``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    steps[0]()                                         # warm-up
     torch.cuda.synchronize()
     walls = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for st in staged:
+        for step in steps:
             t0 = time.perf_counter()
-            model.predict_staged(st)
+            step()
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
-    tag = f"[profile {model.backend}]"
-    trace = os.path.join(out_dir, f"serving_trace_{model.backend}.json")
+    trace = os.path.join(out_dir, f"{stem}_trace.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = json.load(f)
@@ -771,15 +807,13 @@ def _profile_phase(model, out_dir):
         by_name[e["name"]][0] += float(e["dur"]) / 1e3
         by_name[e["name"]][1] += 1
     table = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    n_steps = len(staged)
-    with open(os.path.join(out_dir,
-                           f"serving_kernels_{model.backend}.txt"),
-              "w") as f:
+    n_steps = len(steps)
+    with open(os.path.join(out_dir, f"{stem}_kernels.txt"), "w") as f:
         for name, (ms, n) in table:
             f.write(f"{ms / n_steps:.4f} ms/step\t{n / n_steps:g} "
                     f"calls/step\t{name}\n")
     wall = sum(walls)
-    print(f"{tag} {n_steps} steps: predict_staged + sync traced ms "
+    print(f"{tag} {n_steps} steps: traced ms to synchronize "
           + ", ".join(f"{w:.3f}" for w in walls)
           + f"; device busy {busy_us / 1e3 / n_steps:.3f} ms/step; idle "
           f"share {1 - busy_us / 1e3 / wall:.4f}; "
@@ -787,7 +821,8 @@ def _profile_phase(model, out_dir):
     for name, (ms, n) in table[:8]:
         print(f"{tag} {ms / n_steps:.4f} ms/step "
               f"({100 * ms / (busy_us / 1e3):.1f}% of busy), "
-              f"{n / n_steps:g} calls/step: {name[:90]}", flush=True)
+              f"{n / n_steps:g} calls/step, {ms / n:.4f} ms/call: "
+              f"{name[:90]}", flush=True)
 
 
 def _build_phase(cuda_build):
@@ -823,8 +858,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile three serving steps of each "
-                             "backend; write the traces and kernel tables to "
-                             "DIR")
+                             "backend and three tiled runs of band 0; write "
+                             "the traces and kernel tables to DIR")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -878,12 +913,12 @@ def main():
            f"the packed path ran another kernel: {counts}")
     launches = {"packed_moments": counts["packed_moments"]}
     if args.profile:
-        _profile_phase(model, args.profile)
+        _serving_profile(model, args.profile)
 
     launches["span_moments"], record["span_moments"] = _span_phase(
         model, packed_labels, clouds, truths, cloud, device, args.profile)
     launches["entry_moments"], record["entry_moments"] = _tiled_phase(
-        model, cloud, device)
+        model, cloud, device, args.profile)
     print(f"[launches] packed_moments: fit {fit_counts['packed_moments']}, "
           f"serving {serve_launches / len(clouds):g} a step; span_moments "
           f"{launches['span_moments'] / len(clouds):g} a step; entry_moments "

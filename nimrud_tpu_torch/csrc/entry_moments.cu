@@ -1,155 +1,178 @@
 // Masked moments over flat per-entry candidate blocks, for Hopper.
 //
 // Replaces the TPU kernel nimrud_tpu/ops/pallas/multiscale_kernel.py
-// entry_moments (body _kernel).  Per entry of Q queries and F candidates,
-// both already in the entry-local frame, it forms the EXPANDED distance
+// entry_moments (body _kernel).  Per entry of Q queries and F candidate
+// slots, both already in the entry-local frame, it forms the EXPANDED
+// distance
 //     d2 = max((|q|^2 + |s|^2) - 2 q.s, 0)
-// tests it against each radius, and sums [v, x, y, z, xx, xy, xz, yy,
-// yz, zz] * v of the candidates inside (v = 1 for a valid candidate, 0
-// for padding), one 16-wide slab per radius (rows 10..15 zero).
+// tests it against each radius, and sums [1, x, y, z, xx, xy, xz, yy,
+// yz, zz] of the valid candidates inside, one 16-wide slab per radius
+// (rows 10..15 zero).  Invalid slots add nothing.
 //
-// What bounds it on an H100: the pair tests.  On the tiled path at the
-// 1M-point bench scene an entry batch pairs up to 256 entries of up to
-// 512 queries with F = 125 * s_cap (1000-4000) candidates: up to ~0.5G
-// pair tests per batch at about 20 f32 operations each (estimate from
-// the shapes, not measured) against a few MB of input, so CUDA-core f32
-// throughput is the limit, not HBM.
+// What bounds it on an H100: the distance tests of the VALID pairs on
+// the CUDA cores (8 f32 operations each, none fusable by contract).  On
+// the tiled path at the 1M-point bench scene an entry holds 125
+// neighbour tiles x s_cap slots (F = 1000 at s_cap 8), of which about
+// 14% are valid: every search tile holds about one voxel center on
+// average and the host table pads each to s_cap.  A kernel that tests
+// every slot spends 86% of its pair work on padding.
 //
-// What the design does about it: one thread owns one query and keeps
-// its 10 x n_r sums in registers; a block of 128 queries of one entry
-// streams the entry's candidates through shared memory in tiles of 256,
-// where each candidate's |s|^2 and its validity-weighted moment terms
-// are formed once for the whole block and then read as broadcasts.  Any
-// Q (not only multiples of 128) and any F are taken.
+// What the design does about it: each block (one entry,
+// moment_mma::Shape<NR> queries, 8 warps) first COMPACTS the entry's valid slots -- each
+// thread reads 16 validity bytes, a warp shuffle scan and a block
+// prefix give every valid slot its place, and the slot offsets go to a
+// shared list (int16, relative to the chunk) -- then stages dense tiles
+// of valid candidates only, so an entry runs ceil(valid / 16) k16
+// groups.  F of any size is taken: slots are compacted kChunk at a
+// time, and the valid rows that do not fill a tile at the end of a
+// chunk are carried in registers into the next chunk's first tile
+// (F <= kChunk, s_cap <= 32 at m = 3, is one pass).  The masked sums
+// run on the tensor cores through moment_mma.cuh (the aug row split
+// into bf16 hi + mid + lo beside a column of ones, the 0/1 mask built in
+// registers, mma.sync m16n8k16); a pad row past the last valid
+// candidate has a zero aug row.
 //
 // Contracts kept: the expanded form is evaluated elementwise in one
 // fixed order with every product and sum rounded on its own (no FMA):
 //     qq = (q0*q0 + q1*q1) + q2*q2,  ss alike,
 //     qs = (q0*s0 + q1*s1) + q2*s2,  d2 = (qq + ss) - 2*qs,
-// the order of the port's plain version, so both give equal counts.
-// d2 is compared against the f32 value of r*r computed by the caller.
-// Sums use fmaf(m, t, s) with m in {0, 1}: exactly s or round(s + t).
+// the order of the port's plain version, so both give equal counts; no
+// matmul or tensor core forms qs.  d2 is compared against the f32 value
+// of r*r computed by the caller, without the clamp (moment_mma.cuh
+// Expanded says why): a NaN query or candidate counts nowhere, as in
+// the reference.  Counts are exact (sums of 0/1 products in f32 below
+// 2^24); the other moments differ from an f32 sum only in the order of
+// the sums.
 //
 // Built as a plain C library (nvcc -shared) and called through ctypes:
 // the launcher runs on the caller's stream and returns
 // cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "moment_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // queries per block, one per thread
-constexpr int kTile = 256;      // candidates per shared-memory tile
-constexpr int kPad = 16;        // slab width per radius (MOMENT_PAD)
-constexpr int kMaxRadii = 4;
+namespace mm = moment_mma;
 
-struct Radii {
-  float r2[kMaxRadii];
-};
-
-__device__ __forceinline__ float sum_sq(float a, float b, float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
-                   __fmul_rn(c, c));
-}
+constexpr int kChunk = 4096;                    // slots compacted a pass
+constexpr int kPerThread = kChunk / mm::kThreads;   // 16 validity bytes
 
 template <int NR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mm::kThreads)
 entry_moments_kernel(const float* __restrict__ q_local,
                      const float* __restrict__ s_local,
-                     const unsigned char* __restrict__ s_valid, Radii radii,
-                     int q_cap, int flat, float* __restrict__ out) {
-  __shared__ float4 s_p[kTile];   // x, y, z, ss
-  __shared__ float4 s_m[kTile];   // v, x v, y v, z v
-  __shared__ float4 s_n[kTile];   // xx v, xy v, xz v, yy v
-  __shared__ float2 s_o[kTile];   // yz v, zz v
+                     const unsigned char* __restrict__ s_valid,
+                     mm::Radii radii, int q_cap, int flat,
+                     float* __restrict__ out) {
+  __shared__ mm::Smem smem;
+  __shared__ alignas(16) float s_ss[mm::kTile];          // sum_sq of a row
+  __shared__ short s_list[kChunk + mm::kTile];  // valid slots - chunk base
+  __shared__ int s_warp_total[mm::kWarps];
+  using W = mm::Warp<NR>;
+  constexpr int MT = W::MT;
 
   const int e = blockIdx.x;
-  const int q = blockIdx.y * kThreads + threadIdx.x;
-  const bool live = q < q_cap;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q_first = blockIdx.y * mm::Shape<NR>::kQueries + warp * 16 * MT;
+  const bool busy = q_first < q_cap;      // a warp of dead rows only stages
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    const float* qe = q_local + (static_cast<size_t>(e) * q_cap + q) * 3;
-    qx = qe[0];
-    qy = qe[1];
-    qz = qe[2];
-  }
-  const float qq = sum_sq(qx, qy, qz);
-
+  W w;
+  w.zero();
+  mm::Expanded<MT> dist;
+  dist.ss = s_ss;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = q_first + m * 16 + (lane >> 2) + 8 * i;
+      const float* qe = q_local + (static_cast<size_t>(e) * q_cap + q) * 3;
+      const bool live = q < q_cap;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) w.q[m][i][k] = live ? qe[k] : 0.f;
+      dist.qq[m][i] = mm::sum_sq(w.q[m][i][0], w.q[m][i][1], w.q[m][i][2]);
+    }
   float r2[NR];
-  float acc[NR][10];
 #pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    r2[r] = radii.r2[r];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) acc[r][k] = 0.f;
-  }
+  for (int r = 0; r < NR; ++r) r2[r] = radii.r2[r];
 
   const float* se = s_local + static_cast<size_t>(e) * flat * 3;
   const unsigned char* ve = s_valid + static_cast<size_t>(e) * flat;
 
-  for (int tile = 0; tile < flat; tile += kTile) {
-    const int w = min(kTile, flat - tile);
-    __syncthreads();   // the previous tile is consumed
-    for (int j = threadIdx.x; j < w; j += kThreads) {
-      const float* s = se + static_cast<size_t>(tile + j) * 3;
-      const float x = s[0], y = s[1], z = s[2];
-      const float v = ve[tile + j] ? 1.f : 0.f;
-      s_p[j] = make_float4(x, y, z, sum_sq(x, y, z));
-      s_m[j] = make_float4(v, __fmul_rn(x, v), __fmul_rn(y, v),
-                           __fmul_rn(z, v));
-      s_n[j] = make_float4(__fmul_rn(__fmul_rn(x, x), v),
-                           __fmul_rn(__fmul_rn(x, y), v),
-                           __fmul_rn(__fmul_rn(x, z), v),
-                           __fmul_rn(__fmul_rn(y, y), v));
-      s_o[j] = make_float2(__fmul_rn(__fmul_rn(y, z), v),
-                           __fmul_rn(__fmul_rn(z, z), v));
-    }
-    __syncthreads();
-    for (int j = 0; j < w; ++j) {
-      const float4 p = s_p[j];
-      const float4 a = s_m[j];
-      const float4 b = s_n[j];
-      const float2 c = s_o[j];
-      const float qs = __fadd_rn(
-          __fadd_rn(__fmul_rn(qx, p.x), __fmul_rn(qy, p.y)),
-          __fmul_rn(qz, p.z));
-      const float d2 =
-          fmaxf(__fsub_rn(__fadd_rn(qq, p.w), __fmul_rn(2.f, qs)), 0.f);
+  // This thread's next row to stage (entry-local; zero and dead past the
+  // valid rows).  Valid rows that do not fill a tile at the end of a
+  // chunk stay here, row `threadIdx.x` of the next chunk's first tile:
+  // the list positions below `carry` are taken by them.
+  float x = 0.f, y = 0.f, z = 0.f;
+  bool live = false;
+  int carry = 0;
+  for (int base = 0; base < flat; base += kChunk) {
+    // -- compact: this thread's 16 slots, in slot order -------------------
+    const int first = threadIdx.x * kPerThread;
+    unsigned bits = 0;
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        // m is exactly 0 or 1, so fmaf(m, t, s) is s or round(s + t)
-        const float m = d2 <= r2[r] ? 1.f : 0.f;
-        acc[r][0] = fmaf(m, a.x, acc[r][0]);
-        acc[r][1] = fmaf(m, a.y, acc[r][1]);
-        acc[r][2] = fmaf(m, a.z, acc[r][2]);
-        acc[r][3] = fmaf(m, a.w, acc[r][3]);
-        acc[r][4] = fmaf(m, b.x, acc[r][4]);
-        acc[r][5] = fmaf(m, b.y, acc[r][5]);
-        acc[r][6] = fmaf(m, b.z, acc[r][6]);
-        acc[r][7] = fmaf(m, b.w, acc[r][7]);
-        acc[r][8] = fmaf(m, c.x, acc[r][8]);
-        acc[r][9] = fmaf(m, c.y, acc[r][9]);
-      }
+    for (int i = 0; i < kPerThread; ++i) {
+      const int slot = base + first + i;
+      if (slot < flat && ve[slot]) bits |= 1u << i;
     }
-  }
+    const int mine = __popc(bits);
+    int incl = mine;                        // inclusive scan over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) s_warp_total[warp] = incl;
+    __syncthreads();   // warp totals published, the last list read done
+    int pos = carry + incl - mine, chunk_valid = 0;
+#pragma unroll
+    for (int k = 0; k < mm::kWarps; ++k) {
+      const int total = s_warp_total[k];
+      pos += k < warp ? total : 0;
+      chunk_valid += total;
+    }
+    while (bits) {
+      const int i = __ffs(bits) - 1;
+      bits &= bits - 1;
+      s_list[pos++] = static_cast<short>(first + i);
+    }
+    __syncthreads();   // the list is complete
 
-  if (!live) return;
-  float* o = out + (static_cast<size_t>(e) * q_cap + q) * (NR * kPad);
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-#pragma unroll
-    for (int k = 0; k < 10; ++k) o[r * kPad + k] = acc[r][k];
-#pragma unroll
-    for (int k = 10; k < kPad; ++k) o[r * kPad + k] = 0.f;
+    // -- stage and sum whole tiles; the last chunk also its ragged tail ----
+    const int n = carry + chunk_valid;
+    const int staged = base + kChunk >= flat ? n : n - n % mm::kTile;
+    // the row at list position j >= carry
+    auto load = [&](int j) {
+      live = j < n;
+      x = y = z = 0.f;
+      if (!live) return;
+      const float* s = se + static_cast<size_t>(base + s_list[j]) * 3;
+      x = s[0];
+      y = s[1];
+      z = s[2];
+    };
+    if (threadIdx.x >= carry) load(threadIdx.x);
+    for (int k = 0; k < staged; k += mm::kTile) {
+      const int w_tile = min(mm::kTile, staged - k);
+      __syncthreads();   // the previous tile is consumed
+      mm::stage_local(smem.tile, x, y, z, live);
+      s_ss[threadIdx.x] = live ? mm::sum_sq(x, y, z) : 0.f;
+      __syncthreads();
+      load(k + mm::kTile + threadIdx.x);   // the next tile's, or the carry
+      if (busy) w.accumulate(smem.tile, (w_tile + 15) / 16, r2, dist);
+    }
+    carry = n - staged;
   }
+  __syncthreads();     // the tile's shared memory becomes the epilogue's
+  if (busy) w.store(smem, out, e, q_first, q_cap);
 }
 
 template <int NR>
-void launch(dim3 grid, cudaStream_t s, const float* q_local,
+void launch(int n_entries, int q_cap, cudaStream_t s, const float* q_local,
             const float* s_local, const unsigned char* s_valid,
-            const Radii& radii, int q_cap, int flat, float* out) {
-  entry_moments_kernel<NR><<<grid, kThreads, 0, s>>>(
+            const mm::Radii& radii, int flat, float* out) {
+  constexpr int kQ = mm::Shape<NR>::kQueries;
+  const dim3 grid(n_entries, (q_cap + kQ - 1) / kQ);
+  entry_moments_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
       q_local, s_local, s_valid, radii, q_cap, flat, out);
 }
 
@@ -167,17 +190,16 @@ extern "C" int entry_moments_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_entries <= 0 || q_cap <= 0) return 0;
-  const Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
-  const dim3 grid(n_entries, (q_cap + kThreads - 1) / kThreads);
+  const mm::Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_radii) {
-    case 1: launch<1>(grid, s, q_local, s_local, s_valid, radii, q_cap,
+    case 1: launch<1>(n_entries, q_cap, s, q_local, s_local, s_valid, radii,
                       flat, out); break;
-    case 2: launch<2>(grid, s, q_local, s_local, s_valid, radii, q_cap,
+    case 2: launch<2>(n_entries, q_cap, s, q_local, s_local, s_valid, radii,
                       flat, out); break;
-    case 3: launch<3>(grid, s, q_local, s_local, s_valid, radii, q_cap,
+    case 3: launch<3>(n_entries, q_cap, s, q_local, s_local, s_valid, radii,
                       flat, out); break;
-    case 4: launch<4>(grid, s, q_local, s_local, s_valid, radii, q_cap,
+    case 4: launch<4>(n_entries, q_cap, s, q_local, s_local, s_valid, radii,
                       flat, out); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

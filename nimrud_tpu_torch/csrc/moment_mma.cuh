@@ -1,5 +1,5 @@
-// Tensor-core masked moment sums, shared by packed_moments.cu and
-// span_moments.cu.
+// Tensor-core masked moment sums, shared by packed_moments.cu,
+// span_moments.cu and entry_moments.cu.
 //
 // A block takes one entry and kWarps * 16 * MT of its queries; each warp
 // owns MT m16 query tiles.  Candidates are staged in shared memory in
@@ -15,19 +15,21 @@
 //   columns 28..31  0
 //
 // For each k16 step a lane forms the distances of its 2 query rows x 4
-// candidate columns of the m16 x k16 A fragment in the reference's exact
-// order (dx = q - x, (dx*dx + dy*dy) + dz*dz, every operation rounded on
-// its own, no FMA), compares each with the caller's f32(r*r) and packs
-// the 0/1 results as bf16 pairs.  Per radius, four mma.sync m16n8k16
-// (bf16 in, f32 accumulate) multiply that mask by the 32 columns.  The
-// products are exact (0/1 times a bf16 term), so counts are exact and
-// the moments differ from an f32 sum only in the order of the sums.  The
-// epilogue adds hi + mid + lo per moment in f32 and writes the
-// (q_cap, 16 * NR) slab rows; rows past q_cap are never stored.
+// candidate columns of the m16 x k16 A fragment through a distance
+// policy (Difference: dx = q - x, (dx*dx + dy*dy) + dz*dz; Expanded:
+// (|q|^2 + |s|^2) - 2 q.s; every operation rounded on its own, no FMA,
+// in the order of the kernel's reference), compares each with the
+// caller's f32(r*r) and packs the 0/1 results as bf16 pairs.  Per
+// radius, four mma.sync m16n8k16 (bf16 in, f32 accumulate) multiply
+// that mask by the 32 columns.  The products are exact (0/1 times a
+// bf16 term), so counts are exact and the moments differ from an f32
+// sum only in the order of the sums.  The epilogue adds hi + mid + lo
+// per moment in f32 and writes the (q_cap, 16 * NR) slab rows; rows
+// past q_cap are never stored.
 //
 // A k16 group of candidates that holds only dead rows (the FAR sentinel
-// at all three coordinates, or the pad past a ragged tail) is skipped:
-// its rows would add 0.
+// at all three coordinates, a row staged with its live flag off, or the
+// pad past a ragged tail) is skipped: its rows would add 0.
 
 #pragma once
 
@@ -80,19 +82,14 @@ __device__ __forceinline__ void split3(float v, __nv_bfloat16& hi,
   lo = __float2bfloat16_rn(__fsub_rn(rem, __bfloat162float(mid)));
 }
 
-// Stage candidate j (global coordinates p*, entry center c*) into the
-// tile.  Dead rows -- all three coordinates at the FAR sentinel -- keep
-// their far local coordinates (every distance test fails) and a zero
-// aug row.  Every thread of the block calls this once per tile; the
-// warp then publishes one live flag per k16 group.
-__device__ __forceinline__ void stage_row(Tile& s, float px, float py,
-                                          float pz, float cx, float cy,
-                                          float cz) {
+// Stage entry-local row (x, y, z) of thread j into the tile.  A dead
+// row (live false) keeps its coordinates and gets a zero aug row, so it
+// adds 0 whatever its distance test says.  Every thread of the block
+// calls this once per tile; the warp then publishes one live flag per
+// k16 group.
+__device__ __forceinline__ void stage_local(Tile& s, float x, float y,
+                                            float z, bool live) {
   const int j = threadIdx.x;
-  const bool live = !(px == kFar && py == kFar && pz == kFar);
-  const float x = __fsub_rn(px, cx);
-  const float y = __fsub_rn(py, cy);
-  const float z = __fsub_rn(pz, cz);
   s.x[j] = x;
   s.y[j] = y;
   s.z[j] = z;
@@ -115,6 +112,18 @@ __device__ __forceinline__ void stage_row(Tile& s, float px, float py,
   const int lane = threadIdx.x & 31;
   if ((lane & 15) == 0)
     s.live[j >> 4] = ((ballot >> (lane & 16)) & 0xffffu) != 0;
+}
+
+// Stage candidate j (global coordinates p*, entry center c*) into the
+// tile.  Dead rows -- all three coordinates at the FAR sentinel -- keep
+// their far local coordinates (every distance test fails) and a zero
+// aug row.
+__device__ __forceinline__ void stage_row(Tile& s, float px, float py,
+                                          float pz, float cx, float cy,
+                                          float cz) {
+  const bool live = !(px == kFar && py == kFar && pz == kFar);
+  stage_local(s, __fsub_rn(px, cx), __fsub_rn(py, cy), __fsub_rn(pz, cz),
+              live);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
@@ -154,6 +163,57 @@ __device__ __forceinline__ uint32_t mask_pair(float d2_lo, float d2_hi,
                      __float_as_uint(d2_hi <= r2 ? 1.f : 0.f), 0x7632);
 }
 
+// Distance policies of Warp::accumulate.  `columns` loads what the
+// policy needs of staged columns ka, ka + 1, kb, kb + 1 beside their
+// coordinates; the call gives the squared distance of query row i of
+// m16 tile m (entry-local q) to one column.
+
+// The difference form of packed_moments and span_moments.
+struct Difference {
+  __device__ __forceinline__ void columns(int, int, float (&)[4]) const {}
+  __device__ __forceinline__ float operator()(int, int, const float (&q)[3],
+                                              float x, float y, float z,
+                                              float) const {
+    return dist2(q[0], q[1], q[2], x, y, z);
+  }
+};
+
+__device__ __forceinline__ float sum_sq(float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
+                   __fmul_rn(c, c));
+}
+
+// The expanded form of entry_moments: d2 = (qq + ss) - 2 qs with
+// qq = sum_sq(q) per query row (registers), ss = sum_sq(s) per staged
+// row (the caller's shared array beside the tile) and
+// qs = (q0*s0 + q1*s1) + q2*s2.  The reference clamps max(d2, 0) before
+// the test; for r2 >= 0 that clamp never changes d2 <= r2 (a negative d2
+// passes either way, a NaN fails either way), so it is left out.
+template <int MT>
+struct Expanded {
+  const float* ss;                 // kTile, 8-byte aligned
+  float qq[MT][2];
+
+  __device__ __forceinline__ void columns(int ka, int kb,
+                                          float (&aux)[4]) const {
+    const float2 a = *reinterpret_cast<const float2*>(ss + ka);
+    const float2 b = *reinterpret_cast<const float2*>(ss + kb);
+    aux[0] = a.x;
+    aux[1] = a.y;
+    aux[2] = b.x;
+    aux[3] = b.y;
+  }
+  __device__ __forceinline__ float operator()(int m, int i,
+                                              const float (&q)[3], float x,
+                                              float y, float z,
+                                              float s) const {
+    const float qs = __fadd_rn(__fadd_rn(__fmul_rn(q[0], x),
+                                         __fmul_rn(q[1], y)),
+                               __fmul_rn(q[2], z));
+    return __fsub_rn(__fadd_rn(qq[m][i], s), __fmul_rn(2.f, qs));
+  }
+};
+
 // One warp's query tiles: entry-local coordinates of rows g and g + 8 of
 // each m16 tile, and the accumulators (per radius, tile and n8 tile).
 template <int NR>
@@ -174,8 +234,10 @@ struct Warp {
   }
 
   // Sum the first n_groups k16 groups of the staged tile.
+  template <class Dist = Difference>
   __device__ __forceinline__ void accumulate(const Tile& s, int n_groups,
-                                             const float (&r2)[NR]) {
+                                             const float (&r2)[NR],
+                                             const Dist& dist = Dist()) {
     const int lane = threadIdx.x & 31;
     const int t = lane & 3;
     // this lane's ldmatrix row: matrix lane >> 3 is (n8 tile, k half)
@@ -207,6 +269,8 @@ struct Warp {
       const float cx[4] = {xa.x, xa.y, xb.x, xb.y};
       const float cy[4] = {ya.x, ya.y, yb.x, yb.y};
       const float cz[4] = {za.x, za.y, zb.x, zb.y};
+      float aux[4] = {0.f, 0.f, 0.f, 0.f};
+      dist.columns(k0 + 2 * t, k0 + 8 + 2 * t, aux);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         float d2[2][4];
@@ -214,8 +278,7 @@ struct Warp {
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            d2[i][j] = dist2(q[m][i][0], q[m][i][1], q[m][i][2], cx[j],
-                             cy[j], cz[j]);
+            d2[i][j] = dist(m, i, q[m][i], cx[j], cy[j], cz[j], aux[j]);
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
           // A fragment: {row g, cols 2t..}, {row g+8, cols 2t..},

@@ -63,12 +63,13 @@ def _host_unique_voxels(search, edge, bounds=None):
 
 
 def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
-                           bounds=None, m=3, backend="packed", device):
+                           bounds=None, m=3, backend="packed",
+                           device="cuda"):
     """
-    Multiscale features for every query point, on ``device``: per band a
-    device voxel downsample and one fused extraction (``q_cap`` 256,
-    segments of 32 coarse tiles, entry capacity from the measured
-    occupancy).  ``backend="packed"`` packs candidate blocks at a
+    Multiscale features for every query point, on ``device`` (the card
+    unless the caller asks for the CPU): per band a device voxel
+    downsample and one fused extraction (``q_cap`` 256, segments of 32
+    coarse tiles, entry capacity from the measured occupancy).  ``backend="packed"`` packs candidate blocks at a
     capacity sized on the host (``packed_moments``); ``"pallas"`` reads
     the candidate spans in place (``span_moments``), with no candidate
     cap.

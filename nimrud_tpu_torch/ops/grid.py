@@ -222,13 +222,13 @@ def _gather_batch(query_pad, search_pad, candidates, batch):
 
 
 def tiled_features(problem, query, search, radii, kind, *, entry_batch=32,
-                   backend="pallas", device):
+                   backend="pallas", device="cuda"):
     """
-    Feature extraction through the tile grid on ``device``: per entry
-    batch the gather, the ``entry_moments`` kernel and the feature
-    layout, then one scatter back to the caller's query order (queries
-    without an entry slot get zeros).  Returns an (n_query, width)
-    float32 tensor.
+    Feature extraction through the tile grid on ``device`` (the card
+    unless the caller asks for the CPU): per entry batch the gather,
+    the ``entry_moments`` kernel and the feature layout, then one
+    scatter back to the caller's query order (queries without an entry
+    slot get zeros).  Returns an (n_query, width) float32 tensor.
     """
     from nimrud_tpu_torch.features import layouts
 

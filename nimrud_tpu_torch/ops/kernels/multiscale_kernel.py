@@ -12,9 +12,11 @@ the least time an H100 could take for a kernel's work).
   chunks.  It is the oracle: the CPU tests hold it against the JAX
   kernel, and ``chip_smoke.py`` holds the CUDA kernel against it.
 * :func:`entry_moments` -- the wrapper of the hand-written Hopper
-  kernel ``csrc/entry_moments.cu``.  A CPU tensor goes to the plain
-  version; a CUDA tensor launches the kernel or raises.
-  ``entry_moments.launches`` counts kernel launches.
+  kernel ``csrc/entry_moments.cu`` (it compacts each entry's valid
+  candidates, then sums on the tensor cores through
+  ``csrc/moment_mma.cuh``).  A CPU tensor goes to the plain version; a
+  CUDA tensor launches the kernel or raises.  ``entry_moments.launches``
+  counts kernel launches.
 
 The expanded distance ``d2 = max((|q|^2 + |s|^2) - 2 q.s, 0)`` is this
 kernel's contract (it decides the counts; ``grid._entry_stats`` uses the
@@ -22,7 +24,9 @@ difference form instead).  Both versions form it elementwise in one
 fixed order, ``qq = (q0*q0 + q1*q1) + q2*q2`` (``ss`` alike) and
 ``qs = (q0*s0 + q1*s1) + q2*s2``, each operation rounded on its own, so
 the kernel and the plain version give equal counts.  No matmul forms
-``qs``: a library's summation order for K=3 is not fixed.
+``qs``: a library's summation order for K=3 is not fixed.  A NaN query
+or candidate counts nowhere (``d2 <= r^2`` is false), as in the
+reference.
 """
 
 import ctypes
@@ -235,14 +239,14 @@ def entry_tolerance(slabs, s_local, s_valid):
 
 def entry_moments_work(q_local, s_local, s_valid, radii):
     """:func:`moment_bound` of one ``entry_moments`` call: valid
-    candidates x Q pairs, each an expanded-form distance of 9 f32
-    operations (``qs`` 5, ``qq + ss`` 1, ``2 qs`` 1, the difference 1,
-    the clamp 1)."""
+    candidates x Q pairs, each an expanded-form distance of 8 f32
+    operations (``qs`` 5, ``qq + ss`` 1, ``2 qs`` 1, the difference 1;
+    the clamp ``max(d2, 0)`` cannot change ``d2 <= r^2`` for
+    ``r^2 >= 0``, so the test needs none)."""
     n_entries, q_cap = q_local.shape[:2]
     n_bytes = (4 * (q_local.numel() + s_local.numel()) + s_valid.numel()
                + slab_bytes(n_entries, q_cap, len(radii)))
-    return moment_bound(int(s_valid.sum()) * q_cap, len(radii), n_bytes,
-                        distance_ops=9)
+    return moment_bound(int(s_valid.sum()) * q_cap, len(radii), n_bytes)
 
 
 @functools.lru_cache(maxsize=None)

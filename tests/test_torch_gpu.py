@@ -20,6 +20,7 @@ from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
 from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 from nimrud_tpu_torch.utils import workload
+from torch_entry_cases import entry_problem, with_nan
 
 pytestmark = pytest.mark.gpu
 
@@ -124,15 +125,15 @@ def test_span_kernel_matches_plain_on_card(cuda, q_cap, n_span, span_rows,
     assert bool(torch.isfinite(got).all())
 
 
-@pytest.mark.parametrize("q_cap,flat,radii", [
-    (256, 4000, (0.5,)), (100, 1000, (1.0, 0.5)),
-    (16, 300, (0.5, 1.0, 1.5, 2.0))])
-def test_entry_kernel_matches_plain_on_card(cuda, q_cap, flat, radii):
-    rng = np.random.default_rng(flat)
-    q = rng.uniform(-1.5, 1.5, (19, q_cap, 3)).astype(np.float32)
-    s = rng.uniform(-2.5, 2.5, (19, flat, 3)).astype(np.float32)
-    valid = rng.random((19, flat)) < 0.7
-    args = [torch.from_numpy(a).to(cuda) for a in (q, s, valid)]
+def _entry_case(cuda, q_cap, flat, radii, layout, exact=False, nan=False):
+    """The kernel on an ``entry_problem`` of 19 entries against the plain
+    twin: one launch, counts equal.  Returns (kernel slabs, twin slabs,
+    the inputs on the card)."""
+    arrays = entry_problem(19, q_cap, flat, radii, seed=q_cap + flat,
+                           layout=layout, exact=exact)
+    if nan:
+        arrays = with_nan(*arrays)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
     before = mk.entry_moments.launches
     got = mk.entry_moments(*args, radii)
     torch.cuda.synchronize()
@@ -140,10 +141,45 @@ def test_entry_kernel_matches_plain_on_card(cuda, q_cap, flat, radii):
     ref = mk.entry_moments_plain(*args, radii)
     counts = slice(0, None, 16)
     assert torch.equal(got[..., counts], ref[..., counts])
+    return got, ref, args
+
+
+# the tiled layout at the bench's F = 125 x 8; F of two compaction
+# passes (5000, 9000), with rows carried from one pass to the next
+# (sparse: no tile filled in a pass); F not a multiple of 16; q_cap
+# 130 and 512; 1-4 radii; candidates exactly on the boundary
+@pytest.mark.parametrize("q_cap,flat,radii,layout,exact", [
+    (512, 1000, (0.5,), "tiled", False),
+    (130, 1000, (0.5, 1.0), "tiled", False),
+    (256, 4000, (0.5,), "random", False),
+    (100, 1000, (1.0, 0.5), "random", False),
+    (16, 300, (0.5, 1.0, 1.5, 2.0), "random", False),
+    (130, 5000, (0.5, 1.0, 1.5), "random", False),
+    (512, 5000, (1.0,), "tiled", False),
+    (64, 9000, (0.5, 2.0), "sparse", False),
+    (64, 1003, (0.5, 1.0, 1.5, 2.0), "tiled", False),
+    (130, 250, (0.5, 1.0, 2.0), "random", True),
+    (512, 1000, (0.5,), "tiled", True)])
+def test_entry_kernel_matches_plain_on_card(cuda, q_cap, flat, radii,
+                                            layout, exact):
+    got, ref, args = _entry_case(cuda, q_cap, flat, radii, layout, exact)
+    counts = slice(0, None, 16)
     assert ref[..., counts].max() > 0
+    assert int(ref[0, :, counts].abs().sum()) == 0       # no valid slot
+    assert ref[1, :, counts].max() > 0                   # all valid
     tol = mk.entry_tolerance(ref, args[1], args[2])
     assert bool(((got - ref).abs() <= tol).all())
     assert bool(torch.isfinite(got).all())
+
+
+def test_entry_kernel_nan_counts_match_plain_on_card(cuda):
+    # a NaN query counts nothing, a NaN candidate is nobody's neighbor
+    # (the reference's comparison is false for NaN); moments at NaN
+    # inputs are not held
+    got, ref, _ = _entry_case(cuda, 130, 250, (0.5, 2.0), "random",
+                              exact=True, nan=True)
+    assert int(got[:, 1, 0::16].abs().sum()) == 0
+    assert got[:, 0, 0::16].max() > 0
 
 
 @pytest.mark.parametrize("backend", ["packed", "pallas"])

@@ -13,6 +13,8 @@ whose exact squared distance lies within the expanded form's rounding
 bound of r^2, which the test computes.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -21,8 +23,10 @@ import jax.numpy as jnp
 from nimrud_tpu.ops import grid as jgrid
 from nimrud_tpu.ops.pallas import multiscale_kernel as jmk
 
+from nimrud_tpu_torch.features import multiscale as tms
 from nimrud_tpu_torch.ops import grid as tgrid
 from nimrud_tpu_torch.ops.kernels import multiscale_kernel as tmk
+from torch_entry_cases import entry_problem, with_nan
 
 PAD = tmk.MOMENT_PAD
 COUNTS = slice(0, None, PAD)
@@ -105,6 +109,41 @@ def test_random_floats_differ_only_within_rounding_bound():
     assert same > 0.99
 
 
+@pytest.mark.parametrize("q_cap,flat,radii", [
+    (16, 1000, (0.5,)), (24, 1003, (0.5, 1.0, 2.0))])
+def test_plain_twin_matches_pallas_kernel_tiled_layout(q_cap, flat, radii):
+    # the validity the CUDA kernel is tuned for: prefixes of 8-slot
+    # groups, about 14% valid, an empty and an all-valid entry; exact
+    # coordinates with candidates on the boundary
+    q, s, valid = entry_problem(4, q_cap, flat, radii, seed=flat,
+                                layout="tiled", exact=True)
+    assert 0.1 < valid[2:].mean() < 0.2
+    ref = _jax(q, s, valid, radii)
+    args = [torch.from_numpy(a) for a in (q, s, valid)]
+    got_t = tmk.entry_moments_plain(*args, radii)
+    got = got_t.numpy()
+    np.testing.assert_array_equal(got[..., COUNTS], ref[..., COUNTS])
+    assert np.all(got[0, :, COUNTS] == 0)
+    assert got[1, :, COUNTS].max() > got[2:, :, COUNTS].max()
+    tol = tmk.entry_tolerance(got_t, args[1], args[2]).numpy()
+    assert np.all(np.abs(got - ref) <= tol)
+
+
+def test_nan_inputs_count_as_in_pallas_kernel():
+    # the reference's d2 <= r^2 is false for NaN: a NaN query counts no
+    # neighbor and a NaN candidate is nobody's; moments at NaN are not
+    # held
+    radii = (0.5, 2.0)
+    q, s, valid = with_nan(*entry_problem(3, 16, 250, radii, seed=5,
+                                          exact=True))
+    ref = _jax(q, s, valid, radii)
+    got = tmk.entry_moments_plain(
+        *(torch.from_numpy(a) for a in (q, s, valid)), radii).numpy()
+    np.testing.assert_array_equal(got[..., COUNTS], ref[..., COUNTS])
+    assert np.all(got[:, 1, COUNTS] == 0)
+    assert got[:, 0, COUNTS].max() > 0
+
+
 def test_boundary_candidate_is_counted_and_invalid_is_not():
     r = 0.5
     q = np.array([[[0.25, 0.0, 0.0]]], np.float32)
@@ -166,6 +205,13 @@ def test_tiled_features_match_reference(radii, m, batch):
     np.testing.assert_array_equal(got[:, 0::4], ref[:, 0::4])
     assert got[:, 0].mean() > 1
     np.testing.assert_allclose(got, ref, atol=1e-3)
+
+
+def test_entry_points_default_to_the_card():
+    # the tiled path and the fused extraction run on the card unless the
+    # caller asks for the CPU, as make_bench_model and GeometryClassifier
+    for fn in (tgrid.tiled_features, tms.extract_scaleset_fused):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_unported_variants_raise():

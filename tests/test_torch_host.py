@@ -6,6 +6,7 @@ caches by content and reports failures.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -173,7 +174,9 @@ def test_kernel_build_failure_raises_with_nvcc_stderr(tmp_path,
     assert not [f for f in left if f.endswith((".so", ".txt"))]
 
 
-def test_kernel_build_key_follows_included_headers(tmp_path, monkeypatch):
+@pytest.mark.parametrize("kernel", cuda_build.KERNELS)
+def test_kernel_build_key_follows_included_headers(tmp_path, monkeypatch,
+                                                   kernel):
     # no nvcc runs: the key alone decides whether a library is reused
     port_csrc = cuda_build.CSRC
     csrc = tmp_path / "csrc"
@@ -193,10 +196,16 @@ def test_kernel_build_key_follows_included_headers(tmp_path, monkeypatch):
     assert changed != key
     (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\nint a2;\n')
     assert cuda_build.source_key(str(csrc / "k.cu")) not in (key, changed)
-    # the port's two tensor-core kernels share one header
-    for name in ("packed_moments", "span_moments"):
-        with open(os.path.join(port_csrc, f"{name}.cu")) as handle:
-            assert '#include "moment_mma.cuh"' in handle.read()
+    # the port's three kernels share one header: an edit there rebuilds
+    # each of them
+    port = tmp_path / "port"
+    shutil.copytree(port_csrc, port)
+    source = port / f"{kernel}.cu"
+    assert '#include "moment_mma.cuh"' in source.read_text()
+    key = cuda_build.source_key(str(source))
+    header = port / "moment_mma.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    assert cuda_build.source_key(str(source)) != key
 
 
 def test_sass_and_ptxas_report_parsers():

@@ -184,7 +184,7 @@ def test_work_and_bound_from_the_inputs():
     assert work["bound_term"] == "bytes"
     assert work["bound_ms"] == max(terms.values())
     # at a band's size the distance does (pairs and bytes of the fit's
-    # band-1 problem: E 4864, q_cap 256, c_cap 768, three quarters live)
+    # band-0 problem: E 4864, q_cap 256, c_cap 768, three quarters live)
     band = mk.moment_bound(4864 * 576 * 256, 1,
                            4 * 4864 * (3 * 256 + 3 * 768 + 3 + 16 * 256))
     assert band["bound_term"] == "distance"
