@@ -10,10 +10,12 @@ Phases, one or more lines each:
 1. card    -- nvidia-smi name and power limit, torch's device name.
 2. build   -- one nvcc per kernel, all started together: csrc/
               packed_moments.cu, span_moments.cu and entry_moments.cu
-              for sm_90a; ptxas's registers / shared memory / spills (no
-              kernel may spill) and, from ``cuobjdump -sass``, the HMMA
-              (tensor-core) instructions of each kernel: every template
-              instance of the three kernels must hold some.
+              for sm_90a; ptxas's registers / shared memory / spills per
+              template instance (no kernel may spill) and, from
+              ``cuobjdump -sass``, the HMMA (tensor-core) instructions
+              of each instance: every one must hold some (8 instances of
+              ``packed_moments``: 1-4 radii, without and with the sazo
+              fold; 4 of the two others).
 3. kernel  -- the CUDA ``packed_moments`` against its plain PyTorch twin
               on the card, at the packed path's shapes (serving: q_cap
               512, band-0 capacity buckets; fit: q_cap 256), at both
@@ -23,7 +25,10 @@ Phases, one or more lines each:
               and the bound reckoned from the inputs
               (``packed_moments_work``),
               the share of the bound, the largest error as a share of
-              its tolerance; the SM clock read right after.
+              its tolerance; the SM clock read right after.  Then its
+              sazo instance on the serving buckets the same way (rows
+              10 / 11 bit for bit: their tolerance is 0), its time
+              beside the instance without the fold on the same inputs.
 4. main    -- the packed path: ``make_bench_cloud(1_000_000)``,
               ``make_bench_model``, ``fit(sample=100_000)``, then
               ``stage`` + ``predict_staged`` on three clouds (seeds 0, 1,
@@ -53,13 +58,32 @@ Phases, one or more lines each:
               Then ``entry_moments`` against its plain twin on band 0's
               first entry batch, with the valid share of its candidate
               slots and the k16 groups the kernel runs per entry.
-7. e2e     -- a 100k-point scene served by both backends on the card
+7. kinds   -- the other geometry layouts on the packed path:
+              ``make_bench_model(cloud, kind=k)``, fit
+              (``sample=100_000``) and serve on the 1M-point clouds
+              (``sazo`` and ``oriented`` the three clouds, ``geometric``,
+              ``covariance`` and ``eigen`` one): counters 0, accuracy >
+              0.8, ``packed_moments`` launched in fit and in serving --
+              for ``sazo`` its sazo instance only, for the others never
+              that one; fit and step times, peak memory.
+8. e2e     -- a 100k-point scene served by both backends on the card
               and, with the same classifier, on the CPU (plain twins):
               labels agree except at near-ties (top-two probability gap
-              < 1e-4), at most 0.01%.
+              < 1e-4), at most 0.01%.  Then ``sazo`` and ``oriented`` on
+              the packed backend: each differing label has a near-tie,
+              or the rounding witness (the same populations in every
+              band and, for ``sazo``, the same sazo values: only f32
+              rounding of the sums moved it), at most 0.01% of labels
+              together; for ``oriented`` also the sign witness
+              (``layouts.reconcile``: with the eigenvector signs turned
+              to the CPU's and the vectors of nearly equal eigenvalues
+              taken from it, the card's feature rows give the CPU's
+              labels), at most 2% of labels.
 
 Each path runs with every launch count set to 0 just before it and read
-just after; the kernel comparisons run outside those windows.
+just after; the kernel comparisons run outside those windows.  The sazo
+instance of ``packed_moments`` has a count of its own
+(``packed_moments.sazo_launches``), listed as ``packed_moments_sazo``.
 
 With ``--profile DIR`` a profile phase runs after the serving steps of
 phases 4 and 5 and after the tiled runs of phase 6: ``torch.profiler``
@@ -103,7 +127,11 @@ WITNESS_SAMPLE = 4096      # points a cloud held against float64 counts
 EPS32 = 2.0 ** -24         # f32 unit roundoff
 TILED_BATCH = 256
 COUNT_COLS = slice(0, None, 16)
-MMA_KERNELS = ("packed_moments", "span_moments", "entry_moments")
+INSTANCES = {"packed_moments": 8, "span_moments": 4, "entry_moments": 4}
+KINDS = {"sazo": 3, "oriented": 3, "geometric": 1, "covariance": 1,
+         "eigen": 1}                   # clouds each kind serves
+MAX_WITNESSED = 0.02       # share of oriented labels a sign or a
+                           # rounding-bound vector may move
 
 
 def _check(ok, what):
@@ -179,21 +207,24 @@ def _work_text(rec, work):
 
 
 def _kernels():
+    """Each kernel instance's launch count: (wrapper, attribute)."""
     from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
     from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
     from nimrud_tpu_torch.ops.kernels import packed_moments as pm
-    return {"packed_moments": pm.packed_moments,
-            "span_moments": gk.span_moments,
-            "entry_moments": mk.entry_moments}
+    return {"packed_moments": (pm.packed_moments, "launches"),
+            "packed_moments_sazo": (pm.packed_moments, "sazo_launches"),
+            "span_moments": (gk.span_moments, "launches"),
+            "entry_moments": (mk.entry_moments, "launches")}
 
 
 def _reset_counts():
-    for fn in _kernels().values():
-        fn.launches = 0
+    for fn, attr in _kernels().values():
+        setattr(fn, attr, 0)
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _kernels().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _kernels().items()}
 
 
 def _staged_band0(model, cloud, device):
@@ -259,31 +290,43 @@ def _packed_problems(model, cloud, device):
 
 
 def _packed_kernel_phase(model, cloud, device):
-    """packed_moments vs plain at the shapes the packed path gives it."""
+    """packed_moments vs plain at the shapes the packed path gives it,
+    then its sazo instance on the serving buckets.  Returns the serving
+    totals of both instances."""
     from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 
-    sides = {"serve": [], "fit": []}
+    sides = {"serve": [], "fit": [], "sazo serve": []}
     for side, (q_t, cand_t, cen), rr in _packed_problems(model, cloud,
                                                          device):
         c_cap = cand_t.shape[1] // q_t.shape[0]
         shape = (f"E={q_t.shape[0]} q_cap={q_t.shape[2]} c_cap={c_cap} "
                  f"radii={len(rr)}")
-        work = pm.packed_moments_work(q_t, cand_t, cen, rr)
-        rec = _hold(
-            f"packed_moments {side} {shape}",
-            lambda p: pm.packed_moments(q_t, cand_t, cen, rr, precision=p),
-            lambda p: pm.packed_moments_plain(q_t, cand_t, cen, rr,
-                                              precision=p),
-            lambda ref: pm.moment_tolerance(ref, cand_t, cen))
-        live = work["pairs"] / (q_t.shape[0] * c_cap * q_t.shape[2])
-        print(f"[kernel] packed_moments {side} {shape} (live share of "
-              f"lanes {live:.3f}): {_work_text(rec, work)}", flush=True)
-        sides[side].append((rec, work))
+        for sazo in (False, True) if side == "serve" else (False,):
+            name = "sazo " * sazo + side
+            work = pm.packed_moments_work(q_t, cand_t, cen, rr,
+                                          with_sazo=sazo)
+            rec = _hold(
+                f"packed_moments {name} {shape}",
+                lambda p: pm.packed_moments(q_t, cand_t, cen, rr,
+                                            precision=p, with_sazo=sazo),
+                lambda p: pm.packed_moments_plain(q_t, cand_t, cen, rr,
+                                                  precision=p,
+                                                  with_sazo=sazo),
+                lambda ref: pm.moment_tolerance(ref, cand_t, cen))
+            live = work["pairs"] / (q_t.shape[0] * c_cap * q_t.shape[2])
+            print(f"[kernel] packed_moments {name} {shape} (live share of "
+                  f"lanes {live:.3f}): {_work_text(rec, work)}", flush=True)
+            sides[name].append((rec, work))
     totals = {side: _total(rows) for side, rows in sides.items()}
     for side, (rec, work) in totals.items():
         print(f"[kernel] packed_moments {side} band-0 total: "
               f"{_work_text(rec, work)}", flush=True)
-    return totals["serve"]
+    ratio = totals["sazo serve"][0]["ms"] / totals["serve"][0]["ms"]
+    print(f"[kernel] packed_moments sazo instance on the serving band-0 "
+          f"inputs: {totals['sazo serve'][0]['ms']:.4f} ms against "
+          f"{totals['serve'][0]['ms']:.4f} ms without the fold ("
+          f"{ratio:.3f}x); rows 10 / 11 bit-equal to the twin's", flush=True)
+    return totals["serve"], totals["sazo serve"]
 
 
 def _total(rows):
@@ -650,7 +693,8 @@ def _span_phase(model, packed_labels, clouds, truths, fit_cloud, device,
           f"{max(gaps, default=0.0):.3g})", flush=True)
     _check(counts["span_moments"] > 0, "span_moments did not run in "
            "span serving")
-    _check(counts["packed_moments"] == 0 and counts["entry_moments"] == 0,
+    _check(counts["packed_moments"] == 0 and counts["entry_moments"] == 0
+           and counts["packed_moments_sazo"] == 0,
            f"span serving ran another kernel: {counts}")
     _check(flips <= MAX_FLIPS * n, "too many labels differ between the "
            "packed and span backends")
@@ -717,21 +761,61 @@ def _tiled_phase(model, cloud, device, profile_dir=None):
         problem, cloud, search, radii, device)
 
 
+def _kinds_phase(fit_cloud, fit_labels, clouds, truths, device):
+    """The other geometry layouts on the packed path, each fitted and
+    served with every launch count set to 0 just before it.  Returns the
+    sazo instance's launches in the sazo run."""
+    import torch
+    from nimrud_tpu_torch.utils import workload
+
+    sazo_launches = 0
+    for kind, n_clouds in KINDS.items():
+        model = workload.make_bench_model(fit_cloud, kind=kind,
+                                          device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        model.fit(fit_cloud, fit_labels, sample=FIT_SAMPLE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_counts = _counts()
+        steps, labels, _, diags = _serve(model, clouds[:n_clouds])
+        counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        accs = _check_served(kind, diags, labels, truths[:n_clouds])
+        mine, other = (("packed_moments_sazo", "packed_moments")
+                       if kind == "sazo"
+                       else ("packed_moments", "packed_moments_sazo"))
+        serve = counts[mine] - fit_counts[mine]
+        print(f"[kinds] {kind}: fit {fit_s:.3f} s ({fit_counts[mine]} "
+              f"{mine} launches); serve steps ms (total, stage, "
+              f"predict+sync): {_steps_text(steps)}; {serve} serve "
+              f"launches ({serve / n_clouds:g} a step); accuracy "
+              + ", ".join(f"{a:.4f}" for a in accs)
+              + f"; counters {diags}; launches {counts}; peak "
+              f"{peak_gb:.3f} GiB", flush=True)
+        _check(fit_counts[mine] > 0 and serve > 0,
+               f"{kind}: {mine} did not run in fit and in serving")
+        _check(counts[other] == 0 and counts["span_moments"] == 0
+               and counts["entry_moments"] == 0,
+               f"{kind}: the packed path ran another kernel: {counts}")
+        if kind == "sazo":
+            sazo_launches = counts[mine]
+    return sazo_launches
+
+
 def _e2e_phase(device):
     """Both backends on the card against the same classifier on the CPU:
-    labels agree except at near-ties."""
-    import torch
-    from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+    labels agree except at near-ties; then the sazo and oriented
+    layouts on the packed backend."""
     from nimrud_tpu_torch.utils import workload
 
     small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
+    other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
     gpu = workload.make_bench_model(small, device=device)
     gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
-    clf = gpu.classifier
-    cpu_clf = SoftmaxClassifier.from_state(
-        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
-        clf.scale_.cpu(), device="cpu")
-    other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
+    clf, cpu_clf = gpu.classifier, _on_cpu(gpu.classifier)
     for backend in ("packed", "pallas"):
         card = workload.make_bench_model(small, backend=backend,
                                          device=device)
@@ -753,6 +837,84 @@ def _e2e_phase(device):
                f"{backend}: card and cpu labels differ away from near-ties")
         _check(int(differ.sum()) <= MAX_FLIPS * E2E_POINTS,
                f"{backend}: too many label flips")
+    for kind in ("sazo", "oriented"):
+        _e2e_kind(kind, small, small_labels, other, device)
+
+
+def _on_cpu(clf):
+    """A fitted classifier's copy on the CPU."""
+    from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+    return SoftmaxClassifier.from_state(
+        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
+        clf.scale_.cpu(), device="cpu")
+
+
+def _e2e_kind(kind, small, small_labels, other, device):
+    """One layout on the packed backend, card against CPU with the card
+    fit's classifier.  Each differing label has a near-tie (top-two gap
+    < TIE_GAP on either side), or for ``oriented`` the sign witness
+    (``layouts.reconcile``: the card's rows with the eigenvector signs
+    turned to the CPU's and the vectors of nearly equal eigenvalues taken
+    from it give the CPU's labels), or the rounding witness: the card
+    found the same neighbor sets (every band's density within an ulp of
+    the CPU's, and for ``sazo`` the same sazo values), so only the f32
+    rounding of the sums and of the eigensolver moved the label.  At
+    most MAX_FLIPS of the labels at near-ties or by rounding, and
+    MAX_WITNESSED by signs."""
+    import torch
+    from nimrud_tpu_torch.features import layouts
+    from nimrud_tpu_torch.utils import workload
+
+    gpu = workload.make_bench_model(small, kind=kind, device=device)
+    gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
+    cpu_clf = _on_cpu(gpu.classifier)
+    cpu = workload.make_bench_model(small, kind=kind, device="cpu")
+    cpu.install_classifier(cpu_clf, small)
+    st_g, st_c = gpu.stage(other), cpu.stage(other)
+    g_lab, g_prob = gpu.predict_staged(st_g, with_proba=True)
+    t0 = time.perf_counter()
+    c_lab, c_prob = cpu.predict_staged(st_c, with_proba=True)
+    cpu_s = time.perf_counter() - t0
+    gaps = torch.minimum(_top2_gap(g_prob.cpu()), _top2_gap(c_prob))
+    differ = g_lab.cpu() != c_lab
+    left = differ & (gaps >= TIE_GAP)
+    found = collections.Counter({"near-ties": int((differ & ~left).sum())})
+    if bool(left.any()):
+        g_feats = _served_features(gpu, st_g).cpu()
+        c_feats = _served_features(cpu, st_c)
+        # a witness first needs the card's label to be its own rows' label
+        own = cpu_clf.proba_device(g_feats).argmax(1) == g_lab.cpu()
+        found["labels not of the card's rows"] = int((left & ~own).sum())
+        if kind == "oriented":
+            rec, flipped, taken = layouts.reconcile(kind, g_feats, c_feats)
+            signs = left & own & (cpu_clf.proba_device(rec).argmax(1)
+                                  == c_lab)
+            found["sign witness"] = int(signs.sum())
+            found["rows with a sign turned"] = int(flipped.sum())
+            found["rows with a near-degenerate vector"] = int(taken.sum())
+            left &= ~signs
+        width = layouts.LAYOUT_WIDTHS[kind]
+        dens = c_feats[:, 0::width]
+        same = ((g_feats[:, 0::width] - dens).abs()
+                <= 2.0 ** -22 * dens.abs()).all(1)
+        if layouts.needs_sazo(kind):
+            same &= (g_feats[:, 4::width] == c_feats[:, 4::width]).all(1)
+        rounding = left & own & same
+        found["rounding witness"] = int(rounding.sum())
+        if bool(rounding.any()):
+            found["largest feature difference there (x1e6)"] = int(1e6 * float(
+                (g_feats - c_feats)[rounding].abs().max()))
+        left &= ~rounding
+    print(f"[e2e] {kind} packed: {E2E_POINTS} points, {int(differ.sum())} "
+          f"labels differ (card vs cpu): {dict(found)}; cpu serve "
+          f"{cpu_s:.2f} s", flush=True)
+    _check(not bool(left.any()),
+           f"{kind}: card and cpu labels differ without a witness at rows "
+           f"{left.nonzero()[:8, 0].tolist()}")
+    _check(found["near-ties"] + found["rounding witness"]
+           <= MAX_FLIPS * E2E_POINTS, f"{kind}: too many label flips")
+    _check(found["sign witness"] <= MAX_WITNESSED * E2E_POINTS,
+           f"{kind}: too many labels moved by eigenvector signs")
 
 
 def _serving_profile(model, out_dir):
@@ -827,8 +989,8 @@ def _profile_phase(tag, stem, steps, out_dir):
 
 def _build_phase(cuda_build):
     """Build every kernel, all nvcc processes together; print ptxas's
-    usage and the tensor-core instructions of each kernel.  No kernel
-    may spill, and every instance of a tensor-core kernel must hold HMMA
+    usage and the tensor-core instructions of each template instance.
+    No kernel may spill, and every instance must hold HMMA
     instructions."""
     t0 = time.perf_counter()
     built = cuda_build.build_all()
@@ -841,9 +1003,8 @@ def _build_phase(cuda_build):
         print(f"[build] {kernel} HMMA instructions (cuobjdump -sass): "
               + ", ".join(f"{k} {v}" for k, v in hmma.items()), flush=True)
         _check(cuda_build.spill_bytes(report) == 0, f"{kernel} spills")
-        if kernel in MMA_KERNELS:
-            _check(len(hmma) == 4 and min(hmma.values()) > 0,
-                   f"{kernel}: a template instance without HMMA {hmma}")
+        _check(len(hmma) == INSTANCES[kernel] and min(hmma.values()) > 0,
+               f"{kernel}: a template instance without HMMA {hmma}")
 
 
 def _smi(query):
@@ -879,7 +1040,8 @@ def main():
 
     cloud, labels = workload.make_bench_cloud(N_POINTS, seed=0)
     model = workload.make_bench_model(cloud, device=device)
-    record = {"packed_moments": _packed_kernel_phase(model, cloud, device)}
+    record = dict(zip(("packed_moments", "packed_moments_sazo"),
+                      _packed_kernel_phase(model, cloud, device)))
     print("[kernel] SM clock, max SM clock: "
           + _smi("clocks.sm,clocks.max.sm"), flush=True)
 
@@ -909,7 +1071,8 @@ def main():
           flush=True)
     _check(fit_counts["packed_moments"] > 0, "the kernel did not run in fit")
     _check(serve_launches > 0, "the kernel did not run in serving")
-    _check(counts["span_moments"] == 0 and counts["entry_moments"] == 0,
+    _check(counts["span_moments"] == 0 and counts["entry_moments"] == 0
+           and counts["packed_moments_sazo"] == 0,
            f"the packed path ran another kernel: {counts}")
     launches = {"packed_moments": counts["packed_moments"]}
     if args.profile:
@@ -924,23 +1087,35 @@ def main():
           f"{launches['span_moments'] / len(clouds):g} a step; entry_moments "
           f"{launches['entry_moments']} a tiled run ({len(model.scaleset)} "
           "bands)", flush=True)
+    del model
+    launches["packed_moments_sazo"] = _kinds_phase(cloud, labels, clouds,
+                                                   truths, device)
+    print(f"[launches] packed_moments_sazo: "
+          f"{launches['packed_moments_sazo']} in the sazo fit and its "
+          f"{KINDS['sazo']} serving steps", flush=True)
     _e2e_phase(device)
 
     sources = {
-        "packed_moments": "nimrud_tpu/ops/pallas/packed_kernel.py:236",
-        "span_moments": "nimrud_tpu/ops/pallas/gather_kernel.py:330",
-        "entry_moments": "nimrud_tpu/ops/pallas/multiscale_kernel.py:84"}
+        "packed_moments": ("packed_moments",
+                           "nimrud_tpu/ops/pallas/packed_kernel.py:236"),
+        "packed_moments_sazo": (
+            "packed_moments",
+            "nimrud_tpu/ops/pallas/packed_kernel.py:236 (with_sazo)"),
+        "span_moments": ("span_moments",
+                         "nimrud_tpu/ops/pallas/gather_kernel.py:330"),
+        "entry_moments": ("entry_moments",
+                          "nimrud_tpu/ops/pallas/multiscale_kernel.py:84")}
     # no single PyTorch call computes a masked moment sum: library_ms null
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",
-        "source": f"nimrud_tpu_torch/csrc/{kernel}.cu",
+        "source": f"nimrud_tpu_torch/csrc/{source}.cu",
         "replaces": replaces, "launches": launches[kernel],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
         "plain_ms": rec["plain_ms"], "pairs": work["pairs"],
         "bound_ms": work["bound_ms"],
         "bound_by": "bytes" if work["bound_term"] == "bytes" else "operations",
         "library_ms": None}
-        for kernel, replaces in sources.items()
+        for kernel, (source, replaces) in sources.items()
         for rec, work in [record[kernel]]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -30,12 +30,21 @@
 // A k16 group of candidates that holds only dead rows (the FAR sentinel
 // at all three coordinates, a row staged with its live flag off, or the
 // pad past a ragged tail) is skipped: its rows would add 0.
+//
+// With SAZO (packed_moments' sazo instance) each lane also folds, per
+// radius and query row, the smallest and largest z difference
+// dz = q_z - s_z of the candidates inside on the CUDA cores, beside the
+// mask; the quad's four lanes then reduce them, and the slab's rows
+// 10 / 11 get -min and -max: the masked max and min of the signed z
+// offset s_z - q_z (+-1e30 where no candidate is inside).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace moment_mma {
 
@@ -49,6 +58,7 @@ constexpr int kLd = kTile + 8;          // B column stride: 16-byte pad, so
 constexpr int kPad = 16;                // slab width per radius (MOMENT_PAD)
 constexpr int kMaxRadii = 4;
 constexpr float kFar = 1.0e6f;
+constexpr float kBig = 1.0e30f;         // identity of the sazo folds
 
 struct Radii {
   float r2[kMaxRadii];
@@ -146,11 +156,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
 }
 
 // The reference's distance: no FMA, every operation rounded on its own.
+// Hands back its z difference qz - z (the sazo fold's).
 __device__ __forceinline__ float dist2(float qx, float qy, float qz,
-                                       float x, float y, float z) {
+                                       float x, float y, float z,
+                                       float& dz) {
   const float dx = __fsub_rn(qx, x);
   const float dy = __fsub_rn(qy, y);
-  const float dz = __fsub_rn(qz, z);
+  dz = __fsub_rn(qz, z);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
@@ -168,13 +180,21 @@ __device__ __forceinline__ uint32_t mask_pair(float d2_lo, float d2_hi,
 // coordinates; the call gives the squared distance of query row i of
 // m16 tile m (entry-local q) to one column.
 
-// The difference form of packed_moments and span_moments.
+// The difference form of packed_moments and span_moments; the second
+// call also hands back the z difference for the sazo fold.
 struct Difference {
   __device__ __forceinline__ void columns(int, int, float (&)[4]) const {}
   __device__ __forceinline__ float operator()(int, int, const float (&q)[3],
                                               float x, float y, float z,
-                                              float) const {
-    return dist2(q[0], q[1], q[2], x, y, z);
+                                              float, float& dz) const {
+    return dist2(q[0], q[1], q[2], x, y, z, dz);
+  }
+  __device__ __forceinline__ float operator()(int m, int i,
+                                              const float (&q)[3], float x,
+                                              float y, float z,
+                                              float s) const {
+    float dz;
+    return (*this)(m, i, q, x, y, z, s, dz);
   }
 };
 
@@ -216,21 +236,39 @@ struct Expanded {
 
 // One warp's query tiles: entry-local coordinates of rows g and g + 8 of
 // each m16 tile, and the accumulators (per radius, tile and n8 tile).
-template <int NR>
+// With SAZO also this lane's sazo folds (per radius, tile and row): the
+// smallest and largest dz of its columns inside the radius.
+//
+// The fold trusts the distance test alone, as the sums do through the
+// zero aug rows: it needs every dead candidate row to fail the test at
+// every radius, which holds for rows staged by stage_row (the FAR
+// sentinel).  A kernel that stages rows with their live flag off but
+// real coordinates (entry_moments) must not take SAZO; it is tied to the
+// difference form, which only packed_moments and span_moments use.
+template <int NR, bool SAZO = false>
 struct Warp {
   static constexpr int MT = Shape<NR>::kMT;
   float q[MT][2][3];
   float acc[NR][MT][4][4];
+  float zmin[NR][MT][2], zmax[NR][MT][2];   // SAZO only
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int r = 0; r < NR; ++r)
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+      for (int m = 0; m < MT; ++m) {
 #pragma unroll
         for (int n = 0; n < 4; ++n)
 #pragma unroll
           for (int k = 0; k < 4; ++k) acc[r][m][n][k] = 0.f;
+        if constexpr (SAZO) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            zmin[r][m][i] = kBig;
+            zmax[r][m][i] = -kBig;
+          }
+        }
+      }
   }
 
   // Sum the first n_groups k16 groups of the staged tile.
@@ -238,6 +276,8 @@ struct Warp {
   __device__ __forceinline__ void accumulate(const Tile& s, int n_groups,
                                              const float (&r2)[NR],
                                              const Dist& dist = Dist()) {
+    static_assert(!SAZO || std::is_same<Dist, Difference>::value,
+                  "the sazo fold takes the difference form's dz");
     const int lane = threadIdx.x & 31;
     const int t = lane & 3;
     // this lane's ldmatrix row: matrix lane >> 3 is (n8 tile, k half)
@@ -273,12 +313,17 @@ struct Warp {
       dist.columns(k0 + 2 * t, k0 + 8 + 2 * t, aux);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        float d2[2][4];
+        float d2[2][4], dz[2][4];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            d2[i][j] = dist(m, i, q[m][i], cx[j], cy[j], cz[j], aux[j]);
+          for (int j = 0; j < 4; ++j) {
+            if constexpr (SAZO)
+              d2[i][j] = dist(m, i, q[m][i], cx[j], cy[j], cz[j], aux[j],
+                              dz[i][j]);
+            else
+              d2[i][j] = dist(m, i, q[m][i], cx[j], cy[j], cz[j], aux[j]);
+          }
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
           // A fragment: {row g, cols 2t..}, {row g+8, cols 2t..},
@@ -290,6 +335,20 @@ struct Warp {
 #pragma unroll
           for (int n = 0; n < 4; ++n)
             mma_bf16(acc[r][m][n], a, b[2 * n], b[2 * n + 1]);
+          if constexpr (SAZO) {
+            // the mask's own test; a NaN coordinate makes d2 NaN, which
+            // fails it, so fminf's / fmaxf's NaN rule never matters
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const bool in = d2[i][j] <= r2[r];
+                zmin[r][m][i] = in ? fminf(zmin[r][m][i], dz[i][j])
+                                   : zmin[r][m][i];
+                zmax[r][m][i] = in ? fmaxf(zmax[r][m][i], dz[i][j])
+                                   : zmax[r][m][i];
+              }
+          }
         }
       }
     }
@@ -298,6 +357,10 @@ struct Warp {
   // Write the slab rows of this warp's queries [q_first, q_first + 16 MT)
   // of `entry` that lie below q_cap.  The tile's shared memory is free
   // (the caller synchronised the block after the last accumulate).
+  // With SAZO the quad's lanes (one row pair, 16 columns between them)
+  // first reduce their folds, and the fold columns 28 / 29 of the
+  // epilogue (the accumulators stage zeros there: B's columns 28..31 are
+  // zero) carry -zmin / -zmax to slab rows 10 / 11.
   __device__ __forceinline__ void store(Smem& sm, float* __restrict__ out,
                                         long long entry, int q_first,
                                         int q_cap) {
@@ -305,6 +368,21 @@ struct Warp {
     const int g = lane >> 2, t = lane & 3;
     float(*epi)[kCols + 1] = sm.epi[threadIdx.x >> 5];
     const int row = lane & 15, half = lane >> 4;
+    if constexpr (SAZO) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int k = 1; k <= 2; k <<= 1) {
+              float& lo = zmin[r][m][i];
+              float& hi = zmax[r][m][i];
+              lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, k));
+              hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, k));
+            }
+    }
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       const int qi = q_first + m * 16 + row;
@@ -318,6 +396,15 @@ struct Warp {
           epi[g + 8][n * 8 + 2 * t] = acc[r][m][n][2];
           epi[g + 8][n * 8 + 2 * t + 1] = acc[r][m][n][3];
         }
+        if constexpr (SAZO) {
+          __syncwarp();                          // over the zeros staged
+          if (t == 0) {
+            epi[g][28] = -zmin[r][m][0];
+            epi[g][29] = -zmax[r][m][0];
+            epi[g + 8][28] = -zmin[r][m][1];
+            epi[g + 8][29] = -zmax[r][m][1];
+          }
+        }
         __syncwarp();
         if (qi < q_cap) {
           float o[8];
@@ -327,6 +414,7 @@ struct Warp {
             o[c] = k == 0 ? epi[row][0]
                  : k < 10 ? __fadd_rn(__fadd_rn(epi[row][k], epi[row][9 + k]),
                                       epi[row][18 + k])
+                 : SAZO && k < 12 ? epi[row][18 + k]
                           : 0.f;
           }
           float4* dst = reinterpret_cast<float4*>(

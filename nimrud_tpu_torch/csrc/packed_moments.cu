@@ -6,6 +6,9 @@
 // f32 subtraction of the entry center, tests d2 = dx*dx + dy*dy + dz*dz
 // against each radius, and sums [1, x, y, z, xx, xy, xz, yy, yz, zz] of
 // the candidates inside, one 16-wide slab per radius (rows 10..15 zero).
+// The sazo instance (_packed_body's with_sazo) also writes rows 10 / 11:
+// the masked max and min of the signed z offset s_z - q_z of the
+// candidates inside (-1e30 / +1e30 where there is none).
 //
 // What bounds it on an H100: the distance test on the CUDA cores.  The
 // contract forbids fusing any of its 8 f32 operations (3 sub, 3 mul, 2
@@ -34,6 +37,14 @@
 // coordinates) add 0.  precision="highest" and "bf16x2" run this one
 // kernel.
 //
+// The sazo fold: per pair and radius inside, a min and a max of the
+// distance's own dz = q_z - s_z in registers (2 more CUDA-core
+// operations a pair and radius, in the bound's distance term); rows
+// 10 / 11 are -min and -max.  Negation, min and max are exact and
+// fl(a - b) = -fl(b - a), so the rows are bit-equal to the reference's
+// fold of -dz.  The instance is a template flag: the four instances
+// without it compile as before.
+//
 // Built as a plain C library (nvcc -shared) and called through ctypes:
 // the launcher runs on the caller's stream and returns
 // cudaGetLastError().
@@ -44,7 +55,7 @@ namespace {
 
 namespace mm = moment_mma;
 
-template <int NR>
+template <int NR, bool SAZO>
 __global__ void __launch_bounds__(mm::kThreads)
 packed_moments_kernel(const float* __restrict__ q_t,
                       const float* __restrict__ cand_t,
@@ -52,7 +63,7 @@ packed_moments_kernel(const float* __restrict__ q_t,
                       int q_cap, int c_cap, long long lanes,
                       float* __restrict__ out) {
   __shared__ mm::Smem smem;
-  using W = mm::Warp<NR>;
+  using W = mm::Warp<NR, SAZO>;
 
   const int e = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -109,43 +120,49 @@ packed_moments_kernel(const float* __restrict__ q_t,
 }
 
 template <int NR>
-void launch(int n_entries, int q_cap, cudaStream_t s, const float* q_t,
-            const float* cand_t, const float* centers,
+void launch(bool sazo, int n_entries, int q_cap, cudaStream_t s,
+            const float* q_t, const float* cand_t, const float* centers,
             const mm::Radii& radii, int c_cap, long long lanes, float* out) {
   constexpr int kQ = mm::Shape<NR>::kQueries;
   const dim3 grid(n_entries, (q_cap + kQ - 1) / kQ);
-  packed_moments_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
-      q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
+  if (sazo)
+    packed_moments_kernel<NR, true><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
+  else
+    packed_moments_kernel<NR, false><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
 }
 
 }  // namespace
 
 // q_t (E, 3, q_cap), cand_t (3, E * c_cap), centers (E, 3) and
 // out (E, q_cap, n_radii * 16): contiguous float32 on `device`.
+// with_sazo: nonzero for the sazo instance (slab rows 10 / 11).
 // r2_*: f32 squared radii (unused ones ignored).  Returns a cudaError_t.
 extern "C" int packed_moments_launch(
     const float* q_t, const float* cand_t, const float* centers,
     float* out, int n_entries, int q_cap, int c_cap, int n_radii,
-    float r2_0, float r2_1, float r2_2, float r2_3, int device,
-    void* stream) {
+    int with_sazo, float r2_0, float r2_1, float r2_2, float r2_3,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_entries <= 0 || q_cap <= 0) return 0;
   const mm::Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
   const long long lanes = static_cast<long long>(n_entries) * c_cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool sazo = with_sazo != 0;
   switch (n_radii) {
-    case 1: launch<1>(n_entries, q_cap, s, q_t, cand_t, centers, radii,
-                      c_cap, lanes, out);
+    case 1: launch<1>(sazo, n_entries, q_cap, s, q_t, cand_t, centers,
+                      radii, c_cap, lanes, out);
       break;
-    case 2: launch<2>(n_entries, q_cap, s, q_t, cand_t, centers, radii,
-                      c_cap, lanes, out);
+    case 2: launch<2>(sazo, n_entries, q_cap, s, q_t, cand_t, centers,
+                      radii, c_cap, lanes, out);
       break;
-    case 3: launch<3>(n_entries, q_cap, s, q_t, cand_t, centers, radii,
-                      c_cap, lanes, out);
+    case 3: launch<3>(sazo, n_entries, q_cap, s, q_t, cand_t, centers,
+                      radii, c_cap, lanes, out);
       break;
-    case 4: launch<4>(n_entries, q_cap, s, q_t, cand_t, centers, radii,
-                      c_cap, lanes, out);
+    case 4: launch<4>(sazo, n_entries, q_cap, s, q_t, cand_t, centers,
+                      radii, c_cap, lanes, out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -69,10 +69,12 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     Multiscale features for every query point, on ``device`` (the card
     unless the caller asks for the CPU): per band a device voxel
     downsample and one fused extraction (``q_cap`` 256, segments of 32
-    coarse tiles, entry capacity from the measured occupancy).  ``backend="packed"`` packs candidate blocks at a
-    capacity sized on the host (``packed_moments``); ``"pallas"`` reads
-    the candidate spans in place (``span_moments``), with no candidate
-    cap.
+    coarse tiles, entry capacity from the measured occupancy).
+    ``backend="packed"`` packs candidate blocks at a capacity sized on
+    the host (``packed_moments``); ``"pallas"`` reads the candidate
+    spans in place (``span_moments``), with no candidate cap.
+    ``kind``: ``minimal``, ``geometric``, ``oriented``, ``covariance``,
+    ``eigen`` or ``sazo`` (packed only: the span path raises for it).
 
     ``bounds``: fixed site (lo, hi) governing every grid; default the
     clouds' own bounds, with voxel grids anchored at the search bounds.

@@ -500,12 +500,14 @@ def _bucket_problems(q_t, centers, starts, lens, sorted3, c_cap):
     return buckets, inv
 
 
-def _bucketed_slabs(q_t, centers, starts, lens, sorted3, c_cap, radii):
+def _bucketed_slabs(q_t, centers, starts, lens, sorted3, c_cap, radii,
+                    with_sazo=False):
     """Moment slabs for a slice of entries at one capacity or at split
-    bucket capacities, in entry order.  Returns ``(slabs, dropped)``."""
+    bucket capacities, in entry order (with the sazo rows for
+    ``with_sazo``).  Returns ``(slabs, dropped)``."""
     buckets, inv = _bucket_problems(q_t, centers, starts, lens, sorted3,
                                     c_cap)
-    slabs = [pm.packed_moments(q, cand_t, c, radii)
+    slabs = [pm.packed_moments(q, cand_t, c, radii, with_sazo=with_sazo)
              for q, cand_t, c, _ in buckets]
     dropped = sum(b[3] for b in buckets)
     if inv is None:
@@ -514,16 +516,18 @@ def _bucketed_slabs(q_t, centers, starts, lens, sorted3, c_cap, radii):
 
 
 def _band_blocks(kind, q_t, centers, starts, lens, sorted3, c_cap, radii):
-    """Feature blocks of one band for a slice of entries."""
+    """Feature blocks of one band for a slice of entries; the sazo layout
+    takes the kernel's sazo instance."""
     from nimrud_tpu_torch.features import layouts
 
+    sazo = layouts.needs_sazo(kind)
     slabs, dropped = _bucketed_slabs(q_t, centers, starts, lens, sorted3,
-                                     c_cap, radii)
+                                     c_cap, radii, with_sazo=sazo)
     q_pts = q_t.transpose(1, 2)
+    stats = moments_from_slabs(slabs, centers, radii, with_sazo=sazo)
     blocks = [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
-                                  q_pts, radius)
-              for p, radius in zip(moments_from_slabs(slabs, centers, radii),
-                                   radii)]
+                                  q_pts, radius, sazo=p.get("sazo"))
+              for p, radius in zip(stats, radii)]
     return blocks, dropped
 
 
@@ -535,10 +539,16 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
     entry's candidate x-row spans straight out of the tile-sorted search
     rows (no candidate block is packed).  Every live row of a span
     counts, so no candidate is dropped; ``with_stats`` gives
-    ``dropped_query`` (queries without an entry slot).
+    ``dropped_query`` (queries without an entry slot).  The span kernel
+    has no sazo fold: ``kind="sazo"`` raises (the reference takes an XLA
+    path there, not ported).
     """
     from nimrud_tpu_torch.features import layouts
 
+    if layouts.needs_sazo(kind):
+        raise NotImplementedError(
+            "kind='sazo' on the span path (the reference's XLA fallback) "
+            "is not ported (ROADMAP.md Queue A #11)")
     prob = _span_problem(query, q_valid, search, s_valid, spec)
     centers = prob["centers"]
     slabs = gk.span_moments(

@@ -14,7 +14,9 @@ then the feature layout, and scatters the rows back to caller order.
 
 Not ported (ROADMAP.md Queue A #11): the XLA moment path
 (``_entry_stats``, ``backend="xla"``), ``tiled_moments``, attributes,
-``exclude_radius``, the chebyshev metric and reduced precisions.
+``exclude_radius``, the chebyshev metric, reduced precisions and the
+sazo layout (the entry kernel has no sazo fold; the reference takes the
+XLA path for it).
 """
 
 from dataclasses import dataclass, field
@@ -229,9 +231,14 @@ def tiled_features(problem, query, search, radii, kind, *, entry_batch=32,
     the ``entry_moments`` kernel and the feature layout, then one
     scatter back to the caller's query order (queries without an entry
     slot get zeros).  Returns an (n_query, width) float32 tensor.
+    ``kind`` is any geometry layout but ``sazo``, which raises.
     """
     from nimrud_tpu_torch.features import layouts
 
+    if layouts.needs_sazo(kind):
+        raise NotImplementedError(
+            "kind='sazo' on the tiled path (the reference's XLA "
+            "_entry_stats) is not ported (ROADMAP.md Queue A #11)")
     radii = tuple(float(r) for r in radii)
     if max(radii) > problem.tile_edge + 1e-9:
         raise ValueError(

@@ -127,9 +127,17 @@ def library(name):
 
 def ptxas_usage(report):
     """The lines of a ptxas report that give registers, shared memory
-    and spills."""
-    return [ln.split("info    :")[-1].strip() for ln in report.splitlines()
-            if "Used" in ln or "spill" in ln]
+    and spills, each led by its kernel's name (:func:`kernel_name`) where
+    the report named the function first."""
+    lines, name = [], None
+    for ln in report.splitlines():
+        found = _PTXAS_FUNCTION.search(ln)
+        if found:
+            name = kernel_name(found.group(1))
+        elif "Used" in ln or "spill" in ln:
+            text = ln.split("info    :")[-1].strip()
+            lines.append(f"{name}: {text}" if name else text)
+    return lines
 
 
 def spill_bytes(report):
@@ -140,19 +148,30 @@ def spill_bytes(report):
 
 
 _FUNCTION = re.compile(r"Function : (\S+)")
-_TEMPLATE = re.compile(r"([a-z][a-z_]*_kernel)ILi(\d+)E")
+_PTXAS_FUNCTION = re.compile(r"Compiling entry function '([^']+)'")
+_TEMPLATE = re.compile(r"([a-z][a-z_]*_kernel)ILi(\d+)E(?:Lb([01])E)?")
+
+
+def kernel_name(mangled):
+    """A templated kernel's mangled name as ``name<N>`` or, with a second
+    (bool) argument, ``name<N, true|false>``; other names unchanged."""
+    template = _TEMPLATE.search(mangled)
+    if not template:
+        return mangled
+    kernel, n, flag = template.groups()
+    if flag is None:
+        return f"{kernel}<{n}>"
+    return f"{kernel}<{n}, {'true' if flag == '1' else 'false'}>"
 
 
 def count_sass(sass, opcode="HMMA"):
     """Instructions of ``opcode`` per kernel function in the text of
-    ``cuobjdump -sass``; a templated kernel is named ``name<N>``."""
+    ``cuobjdump -sass``, keyed by :func:`kernel_name`."""
     counts, name = {}, None
     for line in sass.splitlines():
         found = _FUNCTION.search(line)
         if found:
-            template = _TEMPLATE.search(found.group(1))
-            name = (f"{template.group(1)}<{template.group(2)}>" if template
-                    else found.group(1))
+            name = kernel_name(found.group(1))
             counts[name] = 0
         elif name is not None and re.search(rf"\b{opcode}\b", line):
             counts[name] += 1

@@ -287,12 +287,16 @@ def entry_moments(q_local, s_local, s_valid, radii, exclude_radius=None):
 entry_moments.launches = 0
 
 
-def moments_from_slabs(slabs, centers, radii):
+def moments_from_slabs(slabs, centers, radii, with_sazo=False):
     """
     Raw moment slabs (E, Q, n_r * MOMENT_PAD) -> per-radius
     ``{"count", "mean_local", "mean", "cov"}`` statistics for the
     feature layouts.  ``centers``: (E, 3) entry centers restoring the
-    global frame.
+    global frame.  ``with_sazo`` also resolves the masked max / min of
+    the signed z offset that ``packed_moments(with_sazo=True)`` writes
+    into slab rows 10 / 11 to ``"sazo"``: the extreme of larger
+    magnitude (the maximum on a tie ``hi == -lo``), 0 for an empty
+    neighborhood.
     """
     out = []
     for ri, _ in enumerate(radii):
@@ -309,4 +313,9 @@ def moments_from_slabs(slabs, centers, radii):
             "mean": mean_local + centers[:, None, :],
             "cov": slab[..., 4:10] / denom - outer,
         })
+        if with_sazo:
+            hi, lo = slab[..., 10], slab[..., 11]
+            out[-1]["sazo"] = torch.where(
+                count > 0, torch.where(hi >= -lo, hi, lo),
+                torch.zeros_like(hi))
     return out

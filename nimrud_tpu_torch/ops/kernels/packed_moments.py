@@ -17,11 +17,17 @@ Two versions with one signature and one output layout:
 The kernel is built by ``cuda_build`` at first use and loaded through
 ctypes.
 
-Ported: the euclidean metric without exclusion radius, sazo rows or
-attribute rows, at ``precision="highest"`` or ``"bf16x2"`` (the plain
-version sums bf16 hi + mid + lo parts as the reference does; the kernel
-computes that split for both precisions).  The other variants raise
-``NotImplementedError`` in both versions (ROADMAP.md).
+Ported: the euclidean metric without exclusion radius or attribute
+rows, with or without the sazo rows (``with_sazo``: slab rows 10 / 11
+of each radius hold the masked max / min of the signed z offset
+``s_z - q_z``, ``-BIG`` / ``+BIG`` where no candidate is inside), at
+``precision="highest"`` or ``"bf16x2"`` (the plain version sums bf16 hi
++ mid + lo parts as the reference does; the kernel computes that split
+for both precisions).  ``exclude_radius``, attribute rows and the
+chebyshev metric raise ``NotImplementedError`` in both versions
+(ROADMAP.md Queue A #9).  ``packed_moments.launches`` counts launches of
+the kernel without the sazo rows, ``packed_moments.sazo_launches`` those
+of its sazo instance.
 """
 
 import ctypes
@@ -31,23 +37,24 @@ import torch
 
 from nimrud_tpu_torch.ops.kernels import cuda_build
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import (
-    MOMENT_PAD, PAIR_BUDGET, check_launch, check_precision, check_radii,
-    check_tensors, masked_sum, moment_bound, padded_radii, slab_bytes,
-    slab_tolerance, squared_radii)
+    DISTANCE_OPS, MOMENT_PAD, PAIR_BUDGET, check_launch, check_precision,
+    check_radii, check_tensors, masked_sum, moment_bound, padded_radii,
+    slab_bytes, slab_tolerance, squared_radii)
 
 LANES = 128            # c_cap granularity (the packing contract)
 FAR = 1.0e6            # dead-slot sentinel: d2 >= 1e12 fails every
                        # radius, and 3 * FAR^2 stays finite in f32
+BIG = 1.0e30           # identity of the sazo max / min folds
+SAZO_OPS = 2           # CUDA-core operations of the sazo fold a pair and
+                       # radius: a masked max and a masked min
 
 
-def _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
-                   metric):
-    if exclude_radius is not None or with_sazo or n_attr \
-            or metric != "euclidean":
+def _check_variant(radii, exclude_radius, precision, n_attr, metric):
+    if exclude_radius is not None or n_attr or metric != "euclidean":
         raise NotImplementedError(
-            "packed_moments is ported for the serving variant only "
-            "(euclidean, no exclude_radius, no sazo, no attributes); see "
-            "ROADMAP.md Queue B #1")
+            "packed_moments is ported for the euclidean metric without "
+            "exclude_radius or attributes (with or without sazo rows); see "
+            "ROADMAP.md Queue A #9")
     check_precision(precision)
     check_radii(radii)
 
@@ -86,13 +93,16 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
       precision: "highest" (one f32 ``matmul``) or "bf16x2" (the
                candidates' terms split into bf16 hi + mid + lo, three
                exact-product ``matmul``s summed in that order).
+      with_sazo: also fold the signed z offset ``-dz = s_z - q_z`` of
+               the candidates inside each radius into rows 10 (max,
+               ``-BIG`` if none) and 11 (min, ``+BIG`` if none).
 
     Returns:
       (E, q_cap, len(radii) * 16) f32: per radius [count, sx, sy, sz,
-      sxx, sxy, sxz, syy, syz, szz, 0 x 6] in the entry-local frame.
+      sxx, sxy, sxz, syy, syz, szz, 0 x 6] in the entry-local frame
+      (rows 10 / 11 the sazo folds with ``with_sazo``).
     """
-    _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
-                   metric)
+    _check_variant(radii, exclude_radius, precision, n_attr, metric)
     n_entries, q_cap, c_cap = _shapes(q_t, cand_t, centers)
     n_r = len(radii)
     out = torch.zeros((n_entries, q_cap, n_r * MOMENT_PAD),
@@ -110,13 +120,21 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
         dy = q[:, 1, :, None] - y[:, None, :]
         dz = q[:, 2, :, None] - z[:, None, :]
         d2 = dx * dx + dy * dy + dz * dz
-        del dx, dy, dz
+        del dx, dy
+        neg_dz = -dz if with_sazo else None
+        del dz
         aug = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y,
                            x * z, y * y, y * z, z * z], dim=2)
         for ri in range(n_r):
-            mask = (d2 <= r2[ri]).to(torch.float32)
-            out[sl, :, ri * MOMENT_PAD:ri * MOMENT_PAD + 10] = \
-                masked_sum(mask, aug, precision)
+            inside = d2 <= r2[ri]
+            row = ri * MOMENT_PAD
+            out[sl, :, row:row + 10] = masked_sum(
+                inside.to(torch.float32), aug, precision)
+            if with_sazo:
+                out[sl, :, row + 10] = torch.where(
+                    inside, neg_dz, -BIG).amax(-1)
+                out[sl, :, row + 11] = torch.where(
+                    inside, neg_dz, BIG).amin(-1)
     return out
 
 
@@ -133,22 +151,26 @@ def moment_tolerance(slabs, cand_t, centers):
     return slab_tolerance(slabs, extent, c_cap)
 
 
-def packed_moments_work(q_t, cand_t, centers, radii):
+def packed_moments_work(q_t, cand_t, centers, radii, with_sazo=False):
     """:func:`multiscale_kernel.moment_bound` of one call: live lanes
     (not the FAR sentinel) x q_cap pairs; bytes are the inputs read once
-    and the slabs written once."""
+    and the slabs written once.  ``with_sazo`` adds the fold's masked
+    max and min, ``SAZO_OPS`` CUDA-core operations a pair and radius, to
+    the distance term (the z difference is the distance's own)."""
     n_entries, q_cap, _ = _shapes(q_t, cand_t, centers)
     live = int((cand_t != FAR).any(0).sum())
     n_bytes = 4 * (q_t.numel() + cand_t.numel() + centers.numel()) \
         + slab_bytes(n_entries, q_cap, len(radii))
-    return moment_bound(live * q_cap, len(radii), n_bytes)
+    ops = DISTANCE_OPS + (SAZO_OPS * len(radii) if with_sazo else 0)
+    return moment_bound(live * q_cap, len(radii), n_bytes,
+                        distance_ops=ops)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = cuda_build.library("packed_moments").packed_moments_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
@@ -158,14 +180,15 @@ def packed_moments(q_t, cand_t, centers, radii, exclude_radius=None,
                    metric="euclidean"):
     """Raw masked moment slabs (see :func:`packed_moments_plain` for the
     arguments and layout).  CPU tensors take the plain version; CUDA
-    tensors launch the Hopper kernel, or raise.  Both precisions launch
-    the same kernel: its tensor-core sums take the bf16x2 split, whose
-    exact products make it an f32 sum in another order."""
-    _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
-                   metric)
+    tensors launch the Hopper kernel (its sazo instance with
+    ``with_sazo``), or raise.  Both precisions launch the same kernel:
+    its tensor-core sums take the bf16x2 split, whose exact products
+    make it an f32 sum in another order."""
+    _check_variant(radii, exclude_radius, precision, n_attr, metric)
     if q_t.device.type == "cpu":
         return packed_moments_plain(q_t, cand_t, centers, radii,
-                                    precision=precision)
+                                    precision=precision,
+                                    with_sazo=with_sazo)
     if q_t.device.type != "cuda":
         raise ValueError(f"unsupported device {q_t.device}")
     n_entries, q_cap, c_cap = _shapes(q_t, cand_t, centers)
@@ -177,11 +200,15 @@ def packed_moments(q_t, cand_t, centers, radii, exclude_radius=None,
         return out
     check_launch("packed_moments", _launcher()(
         q_t.data_ptr(), cand_t.data_ptr(), centers.data_ptr(),
-        out.data_ptr(), n_entries, q_cap, c_cap, n_r,
+        out.data_ptr(), n_entries, q_cap, c_cap, n_r, int(bool(with_sazo)),
         *padded_radii(radii), q_t.device.index or 0,
         torch.cuda.current_stream(q_t.device).cuda_stream))
-    packed_moments.launches += 1
+    if with_sazo:
+        packed_moments.sazo_launches += 1
+    else:
+        packed_moments.launches += 1
     return out
 
 
 packed_moments.launches = 0
+packed_moments.sazo_launches = 0

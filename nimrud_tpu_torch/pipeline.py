@@ -23,7 +23,7 @@ import warnings
 import numpy as np
 import torch
 
-from nimrud_tpu_torch.features import multiscale
+from nimrud_tpu_torch.features import layouts, multiscale
 from nimrud_tpu_torch.learning.classifiers import param_classifier
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
 from nimrud_tpu_torch.ops import device_grid, packing, span_host, unique
@@ -171,7 +171,9 @@ class GeometryClassifier:
     """
     Args:
       scaleset:   sequence of (voxel_edge, radii) bands.
-      kind:       feature layout ("minimal" in this port).
+      kind:       feature layout: "minimal", "geometric", "oriented",
+                  "covariance", "eigen" or "sazo" ("sazo" serves on the
+                  packed backend only; "vector" is not ported).
       classifier: "linear", or an already-constructed classifier.
       classifier_kwargs: forwarded to ``param_classifier``.
       transfer_dtype: "float32" or "uint16" (uploads quantized to half
@@ -195,9 +197,17 @@ class GeometryClassifier:
         if any(edge <= 0 for edge, _ in self.scaleset):
             raise NotImplementedError(
                 "bands without voxel downsampling are not ported")
-        if kind != "minimal":
+        if kind == "vector":
             raise NotImplementedError(
-                f"kind={kind!r} is not ported yet (ROADMAP.md)")
+                "kind='vector' (attribute interpolation) is not ported yet "
+                "(ROADMAP.md Queue A #9)")
+        if kind not in layouts.LAYOUT_WIDTHS:
+            raise ValueError(f"unknown feature layout {kind!r}")
+        if layouts.needs_sazo(kind) and backend == "pallas":
+            raise NotImplementedError(
+                "kind='sazo' with backend='pallas': the span kernel has no "
+                "sazo fold and the reference's XLA fallback is not ported "
+                "(ROADMAP.md Queue A #11)")
         if backend == "xla":
             raise NotImplementedError(
                 "backend='xla' (the candidate-table path) is not ported "

@@ -28,19 +28,21 @@ def make_bench_cloud(n=BENCH_N_POINTS, seed=0):
     return cloud, labels
 
 
-def make_bench_model(cloud, backend="packed", epochs=10, device="cuda",
-                     **kwargs):
+def make_bench_model(cloud, backend="packed", epochs=10, kind="minimal",
+                     device="cuda", **kwargs):
     """The serving configuration bench.py measures: three bands
-    (edge, radius) (0.25, 0.5), (0.5, 1.0), (1.0, 2.0), minimal layout,
-    linear classifier, uint16 uploads, fixed site bounds, trimmed
-    entries, on ``device``; ``backend`` "packed" or "pallas" (span
-    serving)."""
+    (edge, radius) (0.25, 0.5), (0.5, 1.0), (1.0, 2.0), linear
+    classifier, uint16 uploads, fixed site bounds, trimmed entries, on
+    ``device``; ``backend`` "packed" or "pallas" (span serving).
+    ``kind`` is the feature layout, "minimal" for the headline workload;
+    the port serves "geometric", "oriented", "covariance", "eigen" and
+    (packed only) "sazo" too, everything else identical."""
     from nimrud_tpu_torch.pipeline import GeometryClassifier
 
     scaleset = [(edge, (radius,))
                 for edge, radius in zip(BENCH_EDGES, BENCH_RADII)]
     return GeometryClassifier(
-        scaleset, kind="minimal", classifier="linear",
+        scaleset, kind=kind, classifier="linear",
         classifier_kwargs={"epochs": epochs, "seed": 0},
         transfer_dtype="uint16", backend=backend,
         bounds=(cloud.min(0), cloud.max(0)), trim_entries=True,

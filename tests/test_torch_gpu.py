@@ -1,8 +1,9 @@
 """
 Tests that need a CUDA card (marker ``gpu``): the hand-written Hopper
-kernels (``packed_moments``, ``span_moments``, ``entry_moments``)
-against their plain PyTorch twins on the card, and small serving runs
-of both backends on the card against the same model on the CPU.
+kernels (``packed_moments`` and its sazo instance, ``span_moments``,
+``entry_moments``) against their plain PyTorch twins on the card, and
+small serving runs of both backends on the card against the same model
+on the CPU.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -75,6 +76,81 @@ def test_kernel_matches_plain_on_card(cuda, q_cap, c_cap, radii, precision,
     tol = pm.moment_tolerance(ref, cand_t, centers)
     assert bool(((got - ref).abs() <= tol).all())
     assert bool(torch.isfinite(got).all())
+
+
+def _sazo_case(cuda, q_t, cand_t, centers, radii, precision="highest"):
+    """The sazo instance on the card against the twin: one launch, counts
+    equal, moments within tolerance, rows 10 / 11 bit for bit, and every
+    other row bit for bit the kernel's without the fold.  Returns the
+    kernel slabs."""
+    args = [torch.from_numpy(a).to(cuda) for a in (q_t, cand_t, centers)]
+    before = (pm.packed_moments.launches, pm.packed_moments.sazo_launches)
+    got = pm.packed_moments(*args, radii, precision=precision,
+                            with_sazo=True)
+    torch.cuda.synchronize()
+    assert (pm.packed_moments.launches,
+            pm.packed_moments.sazo_launches) == (before[0], before[1] + 1)
+    ref = pm.packed_moments_plain(*args, radii, precision=precision,
+                                  with_sazo=True)
+    assert torch.equal(got[..., 0::16], ref[..., 0::16])
+    for row in (10, 11):
+        assert torch.equal(got[..., row::16], ref[..., row::16])
+    tol = pm.moment_tolerance(ref, args[1], args[2])
+    assert bool(((got - ref).abs() <= tol).all())
+    plain = pm.packed_moments(*args, radii, precision=precision)
+    keep = torch.ones(got.shape[-1], dtype=torch.bool, device=cuda)
+    keep[10::16] = keep[11::16] = False
+    assert torch.equal(got[..., keep], plain[..., keep])
+    return got
+
+
+@pytest.mark.parametrize("q_cap,c_cap,radii,precision", [
+    (512, 1024, (1.0,), "highest"), (256, 384, (0.5, 2.0), "highest"),
+    (130, 256, (0.5, 1.0, 1.5), "bf16x2"),
+    (130, 256, (0.5, 1.0, 1.5, 2.0), "highest"),
+    (16, 128, (0.5,), "bf16x2")])
+def test_sazo_kernel_matches_plain_on_card(cuda, q_cap, c_cap, radii,
+                                           precision):
+    # scattered FAR lanes, every ninth entry all FAR (empty entries)
+    q_t, cand_t, centers = _problem(37, q_cap, c_cap, seed=q_cap + 1,
+                                    scattered=True)
+    got = _sazo_case(cuda, q_t, cand_t, centers, radii, precision)
+    counts = got[..., 0::16]
+    assert counts.max() > 0 and counts[0].max() == 0
+    empty = counts == 0
+    big = float(np.float32(pm.BIG))
+    assert bool((got[..., 10::16][empty] == -big).all())
+    assert bool((got[..., 11::16][empty] == big).all())
+    assert bool((got[..., 10::16][~empty] >= got[..., 11::16][~empty]).all())
+
+
+def test_sazo_kernel_boundary_and_nan_on_card(cuda):
+    # queries and candidates on a 1/8 grid (every f32 operation exact),
+    # candidates exactly at a radius above and below a query in z, and
+    # one NaN query that counts nothing
+    rng = np.random.default_rng(5)
+    n_e, q_cap, c_cap, radii = 6, 48, 256, (0.5, 1.0)
+    centers = (np.round(rng.random((n_e, 3)) * 200) / 4).astype(np.float32)
+    q = rng.integers(-8, 9, (n_e, q_cap, 3)) / 8.0
+    c = rng.integers(-16, 17, (n_e, c_cap, 3)) / 8.0
+    for i in range(16):
+        c[:, i] = q[:, i]
+        c[:, i, 2] += radii[i % 2] * (1 if i % 4 < 2 else -1)
+    q_t = (q + centers[:, None]).transpose(0, 2, 1).astype(np.float32)
+    cand = (c + centers[:, None]).astype(np.float32)
+    cand[:, 200:] = pm.FAR
+    q_t[1, :, 3] = np.nan
+    cand_t = np.ascontiguousarray(cand.reshape(-1, 3).T)
+    got = _sazo_case(cuda, np.ascontiguousarray(q_t), cand_t, centers, radii)
+    assert int(got[1, 3, 0::16].abs().sum()) == 0
+    big = float(np.float32(pm.BIG))
+    assert got[1, 3, 10].item() == -big and got[1, 3, 11].item() == big
+    # the boundary candidates count, and reach the fold: query i of each
+    # entry sees its own at +-r in z
+    for i in range(4):
+        r = radii[i % 2]
+        hi, lo = got[0, i, 16 * (i % 2) + 10], got[0, i, 16 * (i % 2) + 11]
+        assert (hi.item() >= r) if i % 4 < 2 else (lo.item() <= -r)
 
 
 def _span_problem(n_entries, q_cap, n_span, span_rows, seed):
@@ -184,11 +260,23 @@ def test_entry_kernel_nan_counts_match_plain_on_card(cuda):
 
 @pytest.mark.parametrize("backend", ["packed", "pallas"])
 def test_serving_on_card_matches_cpu(cuda, backend):
+    _serve_card_and_cpu(cuda, backend, "minimal")
+
+
+def test_sazo_serving_on_card_matches_cpu(cuda):
+    before = pm.packed_moments.sazo_launches
+    _serve_card_and_cpu(cuda, "packed", "sazo")
+    assert pm.packed_moments.sazo_launches > before
+
+
+def _serve_card_and_cpu(cuda, backend, kind):
     cloud, labels = workload.make_bench_cloud(30000, seed=0)
-    gpu = workload.make_bench_model(cloud, backend=backend, device=cuda)
+    gpu = workload.make_bench_model(cloud, backend=backend, kind=kind,
+                                    device=cuda)
     gpu.fit(cloud, labels, sample=15000)
     clf = gpu.classifier
-    cpu = workload.make_bench_model(cloud, backend=backend, device="cpu")
+    cpu = workload.make_bench_model(cloud, backend=backend, kind=kind,
+                                    device="cpu")
     cpu.install_classifier(SoftmaxClassifier.from_state(
         clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
         clf.scale_.cpu(), device="cpu"), cloud)

@@ -223,6 +223,12 @@ def test_sass_and_ptxas_report_parsers():
     assert cuda_build.count_sass(sass) == {
         "packed_moments_kernel<2>": 2, "packed_moments_kernel<1>": 0,
         "plain_c_function": 1}
+    # a second, bool template argument (the sazo instances) is named too
+    sazo = sass.replace("kernelILi2EEEv", "kernelILi2ELb1EEEv").replace(
+        "kernelILi1EEEv", "kernelILi1ELb0EEEv")
+    assert cuda_build.count_sass(sazo) == {
+        "packed_moments_kernel<2, true>": 2,
+        "packed_moments_kernel<1, false>": 0, "plain_c_function": 1}
     report = ("ptxas info    : Function properties for k\n"
               "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
               "loads\nptxas info    : Used 80 registers\n"
@@ -232,3 +238,9 @@ def test_sass_and_ptxas_report_parsers():
     assert cuda_build.spill_bytes(report.split("ptxas info    : Used")[0]) \
         == 0
     assert "Used 80 registers" in cuda_build.ptxas_usage(report)
+    # each usage line is led by the kernel ptxas compiled last
+    named = ("ptxas info    : Compiling entry function "
+             "'_ZN12_GLOBAL__N_121packed_moments_kernelILi4ELb1EEEvPKf' "
+             "for 'sm_90a'\n" + report)
+    assert cuda_build.ptxas_usage(named)[1] \
+        == "packed_moments_kernel<4, true>: Used 80 registers"

@@ -2,9 +2,10 @@
 The plain PyTorch twin of the packed moment kernel against the JAX
 Pallas kernel (interpret mode), on the same NumPy inputs, at both
 precisions: counts equal, moments within ``moment_tolerance`` (both sum
-the same rounded f32 terms in different orders).  Candidates sit exactly
-on the radius, dead slots hold the FAR sentinel.  Also the bf16 hi +
-mid + lo split and the kernel's work and bound reckoned from its inputs.
+the same rounded f32 terms in different orders), and with ``with_sazo``
+the sazo rows 10 / 11 bit for bit.  Candidates sit exactly on the
+radius, dead slots hold the FAR sentinel.  Also the bf16 hi + mid + lo
+split and the kernel's work and bound reckoned from its inputs.
 """
 
 import numpy as np
@@ -133,6 +134,73 @@ def test_bf16x2_matches_highest(q_cap, c_cap, radii):
     assert bool(((split - high).abs() <= tol).all())
 
 
+def _random_problem(n_entries, q_cap, c_cap, seed):
+    """Random-float queries and candidates about each entry center (so
+    the z differences round), the last quarter of each block FAR, and
+    entry 0 all FAR: every one of its queries has an empty
+    neighborhood."""
+    rng = np.random.default_rng(seed)
+    centers = (rng.random((n_entries, 3)) * 50).astype(np.float32)
+    q_t = (centers[:, :, None]
+           + rng.uniform(-2, 2, (n_entries, 3, q_cap))).astype(np.float32)
+    cand = (centers.T[:, :, None]
+            + rng.uniform(-3, 3, (3, n_entries, c_cap))).astype(np.float32)
+    cand[:, :, c_cap * 3 // 4:] = tpm.FAR
+    cand[:, 0] = tpm.FAR
+    return q_t, np.ascontiguousarray(cand.reshape(3, -1)), centers
+
+
+@pytest.mark.parametrize("q_cap,c_cap,radii,precision,exact", [
+    (16, 128, (0.5,), "highest", True),
+    (24, 256, (1.0, 0.25), "highest", False),
+    (16, 256, (1.0, 0.5, 2.0), "bf16x2", True),
+    (130, 128, (0.5, 1.0, 1.5, 2.0), "highest", False),
+    (32, 384, (0.75,), "bf16x2", False)])
+def test_plain_sazo_twin_matches_pallas_kernel(q_cap, c_cap, radii,
+                                               precision, exact):
+    seed = q_cap + c_cap + len(radii)
+    if exact:
+        q_t, cand_t, centers = _problem(4, q_cap, c_cap, radii, seed)
+        cand_t = cand_t.copy()
+        cand_t[:, :c_cap] = tpm.FAR              # entry 0: no candidate
+    else:
+        q_t, cand_t, centers = _random_problem(4, q_cap, c_cap, seed)
+    ref = np.asarray(jpk.packed_moments(
+        jnp.asarray(q_t), jnp.asarray(cand_t), jnp.asarray(centers),
+        radii, interpret=True, entries_per_step=1, precision=precision,
+        with_sazo=True))
+    args = [torch.from_numpy(a) for a in (q_t, cand_t, centers)]
+    got_t = tpm.packed_moments_plain(*args, radii, precision=precision,
+                                     with_sazo=True)
+    got = got_t.numpy()
+    assert got.shape == ref.shape == (4, q_cap, len(radii) * MOMENT_PAD)
+    counts = got[..., 0::MOMENT_PAD]
+    np.testing.assert_array_equal(counts, ref[..., 0::MOMENT_PAD])
+    assert counts.max() > 0 and counts[0].max() == 0 and counts.min() == 0
+    # rows 10 / 11 bit for bit, the empty neighborhoods at -BIG / +BIG
+    for row in (10, 11):
+        np.testing.assert_array_equal(got[..., row::MOMENT_PAD],
+                                      ref[..., row::MOMENT_PAD])
+    empty = counts == 0
+    assert np.all(got[..., 10::MOMENT_PAD][empty] == np.float32(-tpm.BIG))
+    assert np.all(got[..., 11::MOMENT_PAD][empty] == np.float32(tpm.BIG))
+    full = ~empty
+    assert np.all(got[..., 10::MOMENT_PAD][full]
+                  >= got[..., 11::MOMENT_PAD][full])
+    tol = tpm.moment_tolerance(got_t, args[1], args[2]).numpy()
+    assert np.all(np.abs(got - ref) <= tol)
+    # the other rows equal the twin without the fold; the wrapper serves
+    # CPU tensors with the twin
+    plain = tpm.packed_moments_plain(*args, radii,
+                                     precision=precision).numpy()
+    keep = np.ones(got.shape[-1], bool)
+    keep[10::MOMENT_PAD] = keep[11::MOMENT_PAD] = False
+    np.testing.assert_array_equal(got[..., keep], plain[..., keep])
+    np.testing.assert_array_equal(
+        tpm.packed_moments(*args, radii, precision=precision,
+                           with_sazo=True).numpy(), got)
+
+
 def test_bf16_split3_is_exact():
     # f32 values over the kernels' ranges: local coordinates up to the
     # grid extent and below, their products, 0, FAR and FAR^2
@@ -194,11 +262,20 @@ def test_work_and_bound_from_the_inputs():
     assert one["terms_ms"]["tensor"] / one["terms_ms"]["distance"] \
         == pytest.approx(0.2537, abs=1e-4)
     assert mk.moment_bound(10, 1, 1e9)["bound_term"] == "bytes"
+    # the sazo fold: a masked max and min a pair and radius on the CUDA
+    # cores, 10 operations a pair at one radius and 16 at four
+    for radii in ((0.5,), (0.5, 1.0, 1.5, 2.0)):
+        base = tpm.packed_moments_work(*args, radii)["terms_ms"]
+        sazo = tpm.packed_moments_work(*args, radii,
+                                       with_sazo=True)["terms_ms"]
+        assert sazo["distance"] == pytest.approx(
+            base["distance"] * (8 + 2 * len(radii)) / 8)
+        assert (sazo["tensor"], sazo["bytes"]) == (base["tensor"],
+                                                   base["bytes"])
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"exclude_radius": 0.1}, {"with_sazo": True}, {"n_attr": 2},
-    {"metric": "chebyshev"}])
+    {"exclude_radius": 0.1}, {"n_attr": 2}, {"metric": "chebyshev"}])
 def test_unported_variants_raise(kwargs):
     q_t, cand_t, centers = _problem(1, 16, 128, (0.5,), seed=0)
     args = (torch.from_numpy(q_t), torch.from_numpy(cand_t),
