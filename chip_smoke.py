@@ -13,9 +13,11 @@ Phases, one or more lines each:
               for sm_90a; ptxas's registers / shared memory / spills per
               template instance (no kernel may spill) and, from
               ``cuobjdump -sass``, the HMMA (tensor-core) instructions
-              of each instance: every one must hold some (8 instances of
-              ``packed_moments``: 1-4 radii, without and with the sazo
-              fold; 4 of the two others).
+              of each instance: every one must hold some (23 instances
+              of ``packed_moments``: 1-4 radii without and with the sazo
+              fold, the attribute instances at 1-4 radii and 1, 4 or 6
+              attribute slots, the chebyshev instances at 1, 4 or 6
+              slots; 4 of the two others).
 3. kernel  -- the CUDA ``packed_moments`` against its plain PyTorch twin
               on the card, at the packed path's shapes (serving: q_cap
               512, band-0 capacity buckets; fit: q_cap 256), at both
@@ -58,37 +60,58 @@ Phases, one or more lines each:
               Then ``entry_moments`` against its plain twin on band 0's
               first entry batch, with the valid share of its candidate
               slots and the k16 groups the kernel runs per entry.
-7. kinds   -- the other geometry layouts on the packed path:
+7. kinds   -- the other layouts on the packed path:
               ``make_bench_model(cloud, kind=k)``, fit
               (``sample=100_000``) and serve on the 1M-point clouds
-              (``sazo`` and ``oriented`` the three clouds, ``geometric``,
-              ``covariance`` and ``eigen`` one): counters 0, accuracy >
-              0.8, ``packed_moments`` launched in fit and in serving --
-              for ``sazo`` its sazo instance only, for the others never
-              that one; fit and step times, peak memory.
+              (``sazo`` and ``oriented`` the three clouds,
+              ``geometric``, ``covariance`` and ``eigen`` one;
+              ``vector`` three steps of its fit cloud, with the two
+              attribute columns of the reference's
+              ``scripts/bench_kinds.py``, ``make_bench_attributes``: the
+              interp's capacities are sized on the fit cloud's raw
+              density, which the other seeds exceed):
+              counters 0 (``interp_dropped`` included), accuracy > 0.8,
+              each kind's ``packed_moments`` instances launched in fit
+              and in serving and no other kernel -- the sazo instance
+              for ``sazo``, the attribute and chebyshev instances for
+              ``vector``, the plain one for the others; fit and step
+              times, peak memory.  Then the attribute and chebyshev
+              instances against their plain twin at the vector path's
+              band-0 shapes (the packed interp: q_cap 128, one radius =
+              the 0.25 m edge, A = 2, its capacity buckets; the
+              extraction: the serving plan's buckets, A = 2), as in
+              phase 3, with each instance's launches a step and ptxas
+              lines.
 8. e2e     -- a 100k-point scene served by both backends on the card
               and, with the same classifier, on the CPU (plain twins):
               labels agree except at near-ties (top-two probability gap
-              < 1e-4), at most 0.01%.  Then ``sazo`` and ``oriented`` on
-              the packed backend: each differing label has a near-tie,
-              or the rounding witness (the same populations in every
-              band and, for ``sazo``, the same sazo values: only f32
-              rounding of the sums moved it), at most 0.01% of labels
-              together; for ``oriented`` also the sign witness
+              < 1e-4), at most 0.01%.  Then ``sazo``, ``oriented`` and
+              ``vector`` (on its fit cloud) on the packed backend: each
+              differing label has
+              a near-tie, or the rounding witness (``_rounding_witness``:
+              every feature of the card's and the CPU's rows within its
+              stated f32 bound -- against a float64 oracle for the
+              geometry layouts, the attribute-mean bound for ``vector``
+              -- so only f32 rounding moved it; the largest difference
+              as a share of its bound is printed), at most 0.01% of
+              labels together; for ``oriented`` also the sign witness
               (``layouts.reconcile``: with the eigenvector signs turned
               to the CPU's and the vectors of nearly equal eigenvalues
               taken from it, the card's feature rows give the CPU's
               labels), at most 2% of labels.
 
 Each path runs with every launch count set to 0 just before it and read
-just after; the kernel comparisons run outside those windows.  The sazo
-instance of ``packed_moments`` has a count of its own
-(``packed_moments.sazo_launches``), listed as ``packed_moments_sazo``.
+just after; the kernel comparisons run outside those windows.  The sazo,
+attribute and chebyshev instances of ``packed_moments`` have counts of
+their own (``packed_moments.sazo_launches``, ``attr_launches``,
+``interp_launches``), listed as ``packed_moments_sazo``,
+``packed_moments_attr`` and ``packed_moments_interp``.
 
 With ``--profile DIR`` a profile phase runs after the serving steps of
-phases 4 and 5 and after the tiled runs of phase 6: ``torch.profiler``
-over three steady serving steps of that backend (clouds staged before
-the window) or three ``tiled_features`` runs of band 0, printing device
+phases 4 and 5, after the tiled runs of phase 6 and after the vector
+run of phase 7: ``torch.profiler`` over three steady serving steps of
+that backend or layout (clouds staged before the window) or three
+``tiled_features`` runs of band 0, printing device
 busy time (the union of kernel, memcpy and memset intervals), the
 traced wall time of each step to synchronize, the device's idle share
 and the largest kernels by device time (per step and per call); the
@@ -127,9 +150,13 @@ WITNESS_SAMPLE = 4096      # points a cloud held against float64 counts
 EPS32 = 2.0 ** -24         # f32 unit roundoff
 TILED_BATCH = 256
 COUNT_COLS = slice(0, None, 16)
-INSTANCES = {"packed_moments": 8, "span_moments": 4, "entry_moments": 4}
-KINDS = {"sazo": 3, "oriented": 3, "geometric": 1, "covariance": 1,
-         "eigen": 1}                   # clouds each kind serves
+INSTANCES = {"packed_moments": 23, "span_moments": 4, "entry_moments": 4}
+KINDS = {"sazo": 3, "oriented": 3, "vector": 3, "geometric": 1,
+         "covariance": 1, "eigen": 1}  # clouds each kind serves
+# the packed_moments instance family each kind's fit and serving launch
+# (launch counts by ``_kernels`` name); every other kernel stays at 0
+KIND_KERNELS = {"sazo": ("packed_moments_sazo",),
+                "vector": ("packed_moments_attr", "packed_moments_interp")}
 MAX_WITNESSED = 0.02       # share of oriented labels a sign or a
                            # rounding-bound vector may move
 
@@ -213,6 +240,8 @@ def _kernels():
     from nimrud_tpu_torch.ops.kernels import packed_moments as pm
     return {"packed_moments": (pm.packed_moments, "launches"),
             "packed_moments_sazo": (pm.packed_moments, "sazo_launches"),
+            "packed_moments_attr": (pm.packed_moments, "attr_launches"),
+            "packed_moments_interp": (pm.packed_moments, "interp_launches"),
             "span_moments": (gk.span_moments, "launches"),
             "entry_moments": (mk.entry_moments, "launches")}
 
@@ -225,6 +254,12 @@ def _reset_counts():
 def _counts():
     return {name: getattr(fn, attr)
             for name, (fn, attr) in _kernels().items()}
+
+
+def _only(counts, names, what):
+    """Fail unless every kernel but ``names`` stayed at 0 launches."""
+    _check(all(v == 0 for k, v in counts.items() if k not in names),
+           f"{what} ran another kernel: {counts}")
 
 
 def _staged_band0(model, cloud, device):
@@ -241,7 +276,7 @@ def _staged_band0(model, cloud, device):
         cloud, model.bounds[0], model.bounds[1], q_bucket, device)
     query = pipeline._dequantize(quant, dequant)
     valid = torch.arange(q_bucket, device=device) < len(cloud)
-    centers, mask, _ = pipeline._band_search_prep(
+    centers, mask, _, _, _ = pipeline._band_search_prep(
         query, valid, band, tile_sorted=model.backend == "packed")
     return band, query, valid, centers, mask
 
@@ -432,14 +467,15 @@ def _entry_kernel_phase(problem, cloud, search, radii, device):
     return rec, work
 
 
-def _serve(model, clouds, with_proba=False):
-    """stage + predict_staged + synchronize per cloud: per-step times
+def _serve(model, clouds, with_proba=False, attrs=None):
+    """stage + predict_staged + synchronize per cloud (with its
+    attribute columns, ``attrs``, for ``vector``): per-step times
     (total, stage, predict+sync) ms, labels, probabilities, counters."""
     import torch
     steps, labels, probs, diags = [], [], [], []
-    for c in clouds:
+    for c, a in zip(clouds, attrs or [None] * len(clouds)):
         t0 = time.perf_counter()
-        staged = model.stage(c)
+        staged = model.stage(c, attributes=a)
         t1 = time.perf_counter()
         out = model.predict_staged(staged, with_proba=with_proba,
                                    with_diag=True)
@@ -557,6 +593,154 @@ def _feature_bounds(count, cov, points, entry_centers, radius):
     eig = torch.where(t > dt, (3 * delta + trig + dt)
                       / (t - dt).clamp(min=1e-30) + EPS32, math.inf)
     return torch.stack([centroid, eig, eig], 1)
+
+
+def _max_cap(cap):
+    """The largest capacity of an int or split ``(caps, bounds)`` one."""
+    return max(cap[0]) if isinstance(cap, tuple) else int(cap)
+
+
+def _attr_bound(staged):
+    """Bound on |card - CPU| of each ``vector`` feature column of a staged
+    cloud: both take the same neighbor sets (exact f32 tests) and sum
+    the same attributes in other orders, first in the interp (at most
+    c_i terms a sum), then in the extraction (c_e terms, of the interp's
+    means); two f32 sums of n terms of |value| <= e differ by at most
+    2 (n - 1) u n e, and each division by the count adds u |mean|, so a
+    mean moves by at most 2 (c_i + c_e + 2) u e, e the column's extent
+    over the cloud."""
+    import torch
+    attrs = staged["attributes"][:staged["n_query"]].cpu().to(torch.float64)
+    extent = attrs.abs().amax(0)
+    c_i = max(_max_cap(band[4]) for band in staged["specs"])
+    c_e = max(_max_cap(band[5]) for band in staged["specs"])
+    return 2.0 * (c_i + c_e + 2) * EPS32 * extent
+
+
+def _vector_bounds(count, cov, points, entry_centers, radius):
+    """Bounds on |f32 - float64| of the (x, y) components of the smallest
+    and the middle eigenvectors (``oriented``): a covariance entry off by
+    d (``_feature_bounds``) moves the matrix by at most 3d and each
+    eigenvalue by 3d plus the solver's error; twice the Davis-Kahan
+    bound over the eigenvalue gap, 2 (6d + solver) / gap, bounds each
+    component.  Returns (k, 4) in the layout's column order."""
+    import torch
+    n = count.to(torch.float64)
+    q = points.to(torch.float64)
+    ell = (q - entry_centers.to(torch.float64)).abs().amax(1) + radius
+    delta = (3 * n + 7) * EPS32 * ell ** 2
+    lam = torch.linalg.eigvalsh(_full_cov(cov))           # ascending
+    t = lam.sum(1).abs()
+    p = (lam - t[:, None] / 3).square().sum(1).div(6).sqrt()
+    solver = 4 * p * math.sqrt(1024 * EPS32) / 3 + 16 * EPS32 * t
+    err = 2 * (6 * delta + solver)
+    small = err / (lam[:, 1] - lam[:, 0]).clamp(min=1e-300)
+    middle = err / torch.minimum(lam[:, 1] - lam[:, 0],
+                                 lam[:, 2] - lam[:, 1]).clamp(min=1e-300)
+    return torch.stack([small, small, middle, middle], 1)
+
+
+def _rounding_witness(kind, model, staged, rows, feats, ref):
+    """Whether only f32 rounding moved the features of ``rows`` between
+    two evaluations of ``model``'s serving step on ``staged`` (a CPU
+    staging of the cloud): ``feats`` (the card's rows; for ``oriented``
+    reconciled with ``ref``'s by ``layouts.reconcile``) and ``ref`` (the
+    CPU's), both (n, width) on the CPU.  Every feature must lie within
+    its stated f32 bound:
+
+    * ``vector``: each column of the two within ``_attr_bound``;
+    * the geometry layouts, per band against a float64 oracle over the
+      band's voxel centers (``_float64_oracle``): the density of each
+      equal, within an ulp, to that of the float64 population, with no
+      candidate within the rounding bound of r^2; the centroid and the
+      eigenvalue columns within ``_feature_bounds`` of the oracle's (in
+      the plan's entry frames), the eigenvector columns of ``oriented``
+      within ``_vector_bounds`` of each other, the ``sazo`` values
+      equal.  A row with a candidate at the rounding bound may hold
+      another population than float64: there the two must agree on it
+      and lie within twice the bounds of each other.
+
+    Returns (held (k,) bool, the largest difference as a share of its
+    bound over every checked feature)."""
+    import torch
+    from nimrud_tpu_torch import pipeline
+    from nimrud_tpu_torch.features import layouts
+    from nimrud_tpu_torch.ops import unique
+
+    rows = rows.cpu()
+    mine, theirs = feats[rows].to(torch.float64), ref[rows].to(torch.float64)
+    if kind == "vector":
+        bound = _attr_bound(staged).repeat(mine.shape[1]
+                                           // staged["attributes"].shape[1])
+        ratio = (mine - theirs).abs() / bound
+        return (ratio <= 1).all(1), float(ratio.max()) if len(rows) else 0.0
+    query = staged["query"]
+    if staged["dequant"] is not None:
+        query = pipeline._dequantize(query, staged["dequant"])
+    query = query.cpu()
+    valid = torch.arange(query.shape[0]) < staged["n_query"]
+    points = query[rows]
+    specs = staged["specs"]
+    extent = max(math.hypot(*(d * band[1].tile_edge for d in band[1].dims))
+                 for band in specs) + max(edge for edge, _ in model.scaleset)
+    pack_spec = min((band[1] for band in specs),
+                    key=lambda spec: spec.tile_edge)
+    frames = _entry_centers(query, valid, pack_spec)[rows]
+    width = layouts.LAYOUT_WIDTHS[kind]
+    held = torch.ones(len(rows), dtype=torch.bool)
+    worst, col = 0.0, 0
+    for band in specs:
+        centers, _, mask = unique.unique_voxels(query, band[0], valid=valid)
+        for radius in band[2]:
+            exact, near, _, block, cov = _float64_oracle(
+                points, centers[mask], radius, _d2_tolerance(radius, extent))
+            bounds = _feature_bounds(exact, cov, points, frames, radius)
+            if kind == "oriented":
+                eigs = torch.linalg.eigvalsh(_full_cov(cov))      # ascending
+                trace = eigs.sum(1)
+                norm = torch.where(
+                    ((exact >= 2) & (trace > 0))[:, None],
+                    eigs[:, :2] / trace.clamp(min=1e-300)[:, None], 0.0)
+                oracle = torch.cat([block[:, 1:2], norm], 1)
+            else:
+                oracle = block[:, 1:4]
+            dens = layouts.sphere_density(exact.to(torch.float32),
+                                          radius).to(torch.float64)
+            scalar = slice(col + 1, col + 4)
+            apart = near > 0
+            ratios = []
+            for f in (mine, theirs):
+                same = (f[:, col] - dens).abs() <= 2.0 ** -22 * dens
+                held &= same | apart
+                ratios.append((f[:, scalar] - oracle).abs() / bounds)
+            both = (mine[:, col] == theirs[:, col]) \
+                & ((mine[:, scalar] - theirs[:, scalar]).abs()
+                   / (2 * bounds) <= 1).all(1)
+            ratio = torch.where(apart[:, None], 0.0,
+                                torch.maximum(*ratios))
+            held &= torch.where(apart, both, (ratio <= 1).all(1))
+            if kind == "oriented":
+                vec = slice(col + 4, col + 8)
+                vr = (mine[:, vec] - theirs[:, vec]).abs() / (2 * _vector_bounds(
+                    exact, cov, points, frames, radius))
+                held &= (vr <= 1).all(1)
+                ratio = torch.cat([ratio, vr], 1)
+            if layouts.needs_sazo(kind):
+                held &= mine[:, col + 4] == theirs[:, col + 4]
+            if ratio.numel():
+                worst = max(worst, float(ratio.max()))
+            col += width
+    return held, worst
+
+
+def _full_cov(cov):
+    """(k, 6) upper triangles -> (k, 3, 3) symmetric matrices."""
+    import torch
+    full = torch.zeros(cov.shape[0], 3, 3, dtype=cov.dtype)
+    for k, (i, j) in enumerate(((0, 0), (0, 1), (0, 2), (1, 1), (1, 2),
+                                (2, 2))):
+        full[:, i, j] = full[:, j, i] = cov[:, k]
+    return full
 
 
 def _entry_centers(query, valid, spec):
@@ -693,9 +877,7 @@ def _span_phase(model, packed_labels, clouds, truths, fit_cloud, device,
           f"{max(gaps, default=0.0):.3g})", flush=True)
     _check(counts["span_moments"] > 0, "span_moments did not run in "
            "span serving")
-    _check(counts["packed_moments"] == 0 and counts["entry_moments"] == 0
-           and counts["packed_moments_sazo"] == 0,
-           f"span serving ran another kernel: {counts}")
+    _only(counts, ("span_moments",), "span serving")
     _check(flips <= MAX_FLIPS * n, "too many labels differ between the "
            "packed and span backends")
     t0 = time.perf_counter()
@@ -751,6 +933,7 @@ def _tiled_phase(model, cloud, device, profile_dir=None):
     print(f"[tiled] launches {counts}", flush=True)
     _check(counts["entry_moments"] > 0, "entry_moments did not run in the "
            "tiled path")
+    _only(counts, ("entry_moments",), "the tiled path")
     problem, search, radii = band0
     if profile_dir:
         _profile_phase("[profile tiled band 0]", "tiled_band0", [
@@ -761,58 +944,177 @@ def _tiled_phase(model, cloud, device, profile_dir=None):
         problem, cloud, search, radii, device)
 
 
-def _kinds_phase(fit_cloud, fit_labels, clouds, truths, device):
-    """The other geometry layouts on the packed path, each fitted and
-    served with every launch count set to 0 just before it.  Returns the
-    sazo instance's launches in the sazo run."""
+def _kinds_phase(fit_cloud, fit_labels, clouds, truths, device,
+                 profile_dir=None):
+    """The other layouts on the packed path, each fitted and served with
+    every launch count set to 0 just before it (``vector`` with the
+    bench attributes of its fit cloud; then profiled, with a
+    ``profile_dir``).  Returns the launches of each
+    instance family in its kind's run (``KIND_KERNELS``), the fit
+    launches and serving steps of each, and the fitted vector model."""
     import torch
     from nimrud_tpu_torch.utils import workload
 
-    sazo_launches = 0
+    launches, per_kind, vector = {}, {}, None
     for kind, n_clouds in KINDS.items():
+        attrs = serve_attrs = None
+        served, served_truths = clouds[:n_clouds], truths[:n_clouds]
+        if kind == "vector":
+            # the interp's capacities are sized on the raw fit cloud (raw
+            # points an entry), and the bench's other seeds place their
+            # walls elsewhere and overflow them (interp_dropped), in the
+            # reference as here: vector serves its fit cloud, as the
+            # reference's scripts/bench_kinds.py does
+            attrs = workload.make_bench_attributes(fit_labels)
+            served = [fit_cloud] * n_clouds
+            served_truths = [fit_labels] * n_clouds
+            serve_attrs = [attrs] * n_clouds
         model = workload.make_bench_model(fit_cloud, kind=kind,
                                           device=device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        model.fit(fit_cloud, fit_labels, sample=FIT_SAMPLE)
+        model.fit(fit_cloud, fit_labels, sample=FIT_SAMPLE, attributes=attrs)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         fit_counts = _counts()
-        steps, labels, _, diags = _serve(model, clouds[:n_clouds])
+        steps, labels, _, diags = _serve(model, served, attrs=serve_attrs)
         counts = _counts()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        accs = _check_served(kind, diags, labels, truths[:n_clouds])
-        mine, other = (("packed_moments_sazo", "packed_moments")
-                       if kind == "sazo"
-                       else ("packed_moments", "packed_moments_sazo"))
-        serve = counts[mine] - fit_counts[mine]
-        print(f"[kinds] {kind}: fit {fit_s:.3f} s ({fit_counts[mine]} "
-              f"{mine} launches); serve steps ms (total, stage, "
-              f"predict+sync): {_steps_text(steps)}; {serve} serve "
-              f"launches ({serve / n_clouds:g} a step); accuracy "
-              + ", ".join(f"{a:.4f}" for a in accs)
+        accs = _check_served(kind, diags, labels, served_truths)
+        mine = KIND_KERNELS.get(kind, ("packed_moments",))
+        serve = {k: counts[k] - fit_counts[k] for k in mine}
+        print(f"[kinds] {kind}: fit {fit_s:.3f} s ("
+              + ", ".join(f"{fit_counts[k]} {k}" for k in mine)
+              + " launches); serve steps ms (total, stage, predict+sync): "
+              f"{_steps_text(steps)}; serve launches "
+              + ", ".join(f"{k} {v} ({v / n_clouds:g} a step)"
+                          for k, v in serve.items())
+              + "; accuracy " + ", ".join(f"{a:.4f}" for a in accs)
               + f"; counters {diags}; launches {counts}; peak "
               f"{peak_gb:.3f} GiB", flush=True)
-        _check(fit_counts[mine] > 0 and serve > 0,
+        _check(all(fit_counts[k] > 0 and serve[k] > 0 for k in mine),
                f"{kind}: {mine} did not run in fit and in serving")
-        _check(counts[other] == 0 and counts["span_moments"] == 0
-               and counts["entry_moments"] == 0,
-               f"{kind}: the packed path ran another kernel: {counts}")
-        if kind == "sazo":
-            sazo_launches = counts[mine]
-    return sazo_launches
+        _only(counts, mine, f"{kind}: the packed path")
+        for k in KIND_KERNELS.get(kind, ()):
+            launches[k] = counts[k]
+            per_kind[k] = (fit_counts[k], serve[k] / n_clouds)
+        if kind == "vector":
+            vector = model
+            if profile_dir:
+                _serving_profile(model, profile_dir, fit_cloud, attrs)
+    return launches, per_kind, vector
+
+
+def _vector_problems(model, cloud, attrs, device):
+    """The vector path's band-0 kernel inputs as serving forms them:
+    the packed interp's (chebyshev, one radius, the voxel edge: centers
+    against the raw cloud and its attributes, at its capacity buckets)
+    and the extraction's (the shared plan against the band's centers and
+    their interpolated attributes, at its buckets).  Returns ``(side,
+    (q_t, cand_t, centers), radii)`` per bucket."""
+    import torch
+    from nimrud_tpu_torch import pipeline
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.ops import device_grid, interp, unique
+
+    band = model._fused_band_specs(cloud, attr_width=attrs.shape[1])[0]
+    vox, dev, radii, ispec, icap, c_cap = band
+    q_bucket = multiscale._pow2_bucket(len(cloud))
+    quant, dequant = pipeline._quantize_upload(
+        cloud, model.bounds[0], model.bounds[1], q_bucket, device)
+    query = pipeline._dequantize(quant, dequant)
+    valid = torch.arange(q_bucket, device=device) < len(cloud)
+    attrs_dev = torch.from_numpy(multiscale._pad_rows_f32(
+        attrs, q_bucket)).to(device)
+    problems = []
+    centers, _, mask = unique.unique_voxels(query, vox, valid=valid)
+    prob = device_grid._span_problem(centers, mask, query, valid, ispec,
+                                     attrs=attrs_dev)
+    buckets, _ = device_grid._bucket_problems(
+        prob["q_t"], prob["centers"], prob["span_starts"],
+        prob["span_lens"], device_grid._far_extended(prob["sorted_pts"]),
+        icap)
+    problems += [("interp", b[:3], (float(vox.edge_length),))
+                 for b in buckets]
+    centers, mask, center_attrs = interp.packed_interp(
+        query, valid, attrs_dev, vox, ispec, icap)
+    plan = device_grid._pack_plan(query, valid, dev)
+    spans = device_grid._band_spans(plan, centers, mask, dev,
+                                    attrs=center_attrs)
+    buckets, _ = device_grid._bucket_problems(
+        plan["q_t"], plan["centers"], spans["span_starts"],
+        spans["span_lens"], device_grid._far_extended(spans["sorted_pts"]),
+        c_cap)
+    problems += [("attr", b[:3], radii) for b in buckets]
+    return problems
+
+
+def _ptxas_lines(name):
+    """The ptxas lines of one kernel instance (``cuda_build.kernel_name``)
+    in the packed_moments build."""
+    from nimrud_tpu_torch.ops.kernels import cuda_build
+    _, report = cuda_build.build("packed_moments")
+    return [ln for ln in cuda_build.ptxas_usage(report)
+            if ln.startswith(name + ":")]
+
+
+def _vector_kernel_phase(model, cloud, attrs, device, per_kind):
+    """The attribute and chebyshev instances against the plain twin at
+    the vector path's band-0 shapes (``_vector_problems``), at both
+    precisions: counts equal, moment and attribute rows within
+    ``moment_tolerance``; each instance's time, bound, share, launches a
+    step and ptxas lines.  Returns the records of both families."""
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+
+    n_attr = attrs.shape[1]
+    slots = pm.attr_slots(n_attr)
+    sides = {"interp": [], "attr": []}
+    for side, (q_t, cand_t, cen), rr in _vector_problems(model, cloud,
+                                                         attrs, device):
+        metric = "chebyshev" if side == "interp" else "euclidean"
+        c_cap = cand_t.shape[1] // q_t.shape[0]
+        shape = (f"E={q_t.shape[0]} q_cap={q_t.shape[2]} c_cap={c_cap} "
+                 f"radii={len(rr)} A={n_attr}")
+        work = pm.packed_moments_work(q_t, cand_t, cen, rr, n_attr=n_attr,
+                                      metric=metric)
+        rec = _hold(
+            f"packed_moments {side} {shape}",
+            lambda p: pm.packed_moments(q_t, cand_t, cen, rr, precision=p,
+                                        n_attr=n_attr, metric=metric),
+            lambda p: pm.packed_moments_plain(q_t, cand_t, cen, rr,
+                                              precision=p, n_attr=n_attr,
+                                              metric=metric),
+            lambda ref: pm.moment_tolerance(ref, cand_t, cen, n_attr=n_attr))
+        live = work["pairs"] / (q_t.shape[0] * c_cap * q_t.shape[2])
+        print(f"[kernel] packed_moments {side} {shape} (live share of "
+              f"lanes {live:.3f}): {_work_text(rec, work)}", flush=True)
+        sides[side].append((rec, work))
+    out = {}
+    for side, family, instance in (
+            ("interp", "packed_moments_interp",
+             f"packed_interp_kernel<{slots}>"),
+            ("attr", "packed_moments_attr",
+             f"packed_attr_kernel<1, {slots}>")):
+        rec, work = _total(sides[side])
+        fit, step = per_kind[family]
+        print(f"[kernel] {family} ({instance}) vector band-0 total: "
+              f"{_work_text(rec, work)}; launches: fit {fit}, serving "
+              f"{step:g} a step; ptxas: "
+              + " | ".join(_ptxas_lines(instance)), flush=True)
+        out[family] = (rec, work)
+    return out
 
 
 def _e2e_phase(device):
     """Both backends on the card against the same classifier on the CPU:
-    labels agree except at near-ties; then the sazo and oriented
+    labels agree except at near-ties; then the sazo, oriented and vector
     layouts on the packed backend."""
     from nimrud_tpu_torch.utils import workload
 
     small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
-    other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
+    other, other_labels = workload.make_bench_cloud(E2E_POINTS, seed=1)
     gpu = workload.make_bench_model(small, device=device)
     gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
     clf, cpu_clf = gpu.classifier, _on_cpu(gpu.classifier)
@@ -837,8 +1139,8 @@ def _e2e_phase(device):
                f"{backend}: card and cpu labels differ away from near-ties")
         _check(int(differ.sum()) <= MAX_FLIPS * E2E_POINTS,
                f"{backend}: too many label flips")
-    for kind in ("sazo", "oriented"):
-        _e2e_kind(kind, small, small_labels, other, device)
+    for kind in ("sazo", "oriented", "vector"):
+        _e2e_kind(kind, small, small_labels, other, other_labels, device)
 
 
 def _on_cpu(clf):
@@ -849,28 +1151,36 @@ def _on_cpu(clf):
         clf.scale_.cpu(), device="cpu")
 
 
-def _e2e_kind(kind, small, small_labels, other, device):
+def _e2e_kind(kind, small, small_labels, other, other_labels, device):
     """One layout on the packed backend, card against CPU with the card
-    fit's classifier.  Each differing label has a near-tie (top-two gap
-    < TIE_GAP on either side), or for ``oriented`` the sign witness
+    fit's classifier (``vector`` on its fit cloud with the bench
+    attributes).  Each differing label has a near-tie (top-two gap < TIE_GAP
+    on either side), or for ``oriented`` the sign witness
     (``layouts.reconcile``: the card's rows with the eigenvector signs
     turned to the CPU's and the vectors of nearly equal eigenvalues taken
-    from it give the CPU's labels), or the rounding witness: the card
-    found the same neighbor sets (every band's density within an ulp of
-    the CPU's, and for ``sazo`` the same sazo values), so only the f32
-    rounding of the sums and of the eigensolver moved the label.  At
-    most MAX_FLIPS of the labels at near-ties or by rounding, and
-    MAX_WITNESSED by signs."""
+    from it give the CPU's labels), or the rounding witness
+    (``_rounding_witness``: every feature of the two rows within its
+    stated f32 bound, so only rounding moved the label).  Either witness
+    first needs the card's label to be the classifier's label of the
+    card's own rows.  At most MAX_FLIPS of the labels at near-ties or by
+    rounding, and MAX_WITNESSED by signs."""
     import torch
     from nimrud_tpu_torch.features import layouts
     from nimrud_tpu_torch.utils import workload
 
+    attrs = other_attrs = None
+    if kind == "vector":
+        # served on its fit cloud, as in the kinds phase: the interp's
+        # capacities are sized on the fit cloud's raw density
+        attrs = other_attrs = workload.make_bench_attributes(small_labels)
+        other = small
     gpu = workload.make_bench_model(small, kind=kind, device=device)
-    gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
+    gpu.fit(small, small_labels, sample=E2E_POINTS // 2, attributes=attrs)
     cpu_clf = _on_cpu(gpu.classifier)
     cpu = workload.make_bench_model(small, kind=kind, device="cpu")
-    cpu.install_classifier(cpu_clf, small)
-    st_g, st_c = gpu.stage(other), cpu.stage(other)
+    cpu.install_classifier(cpu_clf, small, attributes=attrs)
+    st_g = gpu.stage(other, attributes=other_attrs)
+    st_c = cpu.stage(other, attributes=other_attrs)
     g_lab, g_prob = gpu.predict_staged(st_g, with_proba=True)
     t0 = time.perf_counter()
     c_lab, c_prob = cpu.predict_staged(st_c, with_proba=True)
@@ -893,17 +1203,15 @@ def _e2e_kind(kind, small, small_labels, other, device):
             found["rows with a sign turned"] = int(flipped.sum())
             found["rows with a near-degenerate vector"] = int(taken.sum())
             left &= ~signs
-        width = layouts.LAYOUT_WIDTHS[kind]
-        dens = c_feats[:, 0::width]
-        same = ((g_feats[:, 0::width] - dens).abs()
-                <= 2.0 ** -22 * dens.abs()).all(1)
-        if layouts.needs_sazo(kind):
-            same &= (g_feats[:, 4::width] == c_feats[:, 4::width]).all(1)
-        rounding = left & own & same
+            g_feats = rec
+        rows = (left & own).nonzero()[:, 0]
+        held, ratio = _rounding_witness(kind, cpu, st_c, rows, g_feats,
+                                        c_feats)
+        rounding = torch.zeros_like(left)
+        rounding[rows[held]] = True
         found["rounding witness"] = int(rounding.sum())
-        if bool(rounding.any()):
-            found["largest feature difference there (x1e6)"] = int(1e6 * float(
-                (g_feats - c_feats)[rounding].abs().max()))
+        found["largest feature difference as a share of its bound"] = \
+            float(f"{ratio:.4g}")
         left &= ~rounding
     print(f"[e2e] {kind} packed: {E2E_POINTS} points, {int(differ.sum())} "
           f"labels differ (card vs cpu): {dict(found)}; cpu serve "
@@ -917,13 +1225,16 @@ def _e2e_kind(kind, small, small_labels, other, device):
            f"{kind}: too many labels moved by eigenvector signs")
 
 
-def _serving_profile(model, out_dir):
+def _serving_profile(model, out_dir, cloud=None, attrs=None):
     """Three steady serving steps of ``model``'s backend (clouds staged
-    before the window), profiled."""
+    before the window: seeds 3-5, or ``cloud`` with its ``attrs`` three
+    times), profiled."""
     from nimrud_tpu_torch.utils import workload
-    staged = [model.stage(workload.make_bench_cloud(N_POINTS, seed=s)[0])
-              for s in (3, 4, 5)]
-    _profile_phase(f"[profile {model.backend}]", f"serving_{model.backend}",
+    clouds = [cloud] * 3 if cloud is not None else [
+        workload.make_bench_cloud(N_POINTS, seed=s)[0] for s in (3, 4, 5)]
+    staged = [model.stage(c, attributes=attrs) for c in clouds]
+    name = model.backend if model.kind == "minimal" else model.kind
+    _profile_phase(f"[profile {name}]", f"serving_{name}",
                    [lambda st=st: model.predict_staged(st) for st in staged],
                    out_dir)
 
@@ -1019,8 +1330,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile three serving steps of each "
-                             "backend and three tiled runs of band 0; write "
-                             "the traces and kernel tables to DIR")
+                             "backend and of the vector layout, and three "
+                             "tiled runs of band 0; write the traces and "
+                             "kernel tables to DIR")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1071,9 +1383,7 @@ def main():
           flush=True)
     _check(fit_counts["packed_moments"] > 0, "the kernel did not run in fit")
     _check(serve_launches > 0, "the kernel did not run in serving")
-    _check(counts["span_moments"] == 0 and counts["entry_moments"] == 0
-           and counts["packed_moments_sazo"] == 0,
-           f"the packed path ran another kernel: {counts}")
+    _only(counts, ("packed_moments",), "the packed path")
     launches = {"packed_moments": counts["packed_moments"]}
     if args.profile:
         _serving_profile(model, args.profile)
@@ -1088,11 +1398,19 @@ def main():
           f"{launches['entry_moments']} a tiled run ({len(model.scaleset)} "
           "bands)", flush=True)
     del model
-    launches["packed_moments_sazo"] = _kinds_phase(cloud, labels, clouds,
-                                                   truths, device)
-    print(f"[launches] packed_moments_sazo: "
-          f"{launches['packed_moments_sazo']} in the sazo fit and its "
-          f"{KINDS['sazo']} serving steps", flush=True)
+    kind_launches, per_kind, vector = _kinds_phase(cloud, labels, clouds,
+                                                   truths, device,
+                                                   args.profile)
+    launches.update(kind_launches)
+    for family, n in kind_launches.items():
+        kind = next(k for k, v in KIND_KERNELS.items() if family in v)
+        print(f"[launches] {family}: {n} in the {kind} fit and its "
+              f"{KINDS[kind]} serving steps ({per_kind[family][0]} in the "
+              f"fit, {per_kind[family][1]:g} a serving step)", flush=True)
+    record.update(_vector_kernel_phase(
+        vector, cloud, workload.make_bench_attributes(labels), device,
+        per_kind))
+    del vector
     _e2e_phase(device)
 
     sources = {
@@ -1101,6 +1419,12 @@ def main():
         "packed_moments_sazo": (
             "packed_moments",
             "nimrud_tpu/ops/pallas/packed_kernel.py:236 (with_sazo)"),
+        "packed_moments_attr": (
+            "packed_moments",
+            "nimrud_tpu/ops/pallas/packed_kernel.py:236 (n_attr)"),
+        "packed_moments_interp": (
+            "packed_moments",
+            "nimrud_tpu/ops/pallas/packed_kernel.py:236 (chebyshev, n_attr)"),
         "span_moments": ("span_moments",
                          "nimrud_tpu/ops/pallas/gather_kernel.py:330"),
         "entry_moments": ("entry_moments",

@@ -14,16 +14,25 @@
 //   columns 19..27  lo
 //   columns 28..31  0
 //
+// An instance with NATTR attribute slots (packed_moments' attribute and
+// chebyshev instances) widens B to cols_for(NATTR) columns, the n8 tile
+// above 28 + 3 NATTR (32 for 1 slot, 40 for 4, 48 for 6): slot a's
+// value, a global attribute (no center subtracted), takes columns
+// 28 + 3a .. 30 + 3a as hi, mid, lo, and the slab's row 10 + a gets
+// their sum; unused slots and the columns above them stay 0.
+//
 // For each k16 step a lane forms the distances of its 2 query rows x 4
 // candidate columns of the m16 x k16 A fragment through a distance
 // policy (Difference: dx = q - x, (dx*dx + dy*dy) + dz*dz; Expanded:
 // (|q|^2 + |s|^2) - 2 q.s; every operation rounded on its own, no FMA,
 // in the order of the kernel's reference), compares each with the
-// caller's f32(r*r) and packs the 0/1 results as bf16 pairs.  Per
-// radius, four mma.sync m16n8k16 (bf16 in, f32 accumulate) multiply
-// that mask by the 32 columns.  The products are exact (0/1 times a
-// bf16 term), so counts are exact and the moments differ from an f32
-// sum only in the order of the sums.  The epilogue adds hi + mid + lo
+// caller's f32(r*r) and packs the 0/1 results as bf16 pairs (the
+// Chebyshev policy forms the max-norm max(|dx|, |dy|, |dz|) instead and
+// is compared with f32(r)).  Per radius, one mma.sync m16n8k16 (bf16
+// in, f32 accumulate) per n8 tile of B multiplies that mask by the
+// columns.  The products are exact (0/1 times a bf16 term), so counts
+// are exact and the moments differ from an f32 sum only in the order
+// of the sums.  The epilogue adds hi + mid + lo
 // per moment in f32 and writes the (q_cap, 16 * NR) slab rows; rows
 // past q_cap are never stored.
 //
@@ -64,6 +73,13 @@ struct Radii {
   float r2[kMaxRadii];
 };
 
+// B columns of an instance with `nattr` attribute slots: the count, the
+// nine moment terms and the slots, each term in three bf16 parts,
+// rounded up to the n8 tile.
+__host__ __device__ constexpr int cols_for(int nattr) {
+  return (28 + 3 * nattr + 7) / 8 * 8;
+}
+
 // m16 query tiles per warp: two at one radius (the main path), one at
 // more radii so the accumulators stay in registers
 template <int NR>
@@ -72,16 +88,20 @@ struct Shape {
   static constexpr int kQueries = kWarps * 16 * kMT;   // per block
 };
 
-struct Tile {
+template <int COLS = kCols>
+struct TileT {
   float x[kTile], y[kTile], z[kTile];
-  alignas(16) unsigned short aug[kCols * kLd];   // bf16 bits
+  alignas(16) unsigned short aug[COLS * kLd];   // bf16 bits
   int live[kGroups];
 };
+using Tile = TileT<>;
 
-union Smem {
-  Tile tile;
-  float epi[kWarps][16][kCols + 1];     // per-warp epilogue staging
+template <int COLS = kCols>
+union SmemT {
+  TileT<COLS> tile;
+  float epi[kWarps][16][COLS + 1];      // per-warp epilogue staging
 };
+using Smem = SmemT<>;
 
 __device__ __forceinline__ void split3(float v, __nv_bfloat16& hi,
                                        __nv_bfloat16& mid,
@@ -92,13 +112,15 @@ __device__ __forceinline__ void split3(float v, __nv_bfloat16& hi,
   lo = __float2bfloat16_rn(__fsub_rn(rem, __bfloat162float(mid)));
 }
 
-// Stage entry-local row (x, y, z) of thread j into the tile.  A dead
-// row (live false) keeps its coordinates and gets a zero aug row, so it
-// adds 0 whatever its distance test says.  Every thread of the block
-// calls this once per tile; the warp then publishes one live flag per
-// k16 group.
-__device__ __forceinline__ void stage_local(Tile& s, float x, float y,
-                                            float z, bool live) {
+// Stage entry-local row (x, y, z) of thread j, and its NATTR attribute
+// slots, into the tile.  A dead row (live false) keeps its coordinates
+// and gets a zero aug row, so it adds 0 whatever its distance test
+// says.  Every thread of the block calls this once per tile; the warp
+// then publishes one live flag per k16 group.
+template <int NATTR>
+__device__ __forceinline__ void stage_cols(
+    TileT<cols_for(NATTR)>& s, float x, float y, float z, bool live,
+    const float (&attr)[NATTR > 0 ? NATTR : 1]) {
   const int j = threadIdx.x;
   s.x[j] = x;
   s.y[j] = y;
@@ -117,11 +139,27 @@ __device__ __forceinline__ void stage_local(Tile& s, float x, float y,
     col[(19 + i) * kLd] = __bfloat16_as_ushort(lo);
   }
 #pragma unroll
-  for (int c = 28; c < kCols; ++c) col[c * kLd] = 0;
+  for (int a = 0; a < NATTR; ++a) {
+    __nv_bfloat16 hi, mid, lo;
+    split3(live ? attr[a] : 0.f, hi, mid, lo);
+    col[(28 + 3 * a) * kLd] = __bfloat16_as_ushort(hi);
+    col[(29 + 3 * a) * kLd] = __bfloat16_as_ushort(mid);
+    col[(30 + 3 * a) * kLd] = __bfloat16_as_ushort(lo);
+  }
+#pragma unroll
+  for (int c = 28 + 3 * NATTR; c < cols_for(NATTR); ++c) col[c * kLd] = 0;
   const unsigned ballot = __ballot_sync(0xffffffffu, live);
   const int lane = threadIdx.x & 31;
   if ((lane & 15) == 0)
     s.live[j >> 4] = ((ballot >> (lane & 16)) & 0xffffu) != 0;
+}
+
+// The row without attributes (the 32-column B of every instance that
+// carries none).
+__device__ __forceinline__ void stage_local(Tile& s, float x, float y,
+                                            float z, bool live) {
+  const float none[1] = {0.f};
+  stage_cols<0>(s, x, y, z, live, none);
 }
 
 // Stage candidate j (global coordinates p*, entry center c*) into the
@@ -136,11 +174,30 @@ __device__ __forceinline__ void stage_row(Tile& s, float px, float py,
               live);
 }
 
+// stage_row with the candidate's NATTR attribute slots, staged as the
+// global values they are (the reference sums them as given).
+template <int NATTR>
+__device__ __forceinline__ void stage_row_attr(
+    TileT<cols_for(NATTR)>& s, float px, float py, float pz, float cx,
+    float cy, float cz, const float (&attr)[NATTR]) {
+  const bool live = !(px == kFar && py == kFar && pz == kFar);
+  stage_cols<NATTR>(s, __fsub_rn(px, cx), __fsub_rn(py, cy),
+                    __fsub_rn(pz, cz), live, attr);
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(addr));
 }
 
@@ -198,6 +255,33 @@ struct Difference {
   }
 };
 
+// max with the NaN rule of jnp.maximum: a NaN operand gives a NaN.
+// fmaxf returns the other operand instead, which would let a NaN
+// coordinate pass the chebyshev test on the other axes.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// The max-norm of packed_moments' chebyshev metric (the packed
+// attribute interp's ball): dx, dy, dz as in Difference (the entry-local
+// frame, no FMA), then max(|dx|, |dy|, |dz|), compared with the
+// caller's f32(r).  The maximum propagates a NaN, so `d <= r` is
+// |dx| <= r && |dy| <= r && |dz| <= r for every input: the same decision
+// for finite values, and a NaN on any axis fails it, as in the
+// reference.
+struct Chebyshev {
+  __device__ __forceinline__ void columns(int, int, float (&)[4]) const {}
+  __device__ __forceinline__ float operator()(int, int, const float (&q)[3],
+                                              float x, float y, float z,
+                                              float) const {
+    return max_nan(max_nan(fabsf(__fsub_rn(q[0], x)),
+                           fabsf(__fsub_rn(q[1], y))),
+                   fabsf(__fsub_rn(q[2], z)));
+  }
+};
+
 __device__ __forceinline__ float sum_sq(float a, float b, float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
                    __fmul_rn(c, c));
@@ -235,7 +319,8 @@ struct Expanded {
 };
 
 // One warp's query tiles: entry-local coordinates of rows g and g + 8 of
-// each m16 tile, and the accumulators (per radius, tile and n8 tile).
+// each m16 tile, and the accumulators (per radius, tile and n8 tile of
+// the cols_for(NATTR) columns: 4 without attributes, 4-6 with).
 // With SAZO also this lane's sazo folds (per radius, tile and row): the
 // smallest and largest dz of its columns inside the radius.
 //
@@ -245,11 +330,15 @@ struct Expanded {
 // sentinel).  A kernel that stages rows with their live flag off but
 // real coordinates (entry_moments) must not take SAZO; it is tied to the
 // difference form, which only packed_moments and span_moments use.
-template <int NR, bool SAZO = false>
+template <int NR, bool SAZO = false, int NATTR = 0>
 struct Warp {
+  static_assert(!(SAZO && NATTR), "sazo and attributes both claim slab "
+                "rows 10+");
   static constexpr int MT = Shape<NR>::kMT;
+  static constexpr int COLS = cols_for(NATTR);
+  static constexpr int NT = COLS / 8;       // n8 tiles of B
   float q[MT][2][3];
-  float acc[NR][MT][4][4];
+  float acc[NR][MT][NT][4];
   float zmin[NR][MT][2], zmax[NR][MT][2];   // SAZO only
 
   __device__ __forceinline__ void zero() {
@@ -258,7 +347,7 @@ struct Warp {
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int k = 0; k < 4; ++k) acc[r][m][n][k] = 0.f;
         if constexpr (SAZO) {
@@ -273,7 +362,8 @@ struct Warp {
 
   // Sum the first n_groups k16 groups of the staged tile.
   template <class Dist = Difference>
-  __device__ __forceinline__ void accumulate(const Tile& s, int n_groups,
+  __device__ __forceinline__ void accumulate(const TileT<COLS>& s,
+                                             int n_groups,
                                              const float (&r2)[NR],
                                              const Dist& dist = Dist()) {
     static_assert(!SAZO || std::is_same<Dist, Difference>::value,
@@ -294,8 +384,17 @@ struct Warp {
       uint32_t b_lo[4], b_hi[4];
       ldmatrix_x4(b_lo, base + 2u * k0);               // n8 tiles 0, 1
       ldmatrix_x4(b_hi, base + 2u * (k0 + 16 * kLd));  // n8 tiles 2, 3
-      const uint32_t b[8] = {b_lo[0], b_lo[1], b_lo[2], b_lo[3],
-                             b_hi[0], b_hi[1], b_hi[2], b_hi[3]};
+      uint32_t b[2 * NT] = {b_lo[0], b_lo[1], b_lo[2], b_lo[3],
+                            b_hi[0], b_hi[1], b_hi[2], b_hi[3]};
+      if constexpr (NT > 4) {                          // attribute tiles
+        uint32_t b_ex[4];
+        if constexpr (NT == 6)
+          ldmatrix_x4(b_ex, base + 2u * (k0 + 32 * kLd));   // tiles 4, 5
+        else
+          ldmatrix_x2(b_ex, base + 2u * (k0 + 32 * kLd));   // tile 4
+#pragma unroll
+        for (int i = 0; i < 2 * (NT - 4); ++i) b[8 + i] = b_ex[i];
+      }
       // candidate columns 2t, 2t + 1, 2t + 8, 2t + 9 of this k16 step
       const float2 xa = *reinterpret_cast<const float2*>(s.x + k0 + 2 * t);
       const float2 xb =
@@ -333,7 +432,7 @@ struct Warp {
                                  mask_pair(d2[0][2], d2[0][3], r2[r]),
                                  mask_pair(d2[1][2], d2[1][3], r2[r])};
 #pragma unroll
-          for (int n = 0; n < 4; ++n)
+          for (int n = 0; n < NT; ++n)
             mma_bf16(acc[r][m][n], a, b[2 * n], b[2 * n + 1]);
           if constexpr (SAZO) {
             // the mask's own test; a NaN coordinate makes d2 NaN, which
@@ -360,13 +459,15 @@ struct Warp {
   // With SAZO the quad's lanes (one row pair, 16 columns between them)
   // first reduce their folds, and the fold columns 28 / 29 of the
   // epilogue (the accumulators stage zeros there: B's columns 28..31 are
-  // zero) carry -zmin / -zmax to slab rows 10 / 11.
-  __device__ __forceinline__ void store(Smem& sm, float* __restrict__ out,
+  // zero) carry -zmin / -zmax to slab rows 10 / 11.  With NATTR, slab
+  // row 10 + a sums the hi, mid and lo columns of slot a.
+  __device__ __forceinline__ void store(SmemT<COLS>& sm,
+                                        float* __restrict__ out,
                                         long long entry, int q_first,
                                         int q_cap) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    float(*epi)[kCols + 1] = sm.epi[threadIdx.x >> 5];
+    float(*epi)[COLS + 1] = sm.epi[threadIdx.x >> 5];
     const int row = lane & 15, half = lane >> 4;
     if constexpr (SAZO) {
 #pragma unroll
@@ -390,7 +491,7 @@ struct Warp {
       for (int r = 0; r < NR; ++r) {
         __syncwarp();
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < NT; ++n) {
           epi[g][n * 8 + 2 * t] = acc[r][m][n][0];
           epi[g][n * 8 + 2 * t + 1] = acc[r][m][n][1];
           epi[g + 8][n * 8 + 2 * t] = acc[r][m][n][2];
@@ -415,6 +516,10 @@ struct Warp {
                  : k < 10 ? __fadd_rn(__fadd_rn(epi[row][k], epi[row][9 + k]),
                                       epi[row][18 + k])
                  : SAZO && k < 12 ? epi[row][18 + k]
+                 : NATTR && k < 10 + NATTR
+                     ? __fadd_rn(__fadd_rn(epi[row][3 * k - 2],
+                                           epi[row][3 * k - 1]),
+                                 epi[row][3 * k])
                           : 0.f;
           }
           float4* dst = reinterpret_cast<float4*>(

@@ -45,6 +45,18 @@
 // fold of -dz.  The instance is a template flag: the four instances
 // without it compile as before.
 //
+// The attribute instances (_entry_sweep's n_attr, the V_MSO path) carry
+// up to 6 candidate attribute rows (cand_t rows 3..3+A, global values)
+// into the masked sums: packed_attr_kernel<NR, NATTR> stages them in a
+// B operand widened to 32, 40 or 48 columns (NATTR 1, 4 or 6 slots, the
+// n8 tile above 28 + 3 NATTR; moment_mma.cuh) and writes their sums to
+// slab rows 10..10+A.  packed_interp_kernel<NATTR> is the same at one
+// radius under the chebyshev metric (the packed attribute interp):
+// max(|dx|, |dy|, |dz|) <= f32(r), the maximum propagating a NaN as
+// jnp.maximum does.  The slots past A are staged as zeros; a call picks
+// the smallest instance that holds A.  The instances without attributes
+// keep their 32-column B and compile as before.
+//
 // Built as a plain C library (nvcc -shared) and called through ctypes:
 // the launcher runs on the caller's stream and returns
 // cudaGetLastError().
@@ -55,15 +67,17 @@ namespace {
 
 namespace mm = moment_mma;
 
-template <int NR, bool SAZO>
-__global__ void __launch_bounds__(mm::kThreads)
-packed_moments_kernel(const float* __restrict__ q_t,
-                      const float* __restrict__ cand_t,
-                      const float* __restrict__ centers, mm::Radii radii,
-                      int q_cap, int c_cap, long long lanes,
-                      float* __restrict__ out) {
-  __shared__ mm::Smem smem;
-  using W = mm::Warp<NR, SAZO>;
+// One block: entry blockIdx.x, queries from blockIdx.y * kQueries.
+// NATTR attribute slots read n_attr <= NATTR attribute rows of cand_t
+// (rows 3.. past the coordinates, `lanes` apart); the other slots are 0.
+template <int NR, bool SAZO, int NATTR, class Dist>
+__device__ __forceinline__ void packed_body(
+    mm::SmemT<mm::cols_for(NATTR)>& smem, const float* __restrict__ q_t,
+    const float* __restrict__ cand_t, const float* __restrict__ centers,
+    mm::Radii radii, int q_cap, int c_cap, long long lanes, int n_attr,
+    float* __restrict__ out) {
+  using W = mm::Warp<NR, SAZO, NATTR>;
+  constexpr int kSlots = NATTR > 0 ? NATTR : 1;
 
   const int e = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -95,28 +109,83 @@ packed_moments_kernel(const float* __restrict__ q_t,
   const float* cand_x = cand_t + first;
   const float* cand_y = cand_t + lanes + first;
   const float* cand_z = cand_t + 2 * lanes + first;
+  const float* cand_a = cand_t + 3 * lanes + first;
 
   // this thread's candidate of a tile, FAR past c_cap; the next tile's
   // is loaded before the current one is summed, to hide its latency
-  auto load = [&](int tile, float& px, float& py, float& pz) {
+  auto load = [&](int tile, float& px, float& py, float& pz,
+                  float (&pa)[kSlots]) {
     const int j = tile + threadIdx.x;
     const bool in = j < c_cap;
     px = in ? cand_x[j] : mm::kFar;
     py = in ? cand_y[j] : mm::kFar;
     pz = in ? cand_z[j] : mm::kFar;
+    if constexpr (NATTR > 0) {
+#pragma unroll
+      for (int a = 0; a < NATTR; ++a)
+        pa[a] = in && a < n_attr ? cand_a[a * lanes + j] : 0.f;
+    }
   };
-  float px, py, pz;
-  load(0, px, py, pz);
+  float px, py, pz, pa[kSlots];
+  load(0, px, py, pz, pa);
   for (int tile = 0; tile < c_cap; tile += mm::kTile) {
     const int w_tile = min(mm::kTile, c_cap - tile);   // a multiple of 128
     __syncthreads();   // the previous tile is consumed
-    mm::stage_row(smem.tile, px, py, pz, cx, cy, cz);
+    if constexpr (NATTR > 0)
+      mm::stage_row_attr<NATTR>(smem.tile, px, py, pz, cx, cy, cz, pa);
+    else
+      mm::stage_row(smem.tile, px, py, pz, cx, cy, cz);
     __syncthreads();
-    load(tile + mm::kTile, px, py, pz);
-    if (busy) w.accumulate(smem.tile, w_tile / 16, r2);
+    load(tile + mm::kTile, px, py, pz, pa);
+    if (busy) w.accumulate(smem.tile, w_tile / 16, r2, Dist());
   }
   __syncthreads();     // the tile's shared memory becomes the epilogue's
   if (busy) w.store(smem, out, e, q_first, q_cap);
+}
+
+template <int NR, bool SAZO>
+__global__ void __launch_bounds__(mm::kThreads)
+packed_moments_kernel(const float* __restrict__ q_t,
+                      const float* __restrict__ cand_t,
+                      const float* __restrict__ centers, mm::Radii radii,
+                      int q_cap, int c_cap, long long lanes,
+                      float* __restrict__ out) {
+  __shared__ mm::Smem smem;
+  packed_body<NR, SAZO, 0, mm::Difference>(smem, q_t, cand_t, centers,
+                                           radii, q_cap, c_cap, lanes, 0,
+                                           out);
+}
+
+// The vector extraction: euclidean, NATTR attribute slots.
+template <int NR, int NATTR>
+__global__ void __launch_bounds__(mm::kThreads)
+packed_attr_kernel(const float* __restrict__ q_t,
+                   const float* __restrict__ cand_t,
+                   const float* __restrict__ centers, mm::Radii radii,
+                   int q_cap, int c_cap, long long lanes, int n_attr,
+                   float* __restrict__ out) {
+  __shared__ mm::SmemT<mm::cols_for(NATTR)> smem;
+  packed_body<NR, false, NATTR, mm::Difference>(
+      smem, q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+}
+
+// The packed attribute interp: chebyshev, one radius, NATTR slots.
+template <int NATTR>
+__global__ void __launch_bounds__(mm::kThreads)
+packed_interp_kernel(const float* __restrict__ q_t,
+                     const float* __restrict__ cand_t,
+                     const float* __restrict__ centers, mm::Radii radii,
+                     int q_cap, int c_cap, long long lanes, int n_attr,
+                     float* __restrict__ out) {
+  __shared__ mm::SmemT<mm::cols_for(NATTR)> smem;
+  packed_body<1, false, NATTR, mm::Chebyshev>(
+      smem, q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+}
+
+dim3 grid_of(int n_entries, int q_cap, int n_radii) {
+  const int per_block = n_radii == 1 ? mm::Shape<1>::kQueries
+                                     : mm::Shape<2>::kQueries;
+  return dim3(n_entries, (q_cap + per_block - 1) / per_block);
 }
 
 template <int NR>
@@ -131,6 +200,38 @@ void launch(bool sazo, int n_entries, int q_cap, cudaStream_t s,
   else
     packed_moments_kernel<NR, false><<<grid, mm::kThreads, 0, s>>>(
         q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
+}
+
+template <int NATTR>
+cudaError_t launch_attr(bool chebyshev, int n_radii, int n_entries,
+                        int q_cap, cudaStream_t s, const float* q_t,
+                        const float* cand_t, const float* centers,
+                        const mm::Radii& radii, int c_cap, long long lanes,
+                        int n_attr, float* out) {
+  const dim3 grid = grid_of(n_entries, q_cap, n_radii);
+  if (chebyshev) {
+    if (n_radii != 1) return cudaErrorInvalidValue;
+    packed_interp_kernel<NATTR><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+    return cudaSuccess;
+  }
+  switch (n_radii) {
+    case 1: packed_attr_kernel<1, NATTR><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+      break;
+    case 2: packed_attr_kernel<2, NATTR><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+      break;
+    case 3: packed_attr_kernel<3, NATTR><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+      break;
+    case 4: packed_attr_kernel<4, NATTR><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -167,5 +268,35 @@ extern "C" int packed_moments_launch(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The attribute and chebyshev instances.  cand_t (3 + n_attr, E * c_cap)
+// with 0 <= n_attr <= 6 attribute rows; chebyshev: nonzero for the
+// max-norm metric (one radius).  lim_*: f32 squared radii (euclidean)
+// or f32 radii (chebyshev), unused ones ignored.  Returns a cudaError_t.
+extern "C" int packed_attr_launch(
+    const float* q_t, const float* cand_t, const float* centers,
+    float* out, int n_entries, int q_cap, int c_cap, int n_radii,
+    int n_attr, int chebyshev, float lim_0, float lim_1, float lim_2,
+    float lim_3, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_attr < 0 || n_attr > 6) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_entries <= 0 || q_cap <= 0) return 0;
+  const mm::Radii radii = {{lim_0, lim_1, lim_2, lim_3}};
+  const long long lanes = static_cast<long long>(n_entries) * c_cap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool cheb = chebyshev != 0;
+  if (n_attr <= 1)
+    err = launch_attr<1>(cheb, n_radii, n_entries, q_cap, s, q_t, cand_t,
+                         centers, radii, c_cap, lanes, n_attr, out);
+  else if (n_attr <= 4)
+    err = launch_attr<4>(cheb, n_radii, n_entries, q_cap, s, q_t, cand_t,
+                         centers, radii, c_cap, lanes, n_attr, out);
+  else
+    err = launch_attr<6>(cheb, n_radii, n_entries, q_cap, s, q_t, cand_t,
+                         centers, radii, c_cap, lanes, n_attr, out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,9 @@ Layouts (columns per scale):
 eig1 >= eig2 are the two largest covariance eigenvalues normalized to
 sum 1, eig_s0 <= eig_s1 the two smallest, v0 / v1 their eigenvectors
 (signs arbitrary); density is points per cm^3 of the sphere.  The
-``vector`` layout (V_MSO) raises ``NotImplementedError`` (ROADMAP.md
-Queue A #9).
+``vector`` layout (V_MSO, [attr_mean x A] per scale) is not built here:
+the extraction hands the kernel's attribute means on as they are
+(``device_grid._band_blocks``), as the reference does.
 """
 
 import math
@@ -239,9 +240,4 @@ def build_block(kind, count, mean, cov, query, radius, sazo=None):
         if sazo is None:
             raise ValueError("kind='sazo' requires the sazo statistic")
         return sazo_block(count, mean, cov, query, radius, sazo)
-    if kind == "vector":
-        raise NotImplementedError(
-            "feature layout 'vector' (attribute interpolation, the packed "
-            "kernel's n_attr and chebyshev variants) is not ported yet "
-            "(ROADMAP.md Queue A #9)")
     raise ValueError(f"unknown feature layout {kind!r}")

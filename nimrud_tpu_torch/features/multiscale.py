@@ -2,18 +2,55 @@
 Multiscale feature extraction of the port (the packed and span
 branches of ``nimrud_tpu/features/multiscale.py:extract_scaleset_fused``,
 plus the host helpers they need, copied: ``_pow2_bucket``,
-``_pad_rows_f32`` and the NumPy branch of ``_host_unique_voxels``).
+``_pad_rows_f32``, the NumPy branch of ``_host_unique_voxels``,
+``_voxel_occupancy_cap`` and ``_interp_packed_plan``).
 
 For each band ``(voxel_edge, radii)`` the search cloud is
 voxel-downsampled on the device and every query's neighborhood moments
 come from the packed-candidate or the span kernel; bands concatenate
-left to right.
+left to right.  The ``vector`` layout (V_MSO) first interpolates the
+search points' attributes onto the voxel centers (the packed attribute
+interp, ``ops.interp.packed_interp``) and then serves the masked means
+of those center attributes over each radius.
 """
 
 import numpy as np
 import torch
 
-from nimrud_tpu_torch.ops import device_grid, packing, span_host, unique
+from nimrud_tpu_torch.ops import (device_grid, interp, packing, span_host,
+                                  unique)
+from nimrud_tpu_torch.ops.kernels.multiscale_kernel import MAX_ATTR
+
+# the reference's precision names -> the kernels' precision: "mixed" and
+# "high" (XLA matmul precisions) map onto the bf16 split, "default" onto
+# the f32 sums (``features/multiscale.py:461-466`` there)
+KERNEL_PRECISION = {"highest": "highest", "default": "highest",
+                    "bf16x2": "bf16x2", "mixed": "bf16x2", "high": "bf16x2"}
+
+
+def kernel_precision(precision):
+    """The moment kernels' precision for one of the reference's names."""
+    if precision not in KERNEL_PRECISION:
+        raise ValueError(f"precision must be one of "
+                         f"{tuple(KERNEL_PRECISION)}, got {precision!r}")
+    return KERNEL_PRECISION[precision]
+
+
+def check_attributes(attributes, n_search):
+    """(n_search, A) float32 attributes the packed kernel can carry (at
+    most ``MAX_ATTR`` columns; wider blocks take the reference's gather
+    interp and XLA path, which the port does not carry)."""
+    attributes = np.asarray(attributes, dtype=np.float32)
+    if attributes.ndim != 2 or attributes.shape[0] != n_search:
+        raise ValueError(f"attributes must be ({n_search}, A), got "
+                         f"{attributes.shape}")
+    if not 1 <= attributes.shape[1] <= MAX_ATTR:
+        raise NotImplementedError(
+            f"{attributes.shape[1]} attribute columns: the packed kernel "
+            f"carries 1..{MAX_ATTR}; wider blocks take the reference's "
+            "gather interp and XLA path (ROADMAP.md Queue A #6, the XLA "
+            "fallback and reference-parity paths)")
+    return attributes
 
 
 def _pow2_bucket(n, minimum=128):
@@ -62,8 +99,49 @@ def _host_unique_voxels(search, edge, bounds=None):
             * edge).astype(np.float32)
 
 
+def _voxel_occupancy_cap(search, spec):
+    """Host upper bound on raw points per voxel (one key sort)."""
+    s64 = search.astype(np.float64)
+    origin = np.asarray(spec.origin)
+    cell = np.floor((s64 - origin) / spec.edge_length).astype(np.int64)
+    cell = np.clip(cell, 0, [2 ** w - 1 for w in spec.widths])
+    key = cell[:, 0]
+    for axis, shift in enumerate(spec.shifts[1:], start=1):
+        key = key | (cell[:, axis] << shift)
+    _, counts = np.unique(key, return_counts=True)
+    return int(counts.max())
+
+
+def _interp_packed_plan(search, vox_spec, lo, hi, s_bounds, m,
+                        host_centers=None):
+    """Host spec and candidate capacity of the packed attribute interp
+    (``ops.interp.packed_interp``): a voxel-edge tile grid whose queries
+    are the band's voxel centers and whose search side is the raw cloud,
+    at q_cap 128 and one coarse tile a segment (the interp's candidate
+    box is voxel-scale fringe around each entry; a wide segment would
+    swallow long x-runs of the raw cloud).  ``s_cap`` bounds raw points
+    a fine tile: the tile grid sits about half a voxel off the voxel
+    grid, so a tile overlaps at most 8 voxels and 8x the largest voxel
+    occupancy bounds the sizing cloud.  The capacity is the split
+    ``(caps, bounds)`` of ``span_host.candidate_caps_split`` (or one
+    int), sized on the centers against the raw cloud; denser clouds
+    overflow into the counted ``interp_dropped``."""
+    edge = float(vox_spec.edge_length)
+    search = np.asarray(search, np.float32)[:, :3]
+    if host_centers is None:
+        host_centers = _host_unique_voxels(search, edge, bounds=s_bounds)
+    occ = _voxel_occupancy_cap(search, vox_spec)
+    ispec = device_grid.make_spec(
+        lo, hi, edge, n_query=_pow2_bucket(search.shape[0]), q_cap=128,
+        m=m, x_seg=1, s_cap=_pow2_bucket(8 * occ, minimum=8))
+    ispec = device_grid.with_entry_estimate(ispec, host_centers)
+    icap = span_host.candidate_caps_split(host_centers, search, ispec)
+    return ispec, icap if isinstance(icap, tuple) else int(icap)
+
+
 def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
-                           bounds=None, m=3, backend="packed",
+                           attributes=None, bounds=None, m=3,
+                           backend="packed", precision="highest",
                            device="cuda"):
     """
     Multiscale features for every query point, on ``device`` (the card
@@ -74,7 +152,14 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     the host (``packed_moments``); ``"pallas"`` reads the candidate
     spans in place (``span_moments``), with no candidate cap.
     ``kind``: ``minimal``, ``geometric``, ``oriented``, ``covariance``,
-    ``eigen`` or ``sazo`` (packed only: the span path raises for it).
+    ``eigen``, ``sazo`` or ``vector`` (packed only: the span path raises
+    for the last two).  ``vector`` needs ``attributes`` (rows aligned
+    with ``search``, 1..6 columns): per band the packed attribute interp
+    (q_cap 128 on a voxel-edge grid, chebyshev ball of one edge) puts
+    them on the voxel centers, and the features are their means over
+    each radius, A columns a radius.  ``precision``: the reference's
+    names (``kernel_precision``), for the extraction's kernel; the
+    interp sums at "highest", as the reference's does.
 
     ``bounds``: fixed site (lo, hi) governing every grid; default the
     clouds' own bounds, with voxel grids anchored at the search bounds.
@@ -83,12 +168,23 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     if backend == "xla":
         raise NotImplementedError(
             "the XLA candidate-table backend is not ported (ROADMAP.md "
-            "Queue A #11)")
+            "Queue A #6, the XLA fallback and reference-parity paths)")
     if backend not in ("packed", "pallas"):
         raise ValueError(f"unknown backend {backend!r}: must be 'packed' "
                          "or 'pallas'")
+    prec = kernel_precision(precision)
     query = np.asarray(query, dtype=np.float32)[:, :3]
     search = np.asarray(search, dtype=np.float32)[:, :3]
+    if kind == "vector":
+        if attributes is None:
+            raise ValueError("kind='vector' requires attributes")
+        attributes = check_attributes(attributes, search.shape[0])
+        if backend == "pallas":
+            raise NotImplementedError(
+                "kind='vector' with backend='pallas': the span kernel has "
+                "no attribute rows and the reference's XLA path is not "
+                "ported (ROADMAP.md Queue A #6, the XLA fallback and "
+                "reference-parity paths)")
     scaleset = [(float(edge), tuple(float(r) for r in radii))
                 for edge, radii in scaleset]
     if any(edge <= 0 for edge, _ in scaleset):
@@ -111,12 +207,23 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     search_dev = torch.from_numpy(_pad_rows_f32(search, s_bucket)).to(device)
     q_valid = torch.arange(q_bucket, device=device) < n_query
     s_valid = torch.arange(s_bucket, device=device) < search.shape[0]
+    attrs_dev = None
+    if kind == "vector":
+        attrs_dev = torch.from_numpy(_pad_rows_f32(attributes,
+                                                   s_bucket)).to(device)
 
     bands = []
     for edge, radii in scaleset:
         vox_spec = packing.GridSpec.fit_bounds(s_lo, s_hi, edge)
-        centers, _, center_mask = unique.unique_voxels(
-            search_dev, vox_spec, valid=s_valid)
+        center_attrs = None
+        if kind == "vector":
+            ispec, icap = _interp_packed_plan(search, vox_spec, lo, hi,
+                                              (s_lo, s_hi), m)
+            centers, center_mask, center_attrs = interp.packed_interp(
+                search_dev, s_valid, attrs_dev, vox_spec, ispec, icap)
+        else:
+            centers, _, center_mask = unique.unique_voxels(
+                search_dev, vox_spec, valid=s_valid)
         spec = device_grid.make_spec(
             lo, hi, max(radii), n_query=q_bucket, m=m, q_cap=256,
             voxel_edge=edge, entry_batch=256, x_seg=32)
@@ -124,11 +231,11 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
         if backend == "pallas":
             bands.append(device_grid.fused_extract_spans(
                 query_dev, q_valid, centers, center_mask, spec, radii, kind,
-                n_query))
+                n_query, precision=prec))
             continue
         cap = span_host.candidate_cap(
             query, _host_unique_voxels(search, edge, bounds=bounds), spec)
         bands.append(device_grid.fused_extract_packed(
             query_dev, q_valid, centers, center_mask, spec, radii, kind,
-            n_query, int(cap)))
+            n_query, int(cap), precision=prec, attributes=center_attrs))
     return torch.cat(bands, dim=1)

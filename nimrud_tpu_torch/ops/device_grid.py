@@ -6,7 +6,10 @@ One query plan packs queries into entries of ``q_cap`` consecutive
 tile-sorted ranks within coarse-row segments; each band derives every
 entry's candidate x-row spans from its own fine grid, packs them into
 one ``c_cap``-lane candidate block per entry (split into capacity
-buckets), and runs the ``packed_moments`` kernel.  The span path
+buckets), and runs the ``packed_moments`` kernel.  Search-side
+attributes (the ``vector`` layout and the packed attribute interp) ride
+the same plan: they travel as sort payloads beside the coordinates and
+come back as candidate rows 3..3+A.  The span path
 (:func:`fused_extract_spans`) hands the same spans to the
 ``span_moments`` kernel, which reads them in place.  The TPU-only layout
 detours (lanes-major search tables, VMEM entry batching, gather
@@ -252,20 +255,25 @@ def _pack_plan(query, q_valid, spec):
     }
 
 
-def _search_tables(search, s_valid, spec, presorted=False):
+def _search_tables(search, s_valid, spec, attrs=None, presorted=False):
     """Query-independent search tables of one band: tile-sorted rows
     plus a per-tile (start, count) table with one trailing empty row.
+    ``attrs`` (n, A) ride the sort as payloads and come back as columns
+    3..3+A of ``sorted_pts``.
 
     ``presorted``: the rows already arrive sorted by this spec's fine
     tile id with invalid rows last (``unique.unique_voxels`` with
-    ``tile_spec``), so the sort is skipped."""
+    ``tile_spec``), so the sort is skipped; it takes no ``attrs``."""
     n_grid = spec.n_grid
     s_ids = torch.where(s_valid, _encode(search, spec, coarse=False),
                         n_grid)
     if presorted:
+        if attrs is not None:
+            raise ValueError("presorted search cannot carry attrs")
         sorted_pts = search
     else:
-        sorted_pts = search[torch.sort(s_ids, stable=True).indices]
+        rows = search if attrs is None else torch.cat([search, attrs], 1)
+        sorted_pts = rows[torch.sort(s_ids, stable=True).indices]
     s_counts = torch.bincount(s_ids, minlength=n_grid + 1)
     s_starts = torch.cumsum(s_counts, 0) - s_counts
     s_starts[n_grid] = 0
@@ -285,18 +293,22 @@ def _shared_span_rows(plan, spec):
     return int(np.ceil(x_seg * ratio) + slop) * spec.s_cap
 
 
-def _band_spans(plan, search, s_valid, spec, presorted=False):
+def _band_spans(plan, search, s_valid, spec, attrs=None, presorted=False):
     """Candidate x-row spans of one band's fine grid against a (possibly
     coarser-grained) shared entry packing: per entry, one contiguous
     span of the tile-sorted search rows for every (dy, dz) row of its
     candidate box.  Returns ``span_starts`` / ``span_lens``
-    (E, n_rows^2) and ``sorted_pts``."""
+    (E, n_rows^2), ``sorted_pts`` (with ``attrs`` as columns 3..3+A)
+    and ``clipped``, the live rows past ``span_rows`` that the lengths
+    drop (the reference clips them silently; the port counts them with
+    the candidates past the capacity)."""
     n_grid = spec.n_grid
     dims = spec.dims
     count = plan["count"]
     tx_lo, tx_hi = plan["tx_lo"], plan["tx_hi"]
     ty, tz = plan["ty"], plan["tz"]
-    tables = _search_tables(search, s_valid, spec, presorted=presorted)
+    tables = _search_tables(search, s_valid, spec, attrs=attrs,
+                            presorted=presorted)
 
     ratio = plan["coarse_edge"] / float(spec.tile_edge)
     span_rows = _shared_span_rows(plan, spec)
@@ -349,16 +361,18 @@ def _band_spans(plan, search, s_valid, spec, presorted=False):
     return {
         "span_starts": torch.where(ok2, begin, 0),
         "span_lens": torch.clamp(end - begin, 0, span_rows),
+        "clipped": torch.clamp(end - begin - span_rows, min=0).sum(),
         "sorted_pts": tables["sorted_pts"],
         "span_rows": span_rows,
     }
 
 
-def _span_problem(query, q_valid, search, s_valid, spec):
+def _span_problem(query, q_valid, search, s_valid, spec, attrs=None):
     """Single-band plan: the entry packing on the band's own grid plus
-    its candidate spans, and the entry-local queries."""
+    its candidate spans (the search rows carrying ``attrs``), and the
+    entry-local queries."""
     plan = _pack_plan(query, q_valid, spec)
-    band = _band_spans(plan, search, s_valid, spec)
+    band = _band_spans(plan, search, s_valid, spec, attrs=attrs)
     q_pts = plan["q_t"].transpose(1, 2)               # (E, q_cap, 3)
     q_local = q_pts - plan["centers"][:, None, :]
     return {**plan, **band, "q_pts": q_pts, "q_local": q_local}
@@ -459,7 +473,8 @@ def _pack_src(starts, lens, c_cap, n_search):
 
 
 def _far_extended(sorted_pts):
-    """Sorted cloud plus the FAR sentinel row dead slots gather."""
+    """Sorted cloud (3 + A columns) plus the FAR sentinel row dead slots
+    gather."""
     return torch.cat([sorted_pts,
                       sorted_pts.new_full((1, sorted_pts.shape[1]), pm.FAR)])
 
@@ -475,7 +490,7 @@ def _bucket_problems(q_t, centers, starts, lens, sorted3, c_cap):
     centers, dropped)`` and the permutation restoring entry order (None
     for one bucket)."""
     n_search = sorted3.shape[0] - 1
-    cand_src = sorted3.T.contiguous()                 # (3, n + 1)
+    cand_src = sorted3.T.contiguous()                 # (3 + A, n + 1)
 
     def one(q, c, st, ln, cap):
         src, dropped = _pack_src(st, ln, cap, n_search)
@@ -501,13 +516,17 @@ def _bucket_problems(q_t, centers, starts, lens, sorted3, c_cap):
 
 
 def _bucketed_slabs(q_t, centers, starts, lens, sorted3, c_cap, radii,
-                    with_sazo=False):
+                    precision="highest", with_sazo=False, metric="euclidean"):
     """Moment slabs for a slice of entries at one capacity or at split
     bucket capacities, in entry order (with the sazo rows for
-    ``with_sazo``).  Returns ``(slabs, dropped)``."""
+    ``with_sazo``; ``sorted3`` columns past the coordinates are the
+    attribute rows).  Returns ``(slabs, dropped)``."""
     buckets, inv = _bucket_problems(q_t, centers, starts, lens, sorted3,
                                     c_cap)
-    slabs = [pm.packed_moments(q, cand_t, c, radii, with_sazo=with_sazo)
+    n_attr = sorted3.shape[1] - 3
+    slabs = [pm.packed_moments(q, cand_t, c, radii, precision=precision,
+                               with_sazo=with_sazo, n_attr=n_attr,
+                               metric=metric)
              for q, cand_t, c, _ in buckets]
     dropped = sum(b[3] for b in buckets)
     if inv is None:
@@ -515,16 +534,24 @@ def _bucketed_slabs(q_t, centers, starts, lens, sorted3, c_cap, radii,
     return torch.cat(slabs)[inv], dropped
 
 
-def _band_blocks(kind, q_t, centers, starts, lens, sorted3, c_cap, radii):
+def _band_blocks(kind, q_t, centers, starts, lens, sorted3, c_cap, radii,
+                 precision="highest", metric="euclidean"):
     """Feature blocks of one band for a slice of entries; the sazo layout
-    takes the kernel's sazo instance."""
+    takes the kernel's sazo instance, the vector layout its attribute
+    means (the columns of ``sorted3`` past the coordinates), one block
+    of A columns a radius."""
     from nimrud_tpu_torch.features import layouts
 
     sazo = layouts.needs_sazo(kind)
+    n_attr = sorted3.shape[1] - 3
     slabs, dropped = _bucketed_slabs(q_t, centers, starts, lens, sorted3,
-                                     c_cap, radii, with_sazo=sazo)
+                                     c_cap, radii, precision=precision,
+                                     with_sazo=sazo, metric=metric)
+    stats = moments_from_slabs(slabs, centers, radii, with_sazo=sazo,
+                               n_attr=n_attr)
+    if kind == "vector":
+        return [p["attr_mean"] for p in stats], dropped
     q_pts = q_t.transpose(1, 2)
-    stats = moments_from_slabs(slabs, centers, radii, with_sazo=sazo)
     blocks = [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
                                   q_pts, radius, sazo=p.get("sazo"))
               for p, radius in zip(stats, radii)]
@@ -532,7 +559,7 @@ def _band_blocks(kind, q_t, centers, starts, lens, sorted3, c_cap, radii):
 
 
 def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
-                        kind, n_out, with_stats=False):
+                        kind, n_out, with_stats=False, precision="highest"):
     """
     Padded clouds -> (n_out, width) features of one band through the
     span kernel ``span_moments``, in caller order: the kernel reads each
@@ -540,22 +567,25 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
     rows (no candidate block is packed).  Every live row of a span
     counts, so no candidate is dropped; ``with_stats`` gives
     ``dropped_query`` (queries without an entry slot).  The span kernel
-    has no sazo fold: ``kind="sazo"`` raises (the reference takes an XLA
-    path there, not ported).
+    has neither a sazo fold nor attribute rows: ``kind="sazo"`` and
+    ``"vector"`` raise (the reference takes an XLA path there, not
+    ported).  ``precision``: "highest" or "bf16x2".
     """
     from nimrud_tpu_torch.features import layouts
 
-    if layouts.needs_sazo(kind):
+    if layouts.needs_sazo(kind) or kind == "vector":
         raise NotImplementedError(
-            "kind='sazo' on the span path (the reference's XLA fallback) "
-            "is not ported (ROADMAP.md Queue A #11)")
+            f"kind={kind!r} on the span path (the reference's XLA fallback) "
+            "is not ported (ROADMAP.md Queue A #6, the XLA fallback and "
+            "reference-parity paths)")
     prob = _span_problem(query, q_valid, search, s_valid, spec)
     centers = prob["centers"]
     slabs = gk.span_moments(
         prob["q_local"].contiguous(), centers.contiguous(),
         prob["span_starts"].to(torch.int32).contiguous(),
         prob["span_lens"].to(torch.int32).contiguous(),
-        prob["sorted_pts"].contiguous(), radii, prob["span_rows"])
+        prob["sorted_pts"].contiguous(), radii, prob["span_rows"],
+        precision=precision)
     blocks = [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
                                   prob["q_pts"], radius)
               for p, radius in zip(moments_from_slabs(slabs, centers, radii),
@@ -568,32 +598,45 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
 
 
 def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
-                         kind, n_out, c_cap, with_stats=False):
+                         kind, n_out, c_cap, with_stats=False,
+                         precision="highest", attributes=None,
+                         metric="euclidean"):
     """
     Padded clouds -> (n_out, width) features of one band through the
     packed-candidate ``packed_moments`` kernel, in caller order.
 
     ``c_cap`` bounds candidates per entry: one int (multiple of 128) or
     a split ``(caps, bounds)``.  Candidates beyond it are truncated and
-    counted in the ``dropped_candidates`` stat.
+    counted in the ``dropped_candidates`` stat, with the live rows a span
+    clips at its ``span_rows`` bound.  ``attributes`` (rows
+    aligned with ``search``, at most 6 columns) ride the plan into the
+    kernel's attribute rows; ``kind="vector"`` then gives their masked
+    means, A columns a radius.  ``metric="chebyshev"`` masks on the
+    max-norm ball (the packed attribute interp).  ``precision``:
+    "highest" or "bf16x2".
     """
-    prob = _span_problem(query, q_valid, search, s_valid, spec)
+    if kind == "vector" and attributes is None:
+        raise ValueError("kind='vector' requires attributes")
+    prob = _span_problem(query, q_valid, search, s_valid, spec,
+                         attrs=attributes)
     blocks, dropped = _band_blocks(
         kind, prob["q_t"], prob["centers"], prob["span_starts"],
-        prob["span_lens"], _far_extended(prob["sorted_pts"]), c_cap, radii)
+        prob["span_lens"], _far_extended(prob["sorted_pts"]), c_cap, radii,
+        precision=precision, metric=metric)
     feats = torch.cat(blocks, dim=-1)
     out = _unsort_features(feats, prob, spec, query.shape[0], n_out)
     if not with_stats:
         return out
     stats = {"dropped_query": q_valid.sum() - prob["count"].sum(),
-             "dropped_candidates": dropped}
+             "dropped_candidates": dropped + prob["clipped"]}
     return out, stats
 
 
 def fused_extract_packed_multi(query, q_valid, searches, s_valids,
                                pack_spec, band_specs, radii_bands, kind,
                                c_caps, reduce_fn, with_stats=False,
-                               presorted=False):
+                               presorted=False, precision="highest",
+                               attributes=None):
     """
     All bands of a scaleset over ONE shared query plan: ``_pack_plan``
     runs once on ``pack_spec`` (the finest band's grid), every band
@@ -609,25 +652,33 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
     without entry chunking.
 
     ``presorted=True`` is a trust contract: each band's search rows come
-    from ``unique.unique_voxels(..., tile_spec=band_specs[i])``.
+    from ``unique.unique_voxels(..., tile_spec=band_specs[i])``.  It
+    applies to the bands without ``attributes`` (one (n, A) tensor or
+    None a band, rows aligned with that band's search rows): those are
+    sorted with their payloads, as in the reference.  ``kind="vector"``
+    gives each band's attribute means, A columns a radius.
+    ``precision``: "highest" or "bf16x2".
     """
-    from nimrud_tpu_torch.features import layouts
-
     plan = _pack_plan(query, q_valid, pack_spec)
+    attributes = attributes or (None,) * len(band_specs)
+    if kind == "vector" and any(a is None for a in attributes):
+        raise ValueError("kind='vector' requires attributes in every band")
     dropped = query.new_zeros((), dtype=torch.int64)
     blocks = []
-    for search, s_valid, spec, radii, c_cap in zip(
-            searches, s_valids, band_specs, radii_bands, c_caps):
-        band = _band_spans(plan, search, s_valid, spec, presorted=presorted)
+    for search, s_valid, spec, radii, c_cap, attrs in zip(
+            searches, s_valids, band_specs, radii_bands, c_caps,
+            attributes):
+        band = _band_spans(plan, search, s_valid, spec, attrs=attrs,
+                           presorted=presorted and attrs is None)
         bl, dr = _band_blocks(kind, plan["q_t"], plan["centers"],
                               band["span_starts"], band["span_lens"],
                               _far_extended(band["sorted_pts"]), c_cap,
-                              radii)
+                              radii, precision=precision)
         blocks.extend(bl)
-        dropped = dropped + dr
+        dropped = dropped + dr + band["clipped"]
     feats = torch.cat(blocks, dim=-1)
     red = reduce_fn(feats.reshape(-1, feats.shape[-1]))
-    width = layouts.LAYOUT_WIDTHS[kind] * sum(len(r) for r in radii_bands)
+    width = feats.shape[-1]
     zero_row = reduce_fn(query.new_zeros((1, width)))
     out = (_rank_compact(red, plan, pack_spec, zero_row, query.shape[0]),
            plan["q_order"])

@@ -7,16 +7,19 @@ radius and the query cloud into tiles ``m`` times coarser; every query's
 neighborhood lies in the (m+2)^3 search tiles around its query tile.
 :func:`build_tiled_problem` builds the static tables on the host (the
 reference's NumPy branches, copied; the C++ runtime it can call instead
-is not loaded, ROADMAP.md Queue A #16).  :func:`tiled_features` runs
+is not loaded, ROADMAP.md Queue A #2, the C++ host runtime).
+:func:`tiled_features` runs
 the moments on the device in entry batches through the
 ``entry_moments`` kernel (the reference's ``backend="pallas"`` branch),
 then the feature layout, and scatters the rows back to caller order.
 
-Not ported (ROADMAP.md Queue A #11): the XLA moment path
-(``_entry_stats``, ``backend="xla"``), ``tiled_moments``, attributes,
-``exclude_radius``, the chebyshev metric, reduced precisions and the
-sazo layout (the entry kernel has no sazo fold; the reference takes the
-XLA path for it).
+Not ported (ROADMAP.md Queue A #6, the XLA fallback and
+reference-parity paths): the XLA moment path (``_entry_stats``,
+``backend="xla"``), ``tiled_moments``, attributes and the ``vector``
+layout, the chebyshev metric, reduced precisions in the sums and the
+sazo layout (the entry kernel has neither a sazo fold nor attribute
+rows; the reference takes the XLA path for them).  ``exclude_radius``
+is ROADMAP.md Queue A #1, exclude_radius on the extraction paths.
 """
 
 from dataclasses import dataclass, field
@@ -223,22 +226,33 @@ def _gather_batch(query_pad, search_pad, candidates, batch):
     return q_pts, q_local, s_local, s_valid
 
 
+PRECISIONS = ("highest", "high", "default", "mixed")   # the reference's
+
+
 def tiled_features(problem, query, search, radii, kind, *, entry_batch=32,
-                   backend="pallas", device="cuda"):
+                   precision="highest", backend="pallas", device="cuda"):
     """
     Feature extraction through the tile grid on ``device`` (the card
     unless the caller asks for the CPU): per entry batch the gather,
     the ``entry_moments`` kernel and the feature layout, then one
     scatter back to the caller's query order (queries without an entry
     slot get zeros).  Returns an (n_query, width) float32 tensor.
-    ``kind`` is any geometry layout but ``sazo``, which raises.
+    ``kind`` is any geometry layout but ``sazo``, which raises (and
+    ``vector``, which needs attributes: it raises too).  ``precision``
+    takes the reference's names (``PRECISIONS``); as in its
+    ``backend="pallas"`` branch, the entry kernel's sums do not depend
+    on it (only the XLA path, not ported, reads it).
     """
     from nimrud_tpu_torch.features import layouts
 
-    if layouts.needs_sazo(kind):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    if layouts.needs_sazo(kind) or kind == "vector":
         raise NotImplementedError(
-            "kind='sazo' on the tiled path (the reference's XLA "
-            "_entry_stats) is not ported (ROADMAP.md Queue A #11)")
+            f"kind={kind!r} on the tiled path (the reference's XLA "
+            "_entry_stats) is not ported (ROADMAP.md Queue A #6, the XLA "
+            "fallback and reference-parity paths)")
     radii = tuple(float(r) for r in radii)
     if max(radii) > problem.tile_edge + 1e-9:
         raise ValueError(
@@ -246,7 +260,8 @@ def tiled_features(problem, query, search, radii, kind, *, entry_batch=32,
     if backend == "xla":
         raise NotImplementedError(
             "tiled_features(backend='xla') (_entry_stats) is not ported "
-            "(ROADMAP.md Queue A #11)")
+            "(ROADMAP.md Queue A #6, the XLA fallback and reference-parity "
+            "paths)")
     if backend != "pallas":
         raise ValueError(f"unknown backend {backend!r}")
 

@@ -149,19 +149,21 @@ def spill_bytes(report):
 
 _FUNCTION = re.compile(r"Function : (\S+)")
 _PTXAS_FUNCTION = re.compile(r"Compiling entry function '([^']+)'")
-_TEMPLATE = re.compile(r"([a-z][a-z_]*_kernel)ILi(\d+)E(?:Lb([01])E)?")
+_TEMPLATE = re.compile(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E")
+_ARGUMENT = re.compile(r"L([ib])(\d+)E")
 
 
 def kernel_name(mangled):
-    """A templated kernel's mangled name as ``name<N>`` or, with a second
-    (bool) argument, ``name<N, true|false>``; other names unchanged."""
+    """A templated kernel's mangled name with its int and bool template
+    arguments, as ``name<N>``, ``name<N, true|false>`` or ``name<N, M>``;
+    other names unchanged."""
     template = _TEMPLATE.search(mangled)
     if not template:
         return mangled
-    kernel, n, flag = template.groups()
-    if flag is None:
-        return f"{kernel}<{n}>"
-    return f"{kernel}<{n}, {'true' if flag == '1' else 'false'}>"
+    kernel, args = template.groups()
+    values = [value if kind == "i" else ("true" if value == "1" else "false")
+              for kind, value in _ARGUMENT.findall(args)]
+    return f"{kernel}<{', '.join(values)}>"
 
 
 def count_sass(sass, opcode="HMMA"):

@@ -52,7 +52,7 @@ def _check(q_local, centers, span_starts, span_lens, sorted_pts, radii,
     if exclude_radius is not None:
         raise NotImplementedError(
             "span_moments is ported without exclude_radius (ROADMAP.md "
-            "Queue A #9)")
+            "Queue A #1, exclude_radius on the extraction paths)")
     check_precision(precision)
     check_radii(radii)
     if q_local.dim() != 3 or q_local.shape[2] != 3:

@@ -51,6 +51,8 @@ TENSOR_FLOPS = 989e12
 HBM_BYTES = 3.35e12
 DISTANCE_OPS = 8        # difference form: 3 sub, 3 mul, 2 add, none fused
 SPLIT_TERMS = 3         # bf16 hi + mid + lo of each moment term
+MOMENT_COLS = 10        # count and the nine moment terms of a slab
+MAX_ATTR = MOMENT_PAD - MOMENT_COLS   # attribute rows a slab can carry
 
 
 def check_precision(precision):
@@ -81,15 +83,19 @@ def masked_sum(mask, aug, precision):
     return torch.matmul(mask, aug)
 
 
-def moment_bound(pairs, n_radii, n_bytes, distance_ops=DISTANCE_OPS):
+def moment_bound(pairs, n_radii, n_bytes, distance_ops=DISTANCE_OPS,
+                 n_attr=0):
     """The least time an H100 could take for a moment kernel's work, the
     largest of three terms: ``pairs`` distance tests of ``distance_ops``
     unfusable f32 operations on the CUDA cores; the masked sums, 10
-    moments x 3 bf16 terms x 2 flops a pair and radius, on the tensor
-    cores; ``n_bytes`` moved once through HBM.  Returns ``pairs``,
-    ``terms_ms``, ``bound_ms`` and ``bound_term`` (the largest term)."""
+    moments and ``n_attr`` attribute columns x 3 bf16 terms x 2 flops a
+    pair and radius, on the tensor cores; ``n_bytes`` moved once through
+    HBM.  Returns ``pairs``, ``terms_ms``, ``bound_ms`` and
+    ``bound_term`` (the largest term)."""
+    cols = MOMENT_COLS + n_attr
     terms = {"distance": pairs * distance_ops / CUDA_CORE_OPS,
-             "tensor": pairs * n_radii * 10 * SPLIT_TERMS * 2 / TENSOR_FLOPS,
+             "tensor": pairs * n_radii * cols * SPLIT_TERMS * 2
+             / TENSOR_FLOPS,
              "bytes": n_bytes / HBM_BYTES}
     term = max(terms, key=terms.get)
     return {"pairs": int(pairs),
@@ -112,6 +118,15 @@ def padded_radii(radii):
     """The squared radii as the kernels' four float arguments."""
     r2 = [float(v) for v in squared_radii(radii)]
     return r2 + [0.0] * (MAX_RADII - len(r2))
+
+
+def chebyshev_radii(radii):
+    """The radii as the kernels' four float arguments for the chebyshev
+    metric: ``f32(r)``, not squared, since the max-norm test is
+    ``max(|dx|, |dy|, |dz|) <= r`` (the reference compares against the
+    Python float ``radius``, which becomes an f32)."""
+    r = [float(np.float32(float(v))) for v in radii]
+    return r + [0.0] * (MAX_RADII - len(r))
 
 
 def check_radii(radii):
@@ -137,7 +152,7 @@ def check_launch(name, err):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def slab_tolerance(slabs, extent, n_terms):
+def slab_tolerance(slabs, extent, n_terms, attr_extent=None):
     """Elementwise bound on |a - b| between two f32 evaluations of the
     same moment slabs that sum the same rounded terms in different
     orders.
@@ -146,10 +161,14 @@ def slab_tolerance(slabs, extent, n_terms):
     sum|term| (any summation order), and sum|term| <= count *
     max|term|, with max|term| = extent (first moments) or extent^2
     (second).  ``extent``: (E,) bound on |local coordinate| of the
-    entry's live candidates.  Counts get 0: they are exact."""
+    entry's live candidates.  ``attr_extent``: (E, A) bound on |value|
+    of each attribute row of those candidates (global values, not
+    local coordinates), for slab rows 10..10+A.  Counts get 0: they are
+    exact."""
     zero = torch.zeros_like(extent)
-    row = torch.stack([zero] + [extent] * 3 + [extent * extent] * 6
-                      + [zero] * (MOMENT_PAD - 10), dim=-1)      # (E, 16)
+    attrs = [] if attr_extent is None else list(attr_extent.unbind(-1))
+    row = torch.stack([zero] + [extent] * 3 + [extent * extent] * 6 + attrs
+                      + [zero] * (MAX_ATTR - len(attrs)), dim=-1)  # (E, 16)
     n_r = slabs.shape[2] // MOMENT_PAD
     counts = slabs[..., 0::MOMENT_PAD]                     # (E, q, n_r)
     bound = counts[..., None] * row[:, None, None, :]
@@ -164,7 +183,7 @@ def _check_entry(q_local, s_local, s_valid, radii, exclude_radius):
     if exclude_radius is not None:
         raise NotImplementedError(
             "entry_moments is ported without exclude_radius (ROADMAP.md "
-            "Queue A #11)")
+            "Queue A #1, exclude_radius on the extraction paths)")
     check_radii(radii)
     if q_local.dim() != 3 or q_local.shape[2] != 3:
         raise ValueError(f"q_local must be (E, Q, 3), got "
@@ -287,7 +306,7 @@ def entry_moments(q_local, s_local, s_valid, radii, exclude_radius=None):
 entry_moments.launches = 0
 
 
-def moments_from_slabs(slabs, centers, radii, with_sazo=False):
+def moments_from_slabs(slabs, centers, radii, with_sazo=False, n_attr=0):
     """
     Raw moment slabs (E, Q, n_r * MOMENT_PAD) -> per-radius
     ``{"count", "mean_local", "mean", "cov"}`` statistics for the
@@ -296,7 +315,9 @@ def moments_from_slabs(slabs, centers, radii, with_sazo=False):
     the signed z offset that ``packed_moments(with_sazo=True)`` writes
     into slab rows 10 / 11 to ``"sazo"``: the extreme of larger
     magnitude (the maximum on a tie ``hi == -lo``), 0 for an empty
-    neighborhood.
+    neighborhood.  ``n_attr`` reads the attribute sums that
+    ``packed_moments(n_attr=A)`` writes into slab rows 10..10+A as
+    ``"attr_mean"`` (E, Q, A): sum / max(count, 1), the V_MSO mean.
     """
     out = []
     for ri, _ in enumerate(radii):
@@ -318,4 +339,6 @@ def moments_from_slabs(slabs, centers, radii, with_sazo=False):
             out[-1]["sazo"] = torch.where(
                 count > 0, torch.where(hi >= -lo, hi, lo),
                 torch.zeros_like(hi))
+        if n_attr:
+            out[-1]["attr_mean"] = slab[..., 10:10 + n_attr] / denom
     return out

@@ -9,6 +9,10 @@ the linear classifier there; ``stage`` quantizes and uploads a cloud;
 that is per-band voxel dedup, one shared query plan, per-band packed
 candidate blocks through the ``packed_moments`` kernel, the layout and
 the classifier in plan order, and one scatter back to caller order.
+The ``vector`` layout (packed only) replaces each band's voxel dedup by
+the packed attribute interp (the voxel centers' attribute means over
+the chebyshev ball of one edge, ``ops.interp.packed_interp``) and
+serves the means of those attributes over each radius.
 With the span backend (``backend="pallas"``) each band runs its own
 plan and the ``span_moments`` kernel, its features return to caller
 order, and the classifier runs on all bands' features.  Only labels
@@ -26,7 +30,8 @@ import torch
 from nimrud_tpu_torch.features import layouts, multiscale
 from nimrud_tpu_torch.learning.classifiers import param_classifier
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
-from nimrud_tpu_torch.ops import device_grid, packing, span_host, unique
+from nimrud_tpu_torch.ops import (device_grid, interp, packing, span_host,
+                                  unique)
 
 _CHUNK_SLOTS = 2 * 1024 * 1024    # entry slots above which the reference
                                   # serves in entry chunks (not ported;
@@ -41,7 +46,7 @@ def _self_search(cloud, search):
     if search is not None and search is not cloud:
         raise NotImplementedError(
             "a separate search cloud (designated-search serving) is not "
-            "ported yet (ROADMAP.md Queue A #8)")
+            "ported yet (ROADMAP.md Queue A #3, designated-search serving)")
 
 
 def _quantize_upload(cloud, c_lo, c_hi, q_bucket, device):
@@ -89,19 +94,30 @@ class _FusedReducer:
         return (labels, probs) if self.with_proba else (labels,)
 
 
-def _band_search_prep(search, s_valid, band, tile_sorted=True):
-    """One band's search-side prep: voxel dedup (tile-sorted for the
-    packed path's presorted tables), then the ``v_cap`` prefix trim
-    (voxels past it are counted)."""
-    vox_spec, dev_spec, _, _, v_cap, _ = band
+def _band_search_prep(search, s_valid, band, kind="minimal",
+                      attributes=None, tile_sorted=True):
+    """One band's search-side prep.  The geometry layouts: voxel dedup
+    (tile-sorted for the packed path's presorted tables), then the
+    ``v_cap`` prefix trim (voxels past it are counted).  ``vector``: the
+    packed attribute interp on the band's interp spec and capacity
+    (``band[3]``, ``band[4]``), its under-reads counted.  Returns
+    ``(centers, mask, center attributes or None, vox_dropped,
+    interp_dropped)``."""
+    vox_spec, dev_spec, _, interp_spec, cap, _ = band
+    zero = torch.zeros((), dtype=torch.int64, device=search.device)
+    if kind == "vector":
+        centers, mask, attrs, stats = interp.packed_interp(
+            search, s_valid, attributes, vox_spec, interp_spec, cap,
+            with_stats=True)
+        return centers, mask, attrs, zero, stats["dropped_search"]
     centers, _, mask = unique.unique_voxels(
         search, vox_spec, valid=s_valid,
         tile_spec=dev_spec if tile_sorted else None)
-    vox_dropped = torch.zeros((), dtype=torch.int64, device=search.device)
-    if v_cap is not None and v_cap < centers.shape[0]:
-        vox_dropped = mask[v_cap:].sum()
-        centers, mask = centers[:v_cap], mask[:v_cap]
-    return centers, mask, vox_dropped
+    vox_dropped = zero
+    if cap is not None and cap < centers.shape[0]:
+        vox_dropped = mask[cap:].sum()
+        centers, mask = centers[:cap], mask[:cap]
+    return centers, mask, None, vox_dropped, zero
 
 
 def _step_inputs(query, dequant):
@@ -114,19 +130,23 @@ def _step_inputs(query, dequant):
 
 
 def _span_predict_step(query, q_valid, clf_params, band_specs, kind,
-                       n_query, dequant=None, with_proba=False):
+                       n_query, dequant=None, with_proba=False,
+                       attributes=None, precision="highest"):
     """The span backend's serving step (the reference's per-band loop):
     per band its own plan through ``span_moments``, features in caller
-    order, then the classifier on the concatenated bands."""
+    order, then the classifier on the concatenated bands.  The span
+    kernel carries no attributes: ``attributes`` must be None."""
+    if attributes is not None:
+        raise ValueError("the span serving step takes no attributes")
     query, diag = _step_inputs(query, dequant)
     bands = []
     for band in band_specs:
-        centers, mask, v_inc = _band_search_prep(query, q_valid, band,
-                                                 tile_sorted=False)
+        centers, mask, _, v_inc, _ = _band_search_prep(
+            query, q_valid, band, kind, tile_sorted=False)
         diag["vox_dropped"] = diag["vox_dropped"] + v_inc
         feats, stats = device_grid.fused_extract_spans(
             query, q_valid, centers, mask, band[1], band[2], kind, n_query,
-            with_stats=True)
+            with_stats=True, precision=precision)
         diag["dropped_query"] = diag["dropped_query"] \
             + stats["dropped_query"]
         bands.append(feats)
@@ -136,24 +156,30 @@ def _span_predict_step(query, q_valid, clf_params, band_specs, kind,
 
 
 def _fused_predict_step(query, q_valid, clf_params, band_specs, kind,
-                        n_query, dequant=None, with_proba=False):
+                        n_query, dequant=None, with_proba=False,
+                        attributes=None, precision="highest"):
     """The packed backend's serving step for one staged cloud, searched
-    against itself: labels (n_query,), probabilities or None, and the
-    five overflow counters."""
+    against itself (its ``attributes`` rows aligned with it for
+    ``vector``): labels (n_query,), probabilities or None, and the five
+    overflow counters."""
     query, diag = _step_inputs(query, dequant)
     pack_spec = min((b[1] for b in band_specs), key=lambda s: s.tile_edge)
-    searches, masks = [], []
+    searches, masks, cattrs = [], [], []
     for band in band_specs:
-        centers, mask, v_inc = _band_search_prep(query, q_valid, band)
+        centers, mask, ca, v_inc, i_inc = _band_search_prep(
+            query, q_valid, band, kind, attributes)
         diag["vox_dropped"] = diag["vox_dropped"] + v_inc
+        diag["interp_dropped"] = diag["interp_dropped"] + i_inc
         searches.append(centers)
         masks.append(mask)
+        cattrs.append(ca)
     (out_rank, q_order), stats = device_grid.fused_extract_packed_multi(
         query, q_valid, searches, masks, pack_spec,
         tuple(b[1] for b in band_specs), tuple(b[2] for b in band_specs),
         kind, tuple(b[5] for b in band_specs),
         _FusedReducer(clf_params, with_proba), with_stats=True,
-        presorted=True)
+        presorted=kind != "vector", precision=precision,
+        attributes=tuple(cattrs))
     diag["dropped_query"] = stats["dropped_query"]
     diag["dropped_candidates"] = stats["dropped_candidates"]
     # out_rank is in sorted-rank order; q_order maps rank -> caller row
@@ -172,8 +198,9 @@ class GeometryClassifier:
     Args:
       scaleset:   sequence of (voxel_edge, radii) bands.
       kind:       feature layout: "minimal", "geometric", "oriented",
-                  "covariance", "eigen" or "sazo" ("sazo" serves on the
-                  packed backend only; "vector" is not ported).
+                  "covariance", "eigen", "sazo" or "vector" ("sazo" and
+                  "vector" serve on the packed backend only; "vector"
+                  fits and serves with ``attributes=``, 1..6 columns).
       classifier: "linear", or an already-constructed classifier.
       classifier_kwargs: forwarded to ``param_classifier``.
       transfer_dtype: "float32" or "uint16" (uploads quantized to half
@@ -185,35 +212,49 @@ class GeometryClassifier:
                   resolves to it) or "pallas" (the span kernel reads
                   candidate spans in place).  Both fit on the packed
                   path.
+      precision:  the serving kernels' moment sums: "highest" or
+                  "bf16x2" (also the reference's "mixed" / "high",
+                  mapped onto it); "bf16x2" needs ``backend`` named
+                  "packed" or "pallas".  Fit extracts at "highest", as
+                  the reference does.
+      vector_s_cap: accepted for the reference's API; the packed
+                  interp sizes its capacities on the host instead.
       device:     the torch device everything runs on.
     """
 
     def __init__(self, scaleset, kind="minimal", classifier="linear",
                  classifier_kwargs=None, transfer_dtype="float32",
-                 bounds=None, trim_entries=False, backend="auto",
-                 tile_m=3, device="cuda"):
+                 vector_s_cap=32, bounds=None, trim_entries=False,
+                 backend="auto", precision="highest", tile_m=3,
+                 device="cuda"):
         self.scaleset = [(float(e), tuple(float(r) for r in rs))
                          for e, rs in scaleset]
         if any(edge <= 0 for edge, _ in self.scaleset):
             raise NotImplementedError(
                 "bands without voxel downsampling are not ported")
-        if kind == "vector":
-            raise NotImplementedError(
-                "kind='vector' (attribute interpolation) is not ported yet "
-                "(ROADMAP.md Queue A #9)")
-        if kind not in layouts.LAYOUT_WIDTHS:
+        if kind not in layouts.LAYOUT_WIDTHS and kind != "vector":
             raise ValueError(f"unknown feature layout {kind!r}")
-        if layouts.needs_sazo(kind) and backend == "pallas":
+        if (layouts.needs_sazo(kind) or kind == "vector") \
+                and backend == "pallas":
             raise NotImplementedError(
-                "kind='sazo' with backend='pallas': the span kernel has no "
-                "sazo fold and the reference's XLA fallback is not ported "
-                "(ROADMAP.md Queue A #11)")
+                f"kind={kind!r} with backend='pallas': the span kernel has "
+                "no sazo fold and no attribute rows, and the reference's "
+                "XLA fallback is not ported (ROADMAP.md Queue A #6, the XLA "
+                "fallback and reference-parity paths)")
         if backend == "xla":
             raise NotImplementedError(
                 "backend='xla' (the candidate-table path) is not ported "
-                "(ROADMAP.md Queue A #11)")
+                "(ROADMAP.md Queue A #6, the XLA fallback and "
+                "reference-parity paths)")
         if backend not in ("auto", "packed", "pallas"):
             raise ValueError("backend must be packed, pallas or auto")
+        multiscale.kernel_precision(precision)
+        if precision == "bf16x2" and backend not in ("pallas", "packed"):
+            raise ValueError(
+                "precision='bf16x2' needs backend='pallas' or 'packed' "
+                "(named explicitly, not 'auto')")
+        self.precision = precision
+        self.vector_s_cap = int(vector_s_cap)
         self._backend = "packed" if backend == "auto" else backend
         if transfer_dtype not in ("float32", "uint16"):
             raise ValueError("transfer_dtype must be float32 or uint16")
@@ -244,25 +285,41 @@ class GeometryClassifier:
 
     # -- features -------------------------------------------------------------
 
-    def extract_device(self, cloud, search=None):
+    def _check_attributes(self, attributes, n_points):
+        """``vector`` takes attributes (rows aligned with the cloud), the
+        other layouts none.  Returns them as float32, or None."""
+        if (self.kind == "vector") != (attributes is not None):
+            raise ValueError("kind='vector' needs attributes=, and the "
+                             "other layouts take none")
+        if attributes is None:
+            return None
+        return multiscale.check_attributes(attributes, n_points)
+
+    def extract_device(self, cloud, search=None, attributes=None):
         """Multiscale features for every point, as a tensor on
-        ``self.device``, on the serving grids when ``bounds`` is fixed."""
+        ``self.device``, on the serving grids when ``bounds`` is fixed
+        (``vector``: through the same packed attribute interp as
+        serving, so the fit features are the served features)."""
         _self_search(cloud, search)
+        attributes = self._check_attributes(attributes, len(cloud))
         return multiscale.extract_scaleset_fused(
-            cloud, cloud, self.scaleset, self.kind, bounds=self.bounds,
-            m=self.tile_m, device=self.device)
+            cloud, cloud, self.scaleset, self.kind, attributes=attributes,
+            bounds=self.bounds, m=self.tile_m, device=self.device)
 
     # -- training -------------------------------------------------------------
 
-    def fit(self, cloud, labels, search=None, sample=None, seed=0):
+    def fit(self, cloud, labels, search=None, sample=None, seed=0,
+            attributes=None):
         """Extract features and fit the classifier on the device.
-        ``sample`` caps the training points (a seeded random subset)."""
+        ``sample`` caps the training points (a seeded random subset);
+        ``attributes`` (``vector`` only) are the cloud's per-point
+        attribute columns."""
         _self_search(cloud, search)
         labels = np.asarray(labels)
         n_classes = int(labels.max() + 1)
         self._spec_cache = None
         self._stage_spec_cache = {}
-        features = self.extract_device(cloud)
+        features = self.extract_device(cloud, attributes=attributes)
         if sample is not None and sample < len(labels):
             rows = np.random.RandomState(seed).permutation(
                 len(labels))[:sample]
@@ -272,40 +329,49 @@ class GeometryClassifier:
             features, torch.as_tensor(labels.astype(np.int64),
                                       device=self.device),
             n_classes=n_classes)
-        self._size_serving(cloud)
+        self._size_serving(cloud, self._attr_width(attributes))
         return self
 
-    def install_classifier(self, classifier, fit_cloud):
+    def install_classifier(self, classifier, fit_cloud, attributes=None):
         """Serve ``classifier`` (e.g. ``SoftmaxClassifier.from_state`` of
         a reference fit), with the serving specs sized from
-        ``fit_cloud`` exactly as :meth:`fit` sizes them."""
+        ``fit_cloud`` (and, for ``vector``, its attribute width) exactly
+        as :meth:`fit` sizes them."""
         self.classifier = classifier
         self._spec_cache = None
         self._stage_spec_cache = {}
-        self._size_serving(fit_cloud)
+        self._size_serving(fit_cloud, self._attr_width(attributes))
         return self
 
-    def _size_serving(self, cloud):
+    def _attr_width(self, attributes):
+        if attributes is None:
+            return None
+        return self._check_attributes(attributes, len(attributes)).shape[1]
+
+    def _size_serving(self, cloud, attr_width=None):
         """With fixed bounds and ``trim_entries``: cache the serving
         specs sized from this cloud's occupancy -- entry capacity per
-        band, and a voxel capacity for every band, also where
+        band, and a voxel capacity for every geometry band, also where
         ``_fused_band_specs`` left it unbounded (1.25x + 4096 voxels,
-        rounded up to 16384)."""
+        rounded up to 16384); a ``vector`` band carries its interp's
+        spec and capacity in those places instead."""
         if self.bounds is None or not self.trim_entries:
             return
         arr = np.asarray(cloud, dtype=np.float32)[:, :3]
         trimmed = []
-        for (edge, _), (vox, dev, rr, interp, v_cap, c_cap) in zip(
-                self.scaleset, self._fused_band_specs(arr)):
+        for (edge, _), (vox, dev, rr, interp_spec, v_cap, c_cap) in zip(
+                self.scaleset, self._fused_band_specs(arr,
+                                                      attr_width=attr_width)):
             if v_cap is None:
                 n_vox = len(multiscale._host_unique_voxels(
                     arr, edge, bounds=self.bounds))
                 v_cap = n_vox + n_vox // 4 + 4096
                 v_cap = -(-v_cap // 16384) * 16384
             trimmed.append((vox, device_grid.with_entry_estimate(dev, arr),
-                            rr, interp, v_cap, c_cap))
+                            rr, interp_spec, v_cap, c_cap))
         trimmed = tuple(trimmed)
-        self._spec_cache = (self._spec_key(arr.shape[0]), trimmed)
+        self._spec_cache = (self._spec_key(arr.shape[0], attr_width),
+                            trimmed)
 
     # -- serving ------------------------------------------------------------
 
@@ -319,13 +385,19 @@ class GeometryClassifier:
                 "mean": clf.mean_.to(self.device),
                 "scale": clf.scale_.to(self.device)}
 
-    def _spec_key(self, n_query):
-        """Cache key shared by ``_fused_band_specs`` and the fit sizing."""
-        return multiscale._pow2_bucket(n_query)
+    def _spec_key(self, n_query, attr_width=None):
+        """Cache key shared by ``_fused_band_specs`` and the fit sizing:
+        the size bucket and, for ``vector``, the attribute width (a
+        cached spec never serves another width)."""
+        return (multiscale._pow2_bucket(n_query),
+                attr_width if self.kind == "vector" else None)
 
-    def _fused_band_specs(self, cloud, bounds=None):
+    def _fused_band_specs(self, cloud, bounds=None, attr_width=None):
         """Static per-band specs ``(vox_spec, dev_spec, radii, None,
-        v_cap, c_cap)`` of the serving step, sized on the host.
+        v_cap, c_cap)`` of the serving step, sized on the host; for
+        ``vector`` ``(vox_spec, dev_spec, radii, interp_spec,
+        interp_cap, c_cap)``, the packed attribute interp's own plan
+        (``multiscale._interp_packed_plan``) and no voxel cap.
 
         Packed: entry capacity from the cloud's segment occupancy,
         per-band candidate capacities (split into rank buckets) from the
@@ -336,7 +408,10 @@ class GeometryClassifier:
         entry capacity, no voxel or candidate capacity; with
         ``trim_entries``, :meth:`_size_serving` then sizes the entry
         and voxel capacities from the fit cloud."""
-        key = self._spec_key(cloud.shape[0])
+        if self.kind == "vector" and attr_width is None:
+            raise ValueError("kind='vector' sizes its specs with the "
+                             "attribute width")
+        key = self._spec_key(cloud.shape[0], attr_width)
         if self._spec_cache is not None and self._spec_cache[0] == key:
             return self._spec_cache[1]
         if self.bounds is not None and key in self._stage_spec_cache:
@@ -381,7 +456,8 @@ class GeometryClassifier:
             raise NotImplementedError(
                 f"{pack_spec.e_cap} entries x q_cap {pack_spec.q_cap} "
                 f"exceed {_CHUNK_SLOTS} slots: serving in entry chunks is "
-                "not ported yet (ROADMAP.md Queue A #4)")
+                "not ported yet (ROADMAP.md Queue A #4, entry-chunked "
+                "serving)")
         host_plan = span_host.pack_plan_np(
             q3, np.ones(q3.shape[0], bool), pack_spec)
         specs = []
@@ -391,6 +467,13 @@ class GeometryClassifier:
                 q3, edge, bounds=(lo, hi))
             c_cap = span_host.candidate_caps_split(
                 None, host_centers, dev_spec, plan=host_plan)
+            if self.kind == "vector":
+                interp_spec, interp_cap = multiscale._interp_packed_plan(
+                    q3, vox_spec, lo, hi, (lo, hi), self.tile_m,
+                    host_centers=host_centers)
+                specs.append((vox_spec, dev_spec, radii, interp_spec,
+                              interp_cap, c_cap))
+                continue
             n_vox = len(host_centers)
             v_cap = n_vox + n_vox // 4 + 4096
             v_cap = -(-v_cap // 16384) * 16384
@@ -399,15 +482,19 @@ class GeometryClassifier:
             specs.append((vox_spec, dev_spec, radii, None, v_cap, c_cap))
         return tuple(specs)
 
-    def stage(self, cloud, search=None):
+    def stage(self, cloud, search=None, attributes=None):
         """Host prep + upload of one cloud: quantize (uint16) or pad, and
-        copy to the device.  Returns the staged handle for
-        :meth:`predict_staged`."""
+        copy to the device, with its attribute columns for ``vector``
+        (padded to the same bucket, float32).  Returns the staged handle
+        for :meth:`predict_staged`."""
         _self_search(cloud, search)
+        attributes = self._check_attributes(attributes, len(cloud))
         cloud = np.asarray(cloud, dtype=np.float32)[:, :3]
         bounds = self.bounds if self.bounds is not None \
             else (cloud.min(0), cloud.max(0))
-        specs = self._fused_band_specs(cloud, bounds=bounds)
+        specs = self._fused_band_specs(
+            cloud, bounds=bounds,
+            attr_width=None if attributes is None else attributes.shape[1])
         n_query = cloud.shape[0]
         q_bucket = multiscale._pow2_bucket(n_query)
         dequant = None
@@ -417,8 +504,13 @@ class GeometryClassifier:
         else:
             query_dev = torch.from_numpy(multiscale._pad_rows_f32(
                 cloud, q_bucket)).to(self.device)
+        attrs_dev = None
+        if attributes is not None:
+            attrs_dev = torch.from_numpy(multiscale._pad_rows_f32(
+                attributes, q_bucket)).to(self.device)
         return {"query": query_dev, "n_query": n_query,
-                "q_bucket": q_bucket, "specs": specs, "dequant": dequant}
+                "q_bucket": q_bucket, "specs": specs, "dequant": dequant,
+                "attributes": attrs_dev}
 
     def predict_staged(self, staged, with_proba=False, with_diag=False):
         """Labels (and optionally probabilities) of a staged cloud, as
@@ -434,7 +526,9 @@ class GeometryClassifier:
             torch.arange(staged["q_bucket"], device=self.device)
             < staged["n_query"],
             self._fused_classifier(), staged["specs"], self.kind,
-            staged["n_query"], staged["dequant"], with_proba=with_proba)
+            staged["n_query"], staged["dequant"], with_proba=with_proba,
+            attributes=staged["attributes"],
+            precision=multiscale.kernel_precision(self.precision))
         out = (labels,)
         if with_proba:
             out = out + (probs,)
@@ -442,15 +536,15 @@ class GeometryClassifier:
             out = out + (diag,)
         return out if len(out) > 1 else labels
 
-    def predict_device(self, cloud, search=None):
+    def predict_device(self, cloud, search=None, attributes=None):
         """Per-point class labels as a device tensor."""
-        return self.predict_staged(self.stage(cloud, search))
+        return self.predict_staged(self.stage(cloud, search, attributes))
 
-    def predict(self, cloud, search=None):
+    def predict(self, cloud, search=None, attributes=None):
         """Per-point class labels as a NumPy array; warns when the
         cloud overflowed the model's fixed capacities."""
-        labels, diag = self.predict_staged(self.stage(cloud, search),
-                                           with_diag=True)
+        labels, diag = self.predict_staged(
+            self.stage(cloud, search, attributes), with_diag=True)
         dropped = {k: int(v) for k, v in diag.items() if int(v) > 0}
         if dropped:
             warnings.warn(

@@ -47,3 +47,14 @@ def make_bench_model(cloud, backend="packed", epochs=10, kind="minimal",
         transfer_dtype="uint16", backend=backend,
         bounds=(cloud.min(0), cloud.max(0)), trim_entries=True,
         device=device, **kwargs)
+
+
+def make_bench_attributes(labels, seed=3):
+    """The two attribute columns the reference's ``vector`` benchmark
+    (``scripts/bench_kinds.py``) serves with the bench scene: the label
+    plus 0.05 Gaussian noise (an intensity-like column with class signal)
+    and a uniform column, float32 (n, 2)."""
+    rng = np.random.default_rng(seed)
+    return np.stack(
+        [labels + 0.05 * rng.standard_normal(len(labels)),
+         rng.random(len(labels))], axis=1).astype(np.float32)

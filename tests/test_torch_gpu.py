@@ -1,9 +1,10 @@
 """
 Tests that need a CUDA card (marker ``gpu``): the hand-written Hopper
-kernels (``packed_moments`` and its sazo instance, ``span_moments``,
-``entry_moments``) against their plain PyTorch twins on the card, and
-small serving runs of both backends on the card against the same model
-on the CPU.
+kernels (``packed_moments`` and its sazo, attribute and chebyshev
+instances, ``span_moments``, ``entry_moments``) against their plain
+PyTorch twins on the card, and small serving runs of both backends (and
+of the ``vector`` layout) on the card against the same model on the
+CPU.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -153,6 +154,123 @@ def test_sazo_kernel_boundary_and_nan_on_card(cuda):
         assert (hi.item() >= r) if i % 4 < 2 else (lo.item() <= -r)
 
 
+def _with_attrs(cand_t, n_attr, seed):
+    """``cand_t`` with ``n_attr`` attribute rows below the coordinates:
+    global values of mixed scale and sign, FAR on the dead lanes (as
+    the FAR-extended cloud gathers them)."""
+    rng = np.random.default_rng(seed)
+    dead = cand_t[0] == pm.FAR
+    attrs = rng.normal(0, 1, (n_attr, cand_t.shape[1])) \
+        * (10.0 ** np.arange(n_attr) % 977)[:, None] + 3.0
+    attrs = attrs.astype(np.float32)
+    attrs[:, dead] = pm.FAR
+    return np.ascontiguousarray(np.concatenate([cand_t, attrs]))
+
+
+def _attr_case(cuda, q_t, cand_t, centers, radii, n_attr, metric,
+               precision="highest"):
+    """An attribute (or chebyshev) instance on the card against the twin:
+    one launch of its count, counts equal, moment and attribute rows
+    within tolerance, finite.  Returns (kernel slabs, twin slabs)."""
+    args = [torch.from_numpy(a).to(cuda) for a in (q_t, cand_t, centers)]
+    attr = "interp_launches" if metric == "chebyshev" else "attr_launches"
+    names = ("launches", "sazo_launches", "attr_launches",
+             "interp_launches")
+    before = {k: getattr(pm.packed_moments, k) for k in names}
+    got = pm.packed_moments(*args, radii, precision=precision,
+                            n_attr=n_attr, metric=metric)
+    torch.cuda.synchronize()
+    after = {k: getattr(pm.packed_moments, k) for k in names}
+    assert after == {**before, attr: before[attr] + 1}
+    ref = pm.packed_moments_plain(*args, radii, precision=precision,
+                                  n_attr=n_attr, metric=metric)
+    assert torch.equal(got[..., 0::16], ref[..., 0::16])
+    assert ref[..., 0::16].max() > 0
+    tol = pm.moment_tolerance(ref, args[1], args[2], n_attr=n_attr)
+    assert bool(((got - ref).abs() <= tol).all())
+    assert bool(torch.isfinite(got).all())
+    for ri in range(len(radii)):          # the rows past the attributes
+        assert int(got[..., 16 * ri + 10 + n_attr:16 * ri + 16]
+                   .count_nonzero()) == 0
+    return got, ref
+
+
+@pytest.mark.parametrize("q_cap,c_cap,radii,n_attr,precision,scattered", [
+    (512, 1024, (1.0,), 2, "highest", False),
+    (256, 384, (0.5, 2.0), 1, "highest", True),
+    (130, 256, (0.5, 1.0, 1.5), 4, "bf16x2", True),
+    (130, 256, (0.5, 1.0, 1.5, 2.0), 6, "highest", False),
+    (16, 128, (0.5,), 6, "bf16x2", True),
+    (256, 768, (1.0, 0.5), 3, "highest", True),
+    (512, 512, (2.0,), 5, "highest", False)])
+def test_attr_kernel_matches_plain_on_card(cuda, q_cap, c_cap, radii, n_attr,
+                                           precision, scattered):
+    q_t, cand_t, centers = _problem(37, q_cap, c_cap, seed=q_cap + n_attr,
+                                    scattered=scattered)
+    cand_t = _with_attrs(cand_t, n_attr, seed=n_attr)
+    got, _ = _attr_case(cuda, q_t, cand_t, centers, radii, n_attr,
+                        "euclidean", precision)
+    # the count and moment rows are the instance's without attributes,
+    # bit for bit: each B column sums on its own
+    args = [torch.from_numpy(a).to(cuda) for a in (q_t, cand_t[:3].copy(),
+                                                   centers)]
+    plain = pm.packed_moments(*args, radii, precision=precision)
+    keep = torch.zeros(got.shape[-1], dtype=torch.bool, device=cuda)
+    for ri in range(len(radii)):
+        keep[16 * ri:16 * ri + 10] = True
+    assert torch.equal(got[..., keep], plain[..., keep])
+
+
+def _interp_problem(n_entries, q_cap, c_cap, radius, n_attr, seed):
+    """Chebyshev cases on a 1/8 grid (every f32 operation exact):
+    candidates exactly at |d| = r on one axis of a query (0 on the
+    others) or 1/8 past it, and a NaN query coordinate on one axis at a
+    time."""
+    rng = np.random.default_rng(seed)
+    centers = (np.round(rng.random((n_entries, 3)) * 200) / 4).astype(
+        np.float32)
+    q = rng.integers(-8, 9, (n_entries, q_cap, 3)) / 8.0
+    c = rng.integers(-16, 17, (n_entries, c_cap, 3)) / 8.0
+    for i in range(min(24, q_cap)):
+        c[:, i] = q[:, i]
+        step = radius + (0.125 if i % 4 == 3 else 0.0)
+        c[:, i, i % 3] += step * (1 if i % 2 else -1)
+    q_t = (q + centers[:, None]).transpose(0, 2, 1).astype(np.float32)
+    cand = (c + centers[:, None]).astype(np.float32)
+    cand[:, c_cap * 3 // 4:] = pm.FAR
+    for axis in range(3):
+        q_t[1, axis, 3 + axis] = np.nan
+    cand_t = np.ascontiguousarray(cand.reshape(-1, 3).T)
+    return (np.ascontiguousarray(q_t), _with_attrs(cand_t, n_attr, seed),
+            centers)
+
+
+@pytest.mark.parametrize("q_cap,c_cap,n_attr,precision", [
+    (128, 1024, 2, "highest"), (128, 384, 1, "highest"),
+    (130, 256, 4, "bf16x2"), (16, 128, 6, "highest"),
+    (128, 512, 0, "highest"), (256, 640, 5, "bf16x2")])
+def test_interp_kernel_matches_plain_on_card(cuda, q_cap, c_cap, n_attr,
+                                             precision):
+    radius = 0.25
+    q_t, cand_t, centers = _interp_problem(23, q_cap, c_cap, radius, n_attr,
+                                           seed=q_cap + n_attr)
+    got, _ = _attr_case(cuda, q_t, cand_t, centers, (radius,), n_attr,
+                        "chebyshev", precision)
+    # a NaN on any one axis counts nothing
+    for axis in range(3):
+        assert float(got[1, 3 + axis].abs().sum()) == 0.0
+    # the boundary candidates (|d| = r on one axis) count
+    assert bool((got[0, :min(24, q_cap):4, 0] >= 1).all())
+
+
+def test_chebyshev_on_card_takes_one_radius(cuda):
+    q_t, cand_t, centers = (torch.from_numpy(a).to(cuda) for a in
+                            _interp_problem(3, 16, 128, 0.25, 1, seed=0))
+    with pytest.raises(NotImplementedError):
+        pm.packed_moments(q_t, cand_t, centers, (0.25, 0.5), n_attr=1,
+                          metric="chebyshev")
+
+
 def _span_problem(n_entries, q_cap, n_span, span_rows, seed):
     """Spans over a shared cloud: random starts and lengths (a third of
     them empty), lengths up to past ``span_rows`` (clamped)."""
@@ -269,19 +387,30 @@ def test_sazo_serving_on_card_matches_cpu(cuda):
     assert pm.packed_moments.sazo_launches > before
 
 
+def test_vector_serving_on_card_matches_cpu(cuda):
+    before = (pm.packed_moments.attr_launches,
+              pm.packed_moments.interp_launches)
+    _serve_card_and_cpu(cuda, "packed", "vector")
+    assert pm.packed_moments.attr_launches > before[0]
+    assert pm.packed_moments.interp_launches > before[1]
+
+
 def _serve_card_and_cpu(cuda, backend, kind):
     cloud, labels = workload.make_bench_cloud(30000, seed=0)
+    attrs = workload.make_bench_attributes(labels) if kind == "vector" \
+        else None
     gpu = workload.make_bench_model(cloud, backend=backend, kind=kind,
                                     device=cuda)
-    gpu.fit(cloud, labels, sample=15000)
+    gpu.fit(cloud, labels, sample=15000, attributes=attrs)
     clf = gpu.classifier
     cpu = workload.make_bench_model(cloud, backend=backend, kind=kind,
                                     device="cpu")
     cpu.install_classifier(SoftmaxClassifier.from_state(
         clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
-        clf.scale_.cpu(), device="cpu"), cloud)
-    a, pa = gpu.predict_staged(gpu.stage(cloud), with_proba=True)
-    b = cpu.predict_staged(cpu.stage(cloud))
+        clf.scale_.cpu(), device="cpu"), cloud, attributes=attrs)
+    a, pa = gpu.predict_staged(gpu.stage(cloud, attributes=attrs),
+                               with_proba=True)
+    b = cpu.predict_staged(cpu.stage(cloud, attributes=attrs))
     top2 = torch.sort(pa.cpu(), dim=1).values[:, -2:]
     near_tie = (top2[:, 1] - top2[:, 0]) < 1e-4
     differ = a.cpu() != b

@@ -217,15 +217,26 @@ def test_entry_points_default_to_the_card():
 def test_unported_variants_raise():
     query, search = _clouds(n_search=300, n_query=100)
     problem = tgrid.build_tiled_problem(query, search, 1.0)
-    with pytest.raises(NotImplementedError, match="Queue A #11"):
+    with pytest.raises(NotImplementedError, match="Queue A #6, the XLA fallback"):
         tgrid.tiled_features(problem, query, search, (1.0,), "minimal",
                              backend="xla", device="cpu")
     for kwargs in ({"exclude_radius": 0.1},
                    {"attributes": np.ones((300, 2), np.float32)},
-                   {"metric": "chebyshev"}, {"precision": "mixed"}):
+                   {"metric": "chebyshev"}):
         with pytest.raises(TypeError):
             tgrid.tiled_features(problem, query, search, (1.0,), "minimal",
                                  device="cpu", **kwargs)
+    # precision takes the reference's names; the entry kernel's sums do
+    # not depend on it (the reference's pallas branch ignores it too)
+    plain = tgrid.tiled_features(problem, query, search, (1.0,), "minimal",
+                                 device="cpu")
+    for name in ("mixed", "high", "default"):
+        assert torch.equal(tgrid.tiled_features(
+            problem, query, search, (1.0,), "minimal", precision=name,
+            device="cpu"), plain)
+    with pytest.raises(ValueError, match="precision"):
+        tgrid.tiled_features(problem, query, search, (1.0,), "minimal",
+                             precision="bf16", device="cpu")
     with pytest.raises(ValueError, match="exceeds tile edge"):
         tgrid.tiled_features(problem, query, search, (2.0,), "minimal",
                              device="cpu")

@@ -275,7 +275,8 @@ def test_work_and_bound_from_the_inputs():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"exclude_radius": 0.1}, {"n_attr": 2}, {"metric": "chebyshev"}])
+    {"exclude_radius": 0.1}, {"exclude_radius": 0.0},
+    {"exclude_radius": 0.25, "with_sazo": True}])
 def test_unported_variants_raise(kwargs):
     q_t, cand_t, centers = _problem(1, 16, 128, (0.5,), seed=0)
     args = (torch.from_numpy(q_t), torch.from_numpy(cand_t),

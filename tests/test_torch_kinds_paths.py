@@ -93,30 +93,42 @@ def test_tiled_features_match_reference(kind):
 def test_sazo_off_the_packed_path_and_vector_raise():
     query, search = _clouds(n_search=300, n_query=100)
     problem = tgrid.build_tiled_problem(query, search, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #6, the XLA fallback"):
         tgrid.tiled_features(problem, query, search, (1.0,), "sazo",
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #6, the XLA fallback"):
         tms.extract_scaleset_fused(query, search, [(0.5, (1.0,))], "sazo",
                                    backend="pallas", device="cpu")
     q = torch.from_numpy(query)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #6, the XLA fallback"):
         tdg.fused_extract_spans(q, torch.ones(len(q), dtype=torch.bool), q,
                                 torch.ones(len(q), dtype=torch.bool), None,
                                 (1.0,), "sazo", len(q))
     cloud, _ = twl.make_bench_cloud(2000, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #6, the XLA fallback"):
         twl.make_bench_model(cloud, kind="sazo", backend="pallas",
                              device="cpu")
     # sazo serves on the packed backend ("auto" resolves to it)
     assert tpl.GeometryClassifier([(0.5, (1.0,))], kind="sazo",
                                   device="cpu").backend == "packed"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #9"):
-        twl.make_bench_model(cloud, kind="vector", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #9"):
+    # vector serves on the packed backend only, with 1..6 attribute
+    # columns; the span and tiled kernels carry no attribute rows
+    assert twl.make_bench_model(cloud, kind="vector",
+                                device="cpu").backend == "packed"
+    xla = "ROADMAP.md Queue A #6, the XLA fallback"
+    with pytest.raises(NotImplementedError, match=xla):
+        twl.make_bench_model(cloud, kind="vector", backend="pallas",
+                             device="cpu")
+    with pytest.raises(ValueError, match="requires attributes"):
         tms.extract_scaleset_fused(query, search, [(0.5, (1.0,))], "vector",
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #9"):
+    for width, backend in ((7, "packed"), (2, "pallas")):
+        with pytest.raises(NotImplementedError, match=xla):
+            tms.extract_scaleset_fused(
+                query, search, [(0.5, (1.0,))], "vector",
+                attributes=np.ones((len(search), width), np.float32),
+                backend=backend, device="cpu")
+    with pytest.raises(NotImplementedError, match=xla):
         tgrid.tiled_features(problem, query, search, (1.0,), "vector",
                              device="cpu")
     with pytest.raises(ValueError, match="unknown feature layout"):

@@ -209,8 +209,13 @@ def test_degenerate_fallback_vectors_in_oriented_block():
 def test_unported_and_unknown_layouts_raise():
     count, mean, m6, query, _ = (a[:10] for a in _stats())
     args = tuple(map(_t, (count, mean, m6, query)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # vector is no build_block layout: the extraction hands the kernel's
+    # attribute means on as they are, and the reference refuses it alike
+    with pytest.raises(ValueError, match="unknown feature layout"):
         tly.build_block("vector", *args, 1.0)
+    with pytest.raises(ValueError, match="unknown feature layout"):
+        jly.build_block("vector", *map(jnp.asarray, (count, mean, m6,
+                                                     query)), 1.0)
     with pytest.raises(ValueError, match="sazo statistic"):
         tly.build_block("sazo", *args, 1.0)
     with pytest.raises(ValueError, match="unknown"):

@@ -305,7 +305,7 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError):
         tgk.span_moments(q, c, s, n, p, (0.1, 0.2, 0.3, 0.4, 0.5), 8)
     query, search = _scene(n_search=500, n_query=100)
-    with pytest.raises(NotImplementedError, match="Queue A #11"):
+    with pytest.raises(NotImplementedError, match="Queue A #6, the XLA fallback"):
         tms.extract_scaleset_fused(query, search, [(0.5, (1.0,))],
                                    backend="xla", device="cpu")
     with pytest.raises(ValueError):
