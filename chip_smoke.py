@@ -13,11 +13,15 @@ Phases, one or more lines each:
               for sm_90a; ptxas's registers / shared memory / spills per
               template instance (no kernel may spill) and, from
               ``cuobjdump -sass``, the HMMA (tensor-core) instructions
-              of each instance: every one must hold some (23 instances
+              of each instance: every one must hold some (43 instances
               of ``packed_moments``: 1-4 radii without and with the sazo
               fold, the attribute instances at 1-4 radii and 1, 4 or 6
               attribute slots, the chebyshev instances at 1, 4 or 6
-              slots; 4 of the two others).
+              slots, and the ``exclude_radius`` instances of the
+              euclidean families -- ``packed_excl_kernel`` at 1-4 radii
+              without and with the sazo fold, ``packed_attr_excl_kernel``
+              at 1-4 radii and 1, 4 or 6 slots; 8 of the two others: 1-4
+              radii without and with the exclusion).
 3. kernel  -- the CUDA ``packed_moments`` against its plain PyTorch twin
               on the card, at the packed path's shapes (serving: q_cap
               512, band-0 capacity buckets; fit: q_cap 256), at both
@@ -99,13 +103,41 @@ Phases, one or more lines each:
               to the CPU's and the vectors of nearly equal eigenvalues
               taken from it, the card's feature rows give the CPU's
               labels), at most 2% of labels.
+9. exclude -- ``exclude_radius`` (0.1 m): the exclusion instances
+              against their twins at the exclusion paths' band-0 shapes
+              (``packed_moments`` on the fit band-0 inputs of
+              ``extract_scaleset_fused``, q_cap 256, one capacity, with
+              its sazo instance and its attribute instance at A = 2 on
+              them; ``span_moments`` on the same band's spans;
+              ``entry_moments`` on the tiled band 0's first batch), as
+              in phase 3, each at 0.0 bit-equal to the same family
+              without exclusion, and the share of band 0's pairs the
+              exclusion removed (> 0).  Then the path at full width:
+              ``make_bench_model(cloud, exclude_radius=0.1)``, fit
+              (``sample=100_000``), ``predict`` (no overflow warning)
+              and ``predict_device`` with its counters on the three
+              clouds: counters 0, accuracy > 0.8, only
+              ``packed_moments_excl`` launched, ``stage`` raises.  The
+              span extraction (``backend="pallas"``), the tiled band 0,
+              the ``sazo`` and ``vector`` extractions with the
+              exclusion, each counted from zero: only their exclusion
+              instance launched (and the interp's chebyshev one for
+              ``vector``), populations equal to the packed path's for
+              >= 99.9% of points.  Then card against CPU at 100k
+              points: populations equal, every feature of 4096 sampled
+              rows and of each differing label within its f32 bound of
+              a float64 oracle without the excluded pairs
+              (``_rounding_witness``), differing labels at near-ties or
+              witnessed, at most 0.01%.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.  The sazo,
 attribute and chebyshev instances of ``packed_moments`` have counts of
 their own (``packed_moments.sazo_launches``, ``attr_launches``,
 ``interp_launches``), listed as ``packed_moments_sazo``,
-``packed_moments_attr`` and ``packed_moments_interp``.
+``packed_moments_attr`` and ``packed_moments_interp``; the exclusion
+instances of each kernel too (``excl_launches``, ``excl_sazo_launches``,
+``excl_attr_launches``), listed with the suffix ``_excl``.
 
 With ``--profile DIR`` a profile phase runs after the serving steps of
 phases 4 and 5, after the tiled runs of phase 6 and after the vector
@@ -150,7 +182,8 @@ WITNESS_SAMPLE = 4096      # points a cloud held against float64 counts
 EPS32 = 2.0 ** -24         # f32 unit roundoff
 TILED_BATCH = 256
 COUNT_COLS = slice(0, None, 16)
-INSTANCES = {"packed_moments": 23, "span_moments": 4, "entry_moments": 4}
+INSTANCES = {"packed_moments": 43, "span_moments": 8, "entry_moments": 8}
+EXCLUDE_RADIUS = 0.1       # the exclusion phase's exclude_radius (m)
 KINDS = {"sazo": 3, "oriented": 3, "vector": 3, "geometric": 1,
          "covariance": 1, "eigen": 1}  # clouds each kind serves
 # the packed_moments instance family each kind's fit and serving launch
@@ -242,8 +275,15 @@ def _kernels():
             "packed_moments_sazo": (pm.packed_moments, "sazo_launches"),
             "packed_moments_attr": (pm.packed_moments, "attr_launches"),
             "packed_moments_interp": (pm.packed_moments, "interp_launches"),
+            "packed_moments_excl": (pm.packed_moments, "excl_launches"),
+            "packed_moments_excl_sazo": (pm.packed_moments,
+                                         "excl_sazo_launches"),
+            "packed_moments_excl_attr": (pm.packed_moments,
+                                         "excl_attr_launches"),
             "span_moments": (gk.span_moments, "launches"),
-            "entry_moments": (mk.entry_moments, "launches")}
+            "span_moments_excl": (gk.span_moments, "excl_launches"),
+            "entry_moments": (mk.entry_moments, "launches"),
+            "entry_moments_excl": (mk.entry_moments, "excl_launches")}
 
 
 def _reset_counts():
@@ -284,10 +324,7 @@ def _staged_band0(model, cloud, device):
 def _packed_problems(model, cloud, device):
     """The packed path's band-0 kernel inputs: ``(side, (q_t, cand_t,
     centers), radii)`` per serving bucket and fit bucket."""
-    import numpy as np
-    import torch
-    from nimrud_tpu_torch.features import multiscale
-    from nimrud_tpu_torch.ops import device_grid, packing, span_host, unique
+    from nimrud_tpu_torch.ops import device_grid
 
     problems = []
     # serving: band 0 (the pack grid) at q_cap 512, split capacities
@@ -301,27 +338,57 @@ def _packed_problems(model, cloud, device):
         band[5])
     problems += [("serve", b[:3], band[2]) for b in buckets]
     # fit: band 0 at q_cap 256, one capacity (extract_scaleset_fused)
-    edge, radii = model.scaleset[0]
-    lo = np.asarray(model.bounds[0], np.float64)
-    hi = np.asarray(model.bounds[1], np.float64)
-    q_bucket = multiscale._pow2_bucket(len(cloud))
-    spec = device_grid.with_entry_estimate(device_grid.make_spec(
-        lo, hi, max(radii), n_query=q_bucket, m=model.tile_m, q_cap=256,
-        voxel_edge=edge, entry_batch=256, x_seg=32), cloud)
-    cap = span_host.candidate_cap(
-        cloud, multiscale._host_unique_voxels(cloud, edge,
-                                              bounds=model.bounds), spec)
-    query32 = torch.from_numpy(
-        multiscale._pad_rows_f32(cloud, q_bucket)).to(device)
-    vc, _, vm = unique.unique_voxels(
-        query32, packing.GridSpec.fit_bounds(lo, hi, edge), valid=valid)
-    prob = device_grid._span_problem(query32, valid, vc, vm, spec)
+    prob, cap, radii = _fit_band0(model, cloud, device)
     buckets, _ = device_grid._bucket_problems(
         prob["q_t"], prob["centers"], prob["span_starts"],
         prob["span_lens"], device_grid._far_extended(prob["sorted_pts"]),
         int(cap))
     problems += [("fit", b[:3], radii) for b in buckets]
     return problems
+
+
+def _fit_specs(model, cloud, n_bands=None):
+    """The per-band ``(vox_spec, spec, radii, cap)`` (of the first
+    ``n_bands``) of
+    ``extract_scaleset_fused`` on ``cloud`` with the model's bounds: the
+    voxel grid, the band's own plan (q_cap 256, entries estimated on the
+    cloud) and its packed candidate capacity."""
+    import numpy as np
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.ops import device_grid, packing, span_host
+
+    lo = np.asarray(model.bounds[0], np.float64)
+    hi = np.asarray(model.bounds[1], np.float64)
+    q_bucket = multiscale._pow2_bucket(len(cloud))
+    specs = []
+    for edge, radii in model.scaleset[:n_bands]:
+        spec = device_grid.with_entry_estimate(device_grid.make_spec(
+            lo, hi, max(radii), n_query=q_bucket, m=model.tile_m,
+            q_cap=256, voxel_edge=edge, entry_batch=256, x_seg=32), cloud)
+        cap = span_host.candidate_cap(
+            cloud, multiscale._host_unique_voxels(cloud, edge,
+                                                  bounds=model.bounds), spec)
+        specs.append((packing.GridSpec.fit_bounds(lo, hi, edge), spec, radii,
+                      int(cap)))
+    return specs
+
+
+def _fit_band0(model, cloud, device):
+    """Band 0 of ``extract_scaleset_fused`` on ``cloud``: its single-band
+    plan and spans (``device_grid._span_problem``), its packed capacity
+    and its radii."""
+    import torch
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.ops import device_grid, unique
+
+    vox, spec, radii, cap = _fit_specs(model, cloud, 1)[0]
+    q_bucket = multiscale._pow2_bucket(len(cloud))
+    query32 = torch.from_numpy(
+        multiscale._pad_rows_f32(cloud, q_bucket)).to(device)
+    valid = torch.arange(q_bucket, device=device) < len(cloud)
+    vc, _, vm = unique.unique_voxels(query32, vox, valid=valid)
+    return (device_grid._span_problem(query32, valid, vc, vm, spec), cap,
+            radii)
 
 
 def _packed_kernel_phase(model, cloud, device):
@@ -533,14 +600,18 @@ def _d2_tolerance(radius, extent):
             + 5.0 * EPS32 * radius * radius)
 
 
-def _float64_oracle(points, centers, radius, tol):
+def _float64_oracle(points, centers, radius, tol, exclude=None,
+                    exclude_tol=0.0):
     """Per point against ``centers``, in float64: the population within
-    ``radius``, the number of centers with |d2 - r^2| <= ``tol`` (which
-    f32 may put on either side), the smallest |d2 - r^2|, the minimal
-    feature block (k, 4) and the covariance (k, 6)."""
+    ``radius`` (and, with ``exclude``, not closer than it), the number of
+    centers with |d2 - r^2| <= ``tol`` or |d2 - exclude^2| <=
+    ``exclude_tol`` (which f32 may put on either side), the smallest of
+    those gaps, the minimal feature block (k, 4) and the covariance
+    (k, 6)."""
     import torch
     from nimrud_tpu_torch.features import layouts
     r2 = float(radius) ** 2
+    e2 = None if exclude is None else float(exclude) ** 2
     x, y, z = centers.to(torch.float64).unbind(1)
     aug = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z,
                        y * y, y * z, z * z], 1)
@@ -550,9 +621,15 @@ def _float64_oracle(points, centers, radius, tol):
               + (chunk[:, None, 1] - y).square()
               + (chunk[:, None, 2] - z).square())
         off = (d2 - r2).abs()
-        near.append((off <= tol).sum(1))
+        close, inside = off <= tol, d2 <= r2
+        if e2 is not None:
+            off_e = (d2 - e2).abs()
+            close |= off_e <= exclude_tol
+            inside &= d2 >= e2
+            off = torch.minimum(off, off_e)
+        near.append(close.sum(1))
         gap.append(off.min(1).values)
-        sums.append((d2 <= r2).to(torch.float64) @ aug)
+        sums.append(inside.to(torch.float64) @ aug)
     sums = torch.cat(sums)
     count = sums[:, 0]
     mean = sums[:, 1:4] / count.clamp(min=1.0)[:, None]
@@ -645,13 +722,18 @@ def _rounding_witness(kind, model, staged, rows, feats, ref):
     two evaluations of ``model``'s serving step on ``staged`` (a CPU
     staging of the cloud): ``feats`` (the card's rows; for ``oriented``
     reconciled with ``ref``'s by ``layouts.reconcile``) and ``ref`` (the
-    CPU's), both (n, width) on the CPU.  Every feature must lie within
-    its stated f32 bound:
+    CPU's), both (n, width) on the CPU.  ``staged`` may also carry
+    ``exclude_radius`` (the oracle leaves those pairs out, and a pair at
+    its rounding bound counts as near) and ``band_plans`` (each band
+    planned on its own spec, as ``extract_scaleset_fused`` plans it, not
+    on the shared plan of the packed step: the entry frames follow).
+    Every feature must lie within its stated f32 bound:
 
     * ``vector``: each column of the two within ``_attr_bound``;
     * the geometry layouts, per band against a float64 oracle over the
-      band's voxel centers (``_float64_oracle``): the density of each
-      equal, within an ulp, to that of the float64 population, with no
+      band's voxel centers (``_float64_oracle``): the population (the
+      count of ``minimal``, the density of the others) of each equal,
+      within an ulp, to that of the float64 population, with no
       candidate within the rounding bound of r^2; the centroid and the
       eigenvalue columns within ``_feature_bounds`` of the oracle's (in
       the plan's entry frames), the eigenvector columns of ``oriented``
@@ -686,14 +768,19 @@ def _rounding_witness(kind, model, staged, rows, feats, ref):
     pack_spec = min((band[1] for band in specs),
                     key=lambda spec: spec.tile_edge)
     frames = _entry_centers(query, valid, pack_spec)[rows]
+    exclude = staged.get("exclude_radius")
+    exclude_tol = 0.0 if exclude is None else _d2_tolerance(exclude, extent)
     width = layouts.LAYOUT_WIDTHS[kind]
     held = torch.ones(len(rows), dtype=torch.bool)
     worst, col = 0.0, 0
     for band in specs:
+        if staged.get("band_plans"):
+            frames = _entry_centers(query, valid, band[1])[rows]
         centers, _, mask = unique.unique_voxels(query, band[0], valid=valid)
         for radius in band[2]:
             exact, near, _, block, cov = _float64_oracle(
-                points, centers[mask], radius, _d2_tolerance(radius, extent))
+                points, centers[mask], radius, _d2_tolerance(radius, extent),
+                exclude, exclude_tol)
             bounds = _feature_bounds(exact, cov, points, frames, radius)
             if kind == "oriented":
                 eigs = torch.linalg.eigvalsh(_full_cov(cov))      # ascending
@@ -704,8 +791,11 @@ def _rounding_witness(kind, model, staged, rows, feats, ref):
                 oracle = torch.cat([block[:, 1:2], norm], 1)
             else:
                 oracle = block[:, 1:4]
-            dens = layouts.sphere_density(exact.to(torch.float32),
-                                          radius).to(torch.float64)
+            # the population column: the count itself for ``minimal``,
+            # its density for the other layouts
+            dens = exact.to(torch.float64) if kind == "minimal" \
+                else layouts.sphere_density(exact.to(torch.float32),
+                                            radius).to(torch.float64)
             scalar = slice(col + 1, col + 4)
             apart = near > 0
             ratios = []
@@ -894,7 +984,8 @@ def _tiled_phase(model, cloud, device, profile_dir=None):
     """The tiled entry path per band, counted from zero, against the
     packed extraction's populations (then band 0 profiled, with a
     ``profile_dir``); then its kernel held against the plain twin on
-    band 0."""
+    band 0.  Returns (launches, kernel record, band 0's (problem,
+    search, radii))."""
     import torch
     from nimrud_tpu_torch.features import multiscale
     from nimrud_tpu_torch.ops import grid
@@ -941,7 +1032,7 @@ def _tiled_phase(model, cloud, device, profile_dir=None):
                                         "minimal", entry_batch=TILED_BATCH,
                                         device=device)] * 3, profile_dir)
     return counts["entry_moments"], _entry_kernel_phase(
-        problem, cloud, search, radii, device)
+        problem, cloud, search, radii, device), band0
 
 
 def _kinds_phase(fit_cloud, fit_labels, clouds, truths, device,
@@ -1051,11 +1142,11 @@ def _vector_problems(model, cloud, attrs, device):
     return problems
 
 
-def _ptxas_lines(name):
+def _ptxas_lines(name, kernel="packed_moments"):
     """The ptxas lines of one kernel instance (``cuda_build.kernel_name``)
-    in the packed_moments build."""
+    in the build of ``kernel``."""
     from nimrud_tpu_torch.ops.kernels import cuda_build
-    _, report = cuda_build.build("packed_moments")
+    _, report = cuda_build.build(kernel)
     return [ln for ln in cuda_build.ptxas_usage(report)
             if ln.startswith(name + ":")]
 
@@ -1225,6 +1316,333 @@ def _e2e_kind(kind, small, small_labels, other, other_labels, device):
            f"{kind}: too many labels moved by eigenvector signs")
 
 
+def _exclusion_kernels(model, cloud, band0, device):
+    """The exclusion instances against their twins at the exclusion
+    paths' band-0 shapes, at both precisions (``entry_moments`` at its
+    one): ``packed_moments`` on the fit band-0 inputs of
+    ``extract_scaleset_fused`` (one capacity), its sazo instance on them
+    and its attribute instance on them with two attribute rows; the
+    span kernel on the same band's spans (``backend="pallas"`` plans the
+    band alike); the entry kernel on the tiled band 0's first batch
+    (``band0``).  Then each at ``exclude_radius`` 0.0 against the same
+    instance family without exclusion, bit for bit, and timed beside it
+    on the same inputs; and the share of band 0's pairs the exclusion
+    removed.  Returns ({name: (record, work)}, the removed share)."""
+    import torch
+    from nimrud_tpu_torch.ops import device_grid
+    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+    from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+
+    e = EXCLUDE_RADIUS
+    prob, cap, radii = _fit_band0(model, cloud, device)
+    (q_t, cand_t, cen, _), = device_grid._bucket_problems(
+        prob["q_t"], prob["centers"], prob["span_starts"],
+        prob["span_lens"], device_grid._far_extended(prob["sorted_pts"]),
+        cap)[0]
+    gen = torch.Generator(device=device).manual_seed(3)
+    attrs = torch.rand((2, cand_t.shape[1]), generator=gen, device=device)
+    attrs[:, cand_t[0] == pm.FAR] = pm.FAR
+    cand_a = torch.cat([cand_t, attrs]).contiguous()
+    shape = (f"E={q_t.shape[0]} q_cap={q_t.shape[2]} "
+             f"c_cap={cand_t.shape[1] // q_t.shape[0]} radii={len(radii)}")
+    out = {}
+    packed = (("packed_moments_excl", cand_t, {}, "packed_excl_kernel<1, "
+               "false>"),
+              ("packed_moments_excl_sazo", cand_t, {"with_sazo": True},
+               "packed_excl_kernel<1, true>"),
+              ("packed_moments_excl_attr", cand_a, {"n_attr": 2},
+               "packed_attr_excl_kernel<1, 4>"))
+    for name, cand, kw, instance in packed:
+        work = pm.packed_moments_work(q_t, cand, cen, radii,
+                                      exclude_radius=e, **kw)
+        rec = _hold(
+            f"{name} {shape}",
+            lambda p: pm.packed_moments(q_t, cand, cen, radii,
+                                        exclude_radius=e, precision=p, **kw),
+            lambda p: pm.packed_moments_plain(q_t, cand, cen, radii,
+                                              exclude_radius=e, precision=p,
+                                              **kw),
+            lambda ref: pm.moment_tolerance(ref, cand, cen,
+                                            n_attr=kw.get("n_attr", 0)))
+        zero = pm.packed_moments(q_t, cand, cen, radii, exclude_radius=0.0,
+                                 **kw)
+        _check(torch.equal(zero, pm.packed_moments(q_t, cand, cen, radii,
+                                                   **kw)),
+               f"{name}: exclusion at 0.0 is not bit-equal to none")
+        base = _events_ms(lambda: pm.packed_moments(q_t, cand, cen, radii,
+                                                    **kw), 20)
+        print(f"[exclude] {name} ({instance}) fit band 0 {shape}"
+              f"{' A=2' if 'n_attr' in kw else ''}: {_work_text(rec, work)}"
+              f"; {rec['ms'] / base:.3f}x the family without exclusion on "
+              f"these inputs ({base:.4f} ms); at exclude_radius 0.0 "
+              "bit-equal to no exclusion; ptxas: "
+              + " | ".join(_ptxas_lines(instance)), flush=True)
+        out[name] = (rec, work)
+    with_e = pm.packed_moments(q_t, cand_t, cen, radii, exclude_radius=e)
+    without = pm.packed_moments(q_t, cand_t, cen, radii)
+    removed = float(without[..., COUNT_COLS].sum()
+                    - with_e[..., COUNT_COLS].sum())
+    share = removed / out["packed_moments_excl"][1]["pairs"]
+
+    args = (prob["q_local"].contiguous(), prob["centers"].contiguous(),
+            prob["span_starts"].to(torch.int32).contiguous(),
+            prob["span_lens"].to(torch.int32).contiguous(),
+            prob["sorted_pts"].contiguous())
+    rows = prob["span_rows"]
+    work = gk.span_moments_work(*args, radii, rows, exclude_radius=e)
+    rec = _hold(
+        f"span_moments_excl E={args[0].shape[0]}",
+        lambda p: gk.span_moments(*args, radii, rows, exclude_radius=e,
+                                  precision=p),
+        lambda p: gk.span_moments_plain(*args, radii, rows, exclude_radius=e,
+                                        precision=p),
+        lambda ref: gk.span_tolerance(ref, *args[1:], rows))
+    _check(torch.equal(gk.span_moments(*args, radii, rows,
+                                       exclude_radius=0.0),
+                       gk.span_moments(*args, radii, rows)),
+           "span_moments_excl: exclusion at 0.0 is not bit-equal to none")
+    base = _events_ms(lambda: gk.span_moments(*args, radii, rows), 20)
+    print(f"[exclude] span_moments_excl (span_excl_kernel<1>) band 0 "
+          f"E={args[0].shape[0]} q_cap={args[0].shape[1]} "
+          f"n_span={args[2].shape[1]} span_rows={rows}: "
+          f"{_work_text(rec, work)}; {rec['ms'] / base:.3f}x the kernel "
+          f"without exclusion on these inputs ({base:.4f} ms); at "
+          "exclude_radius 0.0 bit-equal to no exclusion; ptxas: "
+          + " | ".join(_ptxas_lines("span_excl_kernel<1>", "span_moments")),
+          flush=True)
+    out["span_moments_excl"] = (rec, work)
+
+    problem, search, t_radii = band0
+    args = entry_batch(problem, cloud, search, device)
+    work = mk.entry_moments_work(*args, t_radii, exclude_radius=e)
+    rec = _hold(
+        f"entry_moments_excl E={args[0].shape[0]}",
+        lambda _: mk.entry_moments(*args, t_radii, exclude_radius=e),
+        lambda _: mk.entry_moments_plain(*args, t_radii, exclude_radius=e),
+        lambda ref: mk.entry_tolerance(ref, args[1], args[2]),
+        precisions=("highest",))
+    _check(torch.equal(mk.entry_moments(*args, t_radii, exclude_radius=0.0),
+                       mk.entry_moments(*args, t_radii)),
+           "entry_moments_excl: exclusion at 0.0 is not bit-equal to none")
+    base = _events_ms(lambda: mk.entry_moments(*args, t_radii), 20)
+    print(f"[exclude] entry_moments_excl (entry_excl_kernel<1>) tiled band 0, "
+          f"first batch E={args[0].shape[0]} Q={args[0].shape[1]} "
+          f"F={args[1].shape[1]}: {_work_text(rec, work)}; "
+          f"{rec['ms'] / base:.3f}x the kernel without exclusion on these "
+          f"inputs ({base:.4f} ms); at exclude_radius 0.0 bit-equal to no "
+          "exclusion; ptxas: "
+          + " | ".join(_ptxas_lines("entry_excl_kernel<1>", "entry_moments")),
+          flush=True)
+    out["entry_moments_excl"] = (rec, work)
+    print(f"[exclude] band 0 of the fit extraction: the exclusion at "
+          f"{e} m removed {removed:.0f} of "
+          f"{out['packed_moments_excl'][1]['pairs']} pairs ({share:.6f})",
+          flush=True)
+    _check(share > 0, "the exclusion removed no pair at band 0")
+    return out, share
+
+
+def _counted(fn):
+    """``fn()`` run to synchronize with every launch count set to 0 just
+    before: (its result, ms, the counts)."""
+    import torch
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0), _counts()
+
+
+def _exclusion_phase(cloud, labels, clouds, truths, band0, device):
+    """The ``exclude_radius`` slice: its kernels against their twins
+    (``_exclusion_kernels``); the exclusion model at full width, counted
+    from zero (``make_bench_model(cloud, exclude_radius=0.1)``, fit, then
+    ``predict_device`` with its counters and ``predict`` on the three
+    clouds; ``stage`` must raise); the other paths that reach an
+    exclusion instance, each counted from zero: the span extraction
+    (``extract_scaleset_fused(backend="pallas")``), the tiled band 0,
+    the ``sazo`` and ``vector`` extractions; then card against CPU
+    (``_e2e_exclusion``).  Returns (launches, kernel records)."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.features import layouts, multiscale
+    from nimrud_tpu_torch.ops import grid
+    from nimrud_tpu_torch.utils import workload
+
+    e = EXCLUDE_RADIUS
+    model = workload.make_bench_model(cloud, exclude_radius=e, device=device)
+    records, _ = _exclusion_kernels(model, cloud, band0, device)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    model.fit(cloud, labels, sample=FIT_SAMPLE)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = _counts()
+    steps, served, diags = [], [], []
+    for c in clouds:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")     # an overflow would warn
+            lab = model.predict(c)
+        steps.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        dev_lab, diag = model.predict_device(c, with_diag=True)
+        torch.cuda.synchronize()
+        steps[-1] = (steps[-1], 1e3 * (time.perf_counter() - t0))
+        _check(np.array_equal(dev_lab.cpu().numpy(), lab),
+               "predict and predict_device labels differ")
+        served.append(torch.from_numpy(lab))
+        diags.append({k: int(v) for k, v in diag.items()})
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    accs = _check_served("exclusion", diags, served, truths)
+    try:
+        model.stage(cloud)
+        staged = True
+    except ValueError:
+        staged = False
+    _check(not staged, "stage did not raise for an exclusion model")
+    serve = counts["packed_moments_excl"] - fit_counts["packed_moments_excl"]
+    print(f"[exclude] path: make_bench_model(exclude_radius={e}), fit "
+          f"{fit_s:.3f} s ({fit_counts['packed_moments_excl']} "
+          f"packed_moments_excl launches); steps ms (predict, "
+          f"predict_device + synchronize): "
+          + "; ".join(f"{a:.3f}, {b:.3f}" for a, b in steps)
+          + f"; {serve} serving launches ({serve / (2 * len(clouds)):g} a "
+          "call); accuracy " + ", ".join(f"{a:.4f}" for a in accs)
+          + f"; counters {diags}; launches {counts}; peak {peak_gb:.3f} GiB; "
+          "stage raises", flush=True)
+    _check(fit_counts["packed_moments_excl"] > 0 and serve > 0,
+           "packed_moments_excl did not run in fit and in serving")
+    _only(counts, ("packed_moments_excl",), "the exclusion path")
+    launches = {"packed_moments_excl": counts["packed_moments_excl"]}
+
+    packed = model.extract_device(cloud)
+    runs = (
+        ("span_moments_excl", "the span extraction (backend='pallas')",
+         lambda: multiscale.extract_scaleset_fused(
+             cloud, cloud, model.scaleset, "minimal", exclude_radius=e,
+             bounds=model.bounds, backend="pallas", device=device),
+         ("span_moments_excl",), 4),
+        ("entry_moments_excl", "the tiled path, band 0",
+         lambda: grid.tiled_features(
+             band0[0], cloud, band0[1], band0[2], "minimal",
+             exclude_radius=e, entry_batch=TILED_BATCH, device=device),
+         ("entry_moments_excl",), 4),
+        ("packed_moments_excl_sazo", "the sazo extraction",
+         lambda: multiscale.extract_scaleset_fused(
+             cloud, cloud, model.scaleset, "sazo", exclude_radius=e,
+             bounds=model.bounds, device=device),
+         ("packed_moments_excl_sazo",), 5),
+        ("packed_moments_excl_attr", "the vector extraction (A=2)",
+         lambda: multiscale.extract_scaleset_fused(
+             cloud, cloud, model.scaleset, "vector",
+             attributes=workload.make_bench_attributes(labels),
+             exclude_radius=e, bounds=model.bounds, device=device),
+         ("packed_moments_excl_attr", "packed_moments_interp"), None))
+    radii = [r for _, rr in model.scaleset for r in rr]
+    for name, what, fn, mine, width in runs:
+        feats, ms, counts = _counted(fn)
+        _check(bool(torch.isfinite(feats).all()), f"{what}: non-finite")
+        text = ""
+        if width:
+            # population columns: counts (minimal), densities (sazo)
+            pop = feats[:, 0::width]
+            ref = packed[:, 0:pop.shape[1] * 4:4]
+            if width == 5:
+                ref = torch.stack([layouts.sphere_density(ref[:, i], r)
+                                   for i, r in enumerate(radii[:ref.shape[1]])],
+                                  1)
+            agree = float((pop == ref).float().mean())
+            text = f"; populations equal to the packed path's for {agree:.6f}"
+            _check(agree >= MIN_POP_AGREE, f"{what}: populations agree "
+                   f"for {agree}")
+        print(f"[exclude] {what}: {ms:.3f} ms to synchronize{text}; "
+              f"launches {counts}", flush=True)
+        _check(all(counts[k] > 0 for k in mine), f"{what}: {mine} did not "
+               "run")
+        _only(counts, mine, what)
+        launches[name] = counts[name]
+    del model, packed
+    _e2e_exclusion(device)
+    return launches, records
+
+
+def _e2e_exclusion(device):
+    """The exclusion model at E2E_POINTS on the card and on the CPU (the
+    twins), the card fit's classifier on both: ``extract`` (the path
+    has no staged handle) gives equal populations on both, every
+    feature of WITNESS_SAMPLE sampled rows and of every differing label
+    within its stated f32 bound of a float64 oracle that leaves the
+    excluded pairs out (``_rounding_witness``), and each differing label
+    a near-tie or witnessed so, at most MAX_FLIPS of them."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.utils import workload
+
+    e = EXCLUDE_RADIUS
+    small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
+    other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
+    gpu = workload.make_bench_model(small, exclude_radius=e, device=device)
+    gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
+    cpu_clf = _on_cpu(gpu.classifier)
+    cpu = workload.make_bench_model(small, exclude_radius=e, device="cpu")
+    cpu.install_classifier(cpu_clf, small)
+    g_feats = gpu.extract_device(other).cpu()
+    g_lab = gpu.predict_device(other).cpu()
+    t0 = time.perf_counter()
+    c_feats = cpu.extract_device(other)
+    cpu_s = time.perf_counter() - t0
+    c_prob = cpu_clf.proba_device(c_feats)
+    c_lab = c_prob.argmax(1).to(torch.int32)
+    g_prob = cpu_clf.proba_device(g_feats)
+    # the populations (minimal's count columns)
+    _check(torch.equal(g_feats[:, 0::4], c_feats[:, 0::4]),
+           "e2e exclusion: card and cpu populations differ")
+    own = g_prob.argmax(1).to(torch.int32) == g_lab
+    _check(bool(own.all()), "e2e exclusion: card labels are not its rows'")
+    gaps = torch.minimum(_top2_gap(g_prob), _top2_gap(c_prob))
+    differ = g_lab != c_lab
+    near_tie = differ & (gaps < TIE_GAP)
+    sample = torch.from_numpy(np.random.default_rng(7).choice(
+        len(other), WITNESS_SAMPLE, replace=False))
+    rows = torch.unique(torch.cat([sample, differ.nonzero()[:, 0]]))
+    q_bucket = multiscale._pow2_bucket(len(other))
+    staged = {"query": torch.from_numpy(multiscale._pad_rows_f32(
+                  other, q_bucket)),
+              "dequant": None, "n_query": len(other),
+              "specs": tuple(_fit_specs(cpu, other)),
+              "exclude_radius": e, "band_plans": True}
+    t0 = time.perf_counter()
+    held, ratio = _rounding_witness("minimal", cpu, staged, rows, g_feats,
+                                    c_feats)
+    witness_s = time.perf_counter() - t0
+    witnessed = torch.zeros_like(differ)
+    witnessed[rows[held]] = True
+    print(f"[e2e] exclusion packed: {E2E_POINTS} points, populations equal "
+          f"card vs cpu; {int(differ.sum())} labels differ "
+          f"({int(near_tie.sum())} at near-ties, "
+          f"{int((differ & ~near_tie & witnessed).sum())} by the rounding "
+          f"witness); {int(held.sum())} of {len(rows)} witnessed rows "
+          f"within their f32 bounds, the largest feature difference "
+          f"{ratio:.4g} of its bound ({witness_s:.1f} s); cpu extract "
+          f"{cpu_s:.2f} s", flush=True)
+    _check(bool(held.all()), "e2e exclusion: features outside their f32 "
+           f"bounds at rows {rows[~held][:8].tolist()}")
+    _check(not bool((differ & ~near_tie & ~witnessed).any()),
+           "e2e exclusion: card and cpu labels differ without a witness")
+    _check(int(differ.sum()) <= MAX_FLIPS * E2E_POINTS,
+           "e2e exclusion: too many label flips")
+
+
 def _serving_profile(model, out_dir, cloud=None, attrs=None):
     """Three steady serving steps of ``model``'s backend (clouds staged
     before the window: seeds 3-5, or ``cloud`` with its ``attrs`` three
@@ -1390,8 +1808,8 @@ def main():
 
     launches["span_moments"], record["span_moments"] = _span_phase(
         model, packed_labels, clouds, truths, cloud, device, args.profile)
-    launches["entry_moments"], record["entry_moments"] = _tiled_phase(
-        model, cloud, device, args.profile)
+    launches["entry_moments"], record["entry_moments"], band0 = \
+        _tiled_phase(model, cloud, device, args.profile)
     print(f"[launches] packed_moments: fit {fit_counts['packed_moments']}, "
           f"serving {serve_launches / len(clouds):g} a step; span_moments "
           f"{launches['span_moments'] / len(clouds):g} a step; entry_moments "
@@ -1412,6 +1830,10 @@ def main():
         per_kind))
     del vector
     _e2e_phase(device)
+    excl_launches, excl_records = _exclusion_phase(cloud, labels, clouds,
+                                                   truths, band0, device)
+    launches.update(excl_launches)
+    record.update(excl_records)
 
     sources = {
         "packed_moments": ("packed_moments",
@@ -1425,10 +1847,28 @@ def main():
         "packed_moments_interp": (
             "packed_moments",
             "nimrud_tpu/ops/pallas/packed_kernel.py:236 (chebyshev, n_attr)"),
+        "packed_moments_excl": (
+            "packed_moments",
+            "nimrud_tpu/ops/pallas/packed_kernel.py:236 (exclude_radius)"),
+        "packed_moments_excl_sazo": (
+            "packed_moments",
+            "nimrud_tpu/ops/pallas/packed_kernel.py:236 (exclude_radius, "
+            "with_sazo)"),
+        "packed_moments_excl_attr": (
+            "packed_moments",
+            "nimrud_tpu/ops/pallas/packed_kernel.py:236 (exclude_radius, "
+            "n_attr)"),
         "span_moments": ("span_moments",
                          "nimrud_tpu/ops/pallas/gather_kernel.py:330"),
+        "span_moments_excl": (
+            "span_moments",
+            "nimrud_tpu/ops/pallas/gather_kernel.py:330 (exclude_radius)"),
         "entry_moments": ("entry_moments",
-                          "nimrud_tpu/ops/pallas/multiscale_kernel.py:84")}
+                          "nimrud_tpu/ops/pallas/multiscale_kernel.py:84"),
+        "entry_moments_excl": (
+            "entry_moments",
+            "nimrud_tpu/ops/pallas/multiscale_kernel.py:84 "
+            "(exclude_radius)")}
     # no single PyTorch call computes a masked moment sum: library_ms null
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",

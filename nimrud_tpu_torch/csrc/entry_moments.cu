@@ -44,6 +44,14 @@
 // 2^24); the other moments differ from an f32 sum only in the order of
 // the sums.
 //
+// exclude_radius (_kernel's exclusion) keeps the pairs whose clamped
+// max(d2, 0) >= f32(e*e): entry_excl_kernel<NR> runs entry_body with the
+// Excluding<Expanded> policy of moment_mma.cuh, whose test takes the
+// reference's clamp with a NaN-propagating max (max.NaN.f32; fmaxf would
+// pass a NaN pair): a pair whose expanded d2 rounds below 0 passes e2 = 0,
+// as in the reference.  1 compare, 1 select and the max a pair; a kernel
+// of its own name, so entry_moments_kernel<NR> compiles as before.
+//
 // Built as a plain C library (nvcc -shared) and called through ctypes:
 // the launcher runs on the caller's stream and returns
 // cudaGetLastError().
@@ -57,17 +65,15 @@ namespace mm = moment_mma;
 constexpr int kChunk = 4096;                    // slots compacted a pass
 constexpr int kPerThread = kChunk / mm::kThreads;   // 16 validity bytes
 
-template <int NR>
-__global__ void __launch_bounds__(mm::kThreads)
-entry_moments_kernel(const float* __restrict__ q_local,
-                     const float* __restrict__ s_local,
-                     const unsigned char* __restrict__ s_valid,
-                     mm::Radii radii, int q_cap, int flat,
-                     float* __restrict__ out) {
-  __shared__ mm::Smem smem;
-  __shared__ alignas(16) float s_ss[mm::kTile];          // sum_sq of a row
-  __shared__ short s_list[kChunk + mm::kTile];  // valid slots - chunk base
-  __shared__ int s_warp_total[mm::kWarps];
+// One block: entry blockIdx.x, queries from blockIdx.y * kQueries.  Dist
+// is Expanded<MT> or Excluding<Expanded<MT>>; its ss and qq are set here.
+template <int NR, class Dist>
+__device__ __forceinline__ void entry_body(
+    mm::Smem& smem, float (&s_ss)[mm::kTile],
+    short (&s_list)[kChunk + mm::kTile], int (&s_warp_total)[mm::kWarps],
+    const float* __restrict__ q_local, const float* __restrict__ s_local,
+    const unsigned char* __restrict__ s_valid, mm::Radii radii, int q_cap,
+    int flat, float* __restrict__ out, Dist dist) {
   using W = mm::Warp<NR>;
   constexpr int MT = W::MT;
 
@@ -78,7 +84,6 @@ entry_moments_kernel(const float* __restrict__ q_local,
 
   W w;
   w.zero();
-  mm::Expanded<MT> dist;
   dist.ss = s_ss;
 #pragma unroll
   for (int m = 0; m < MT; ++m)
@@ -167,40 +172,80 @@ entry_moments_kernel(const float* __restrict__ q_local,
 }
 
 template <int NR>
-void launch(int n_entries, int q_cap, cudaStream_t s, const float* q_local,
-            const float* s_local, const unsigned char* s_valid,
-            const mm::Radii& radii, int flat, float* out) {
+__global__ void __launch_bounds__(mm::kThreads)
+entry_moments_kernel(const float* __restrict__ q_local,
+                     const float* __restrict__ s_local,
+                     const unsigned char* __restrict__ s_valid,
+                     mm::Radii radii, int q_cap, int flat,
+                     float* __restrict__ out) {
+  __shared__ mm::Smem smem;
+  __shared__ alignas(16) float s_ss[mm::kTile];          // sum_sq of a row
+  __shared__ short s_list[kChunk + mm::kTile];  // valid slots - chunk base
+  __shared__ int s_warp_total[mm::kWarps];
+  entry_body<NR>(smem, s_ss, s_list, s_warp_total, q_local, s_local,
+                 s_valid, radii, q_cap, flat, out,
+                 mm::Expanded<mm::Shape<NR>::kMT>());
+}
+
+// exclude_radius: the pairs with max(d2, 0) >= e2 only.
+template <int NR>
+__global__ void __launch_bounds__(mm::kThreads)
+entry_excl_kernel(const float* __restrict__ q_local,
+                  const float* __restrict__ s_local,
+                  const unsigned char* __restrict__ s_valid,
+                  mm::Radii radii, float e2, int q_cap, int flat,
+                  float* __restrict__ out) {
+  __shared__ mm::Smem smem;
+  __shared__ alignas(16) float s_ss[mm::kTile];
+  __shared__ short s_list[kChunk + mm::kTile];
+  __shared__ int s_warp_total[mm::kWarps];
+  entry_body<NR>(smem, s_ss, s_list, s_warp_total, q_local, s_local,
+                 s_valid, radii, q_cap, flat, out,
+                 mm::Excluding<mm::Expanded<mm::Shape<NR>::kMT>>(e2));
+}
+
+template <int NR>
+void launch(bool exclude, float e2, int n_entries, int q_cap,
+            cudaStream_t s, const float* q_local, const float* s_local,
+            const unsigned char* s_valid, const mm::Radii& radii, int flat,
+            float* out) {
   constexpr int kQ = mm::Shape<NR>::kQueries;
   const dim3 grid(n_entries, (q_cap + kQ - 1) / kQ);
-  entry_moments_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
-      q_local, s_local, s_valid, radii, q_cap, flat, out);
+  if (exclude)
+    entry_excl_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
+        q_local, s_local, s_valid, radii, e2, q_cap, flat, out);
+  else
+    entry_moments_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
+        q_local, s_local, s_valid, radii, q_cap, flat, out);
 }
 
 }  // namespace
 
 // q_local (E, Q, 3), s_local (E, F, 3) float32, s_valid (E, F) bool
 // (one byte each), out (E, Q, n_radii * 16) float32: contiguous, on
-// `device`.  r2_*: f32 squared radii (unused ones ignored).  Returns a
+// `device`.  exclude: nonzero for exclude_radius, e2 = f32(e*e) its
+// threshold.  r2_*: f32 squared radii (unused ones ignored).  Returns a
 // cudaError_t.
 extern "C" int entry_moments_launch(
     const float* q_local, const float* s_local,
     const unsigned char* s_valid, float* out, int n_entries, int q_cap,
-    int flat, int n_radii, float r2_0, float r2_1, float r2_2, float r2_3,
-    int device, void* stream) {
+    int flat, int n_radii, int exclude, float e2, float r2_0, float r2_1,
+    float r2_2, float r2_3, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_entries <= 0 || q_cap <= 0) return 0;
   const mm::Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool excl = exclude != 0;
   switch (n_radii) {
-    case 1: launch<1>(n_entries, q_cap, s, q_local, s_local, s_valid, radii,
-                      flat, out); break;
-    case 2: launch<2>(n_entries, q_cap, s, q_local, s_local, s_valid, radii,
-                      flat, out); break;
-    case 3: launch<3>(n_entries, q_cap, s, q_local, s_local, s_valid, radii,
-                      flat, out); break;
-    case 4: launch<4>(n_entries, q_cap, s, q_local, s_local, s_valid, radii,
-                      flat, out); break;
+    case 1: launch<1>(excl, e2, n_entries, q_cap, s, q_local, s_local,
+                      s_valid, radii, flat, out); break;
+    case 2: launch<2>(excl, e2, n_entries, q_cap, s, q_local, s_local,
+                      s_valid, radii, flat, out); break;
+    case 3: launch<3>(excl, e2, n_entries, q_cap, s, q_local, s_local,
+                      s_valid, radii, flat, out); break;
+    case 4: launch<4>(excl, e2, n_entries, q_cap, s, q_local, s_local,
+                      s_valid, radii, flat, out); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -36,6 +36,10 @@
 // per moment in f32 and writes the (q_cap, 16 * NR) slab rows; rows
 // past q_cap are never stored.
 //
+// Excluding<Policy> adds exclude_radius to a policy: a pair that fails
+// the exclusion test d2 >= f32(e*e) gets a NaN distance, which fails
+// every radius test and the sazo fold's.
+//
 // A k16 group of candidates that holds only dead rows (the FAR sentinel
 // at all three coordinates, a row staged with its live flag off, or the
 // pad past a ragged tail) is skipped: its rows would add 0.
@@ -240,6 +244,10 @@ __device__ __forceinline__ uint32_t mask_pair(float d2_lo, float d2_hi,
 // The difference form of packed_moments and span_moments; the second
 // call also hands back the z difference for the sazo fold.
 struct Difference {
+  // what Excluding compares with f32(e*e): the distance itself
+  __device__ __forceinline__ static float exclusion_test(float d2) {
+    return d2;
+  }
   __device__ __forceinline__ void columns(int, int, float (&)[4]) const {}
   __device__ __forceinline__ float operator()(int, int, const float (&q)[3],
                                               float x, float y, float z,
@@ -291,12 +299,20 @@ __device__ __forceinline__ float sum_sq(float a, float b, float c) {
 // qq = sum_sq(q) per query row (registers), ss = sum_sq(s) per staged
 // row (the caller's shared array beside the tile) and
 // qs = (q0*s0 + q1*s1) + q2*s2.  The reference clamps max(d2, 0) before
-// the test; for r2 >= 0 that clamp never changes d2 <= r2 (a negative d2
-// passes either way, a NaN fails either way), so it is left out.
+// its tests; for r2 >= 0 that clamp never changes d2 <= r2 (a negative d2
+// passes either way, a NaN fails either way), so the radius test leaves it
+// out.  The exclusion test d2 >= e2 does depend on it: a pair whose d2
+// rounds below 0 passes e2 = 0 (and every e2 that rounds to 0) only
+// clamped, so exclusion_test takes the clamp, with max.NaN so that a NaN
+// still fails (fmaxf would turn it into 0 and pass it).
 template <int MT>
 struct Expanded {
   const float* ss;                 // kTile, 8-byte aligned
   float qq[MT][2];
+
+  __device__ __forceinline__ static float exclusion_test(float d2) {
+    return max_nan(d2, 0.f);
+  }
 
   __device__ __forceinline__ void columns(int ka, int kb,
                                           float (&aux)[4]) const {
@@ -315,6 +331,28 @@ struct Expanded {
                                          __fmul_rn(q[1], y)),
                                __fmul_rn(q[2], z));
     return __fsub_rn(__fadd_rn(qq[m][i], s), __fmul_rn(2.f, qs));
+  }
+};
+
+// exclude_radius on a distance policy: the base policy's d2 where the
+// pair passes the reference's exclusion test Base::exclusion_test(d2) >=
+// e2 (e2 = f32(e*e), rounded by the caller), a quiet NaN otherwise.  The
+// NaN fails d2 <= r2 at every radius and the sazo fold's own test, so the
+// test is one compare and one select a pair, shared by all radii;
+// mask_pair and the fold are unchanged.  The radius test reads the base
+// policy's d2 as it is.  Dead rows at the FAR sentinel pass the exclusion
+// (their d2 is about 1e12) and still fail every radius.  The instances
+// without exclusion never instantiate it.
+template <class Base>
+struct Excluding : Base {
+  float e2;
+
+  __device__ __forceinline__ explicit Excluding(float e2_)
+      : Base(), e2(e2_) {}
+  template <class... Args>
+  __device__ __forceinline__ float operator()(Args&&... args) const {
+    const float d2 = Base::operator()(args...);
+    return Base::exclusion_test(d2) >= e2 ? d2 : __int_as_float(0x7fc00000);
   }
 };
 
@@ -366,7 +404,7 @@ struct Warp {
                                              int n_groups,
                                              const float (&r2)[NR],
                                              const Dist& dist = Dist()) {
-    static_assert(!SAZO || std::is_same<Dist, Difference>::value,
+    static_assert(!SAZO || std::is_base_of<Difference, Dist>::value,
                   "the sazo fold takes the difference form's dz");
     const int lane = threadIdx.x & 31;
     const int t = lane & 3;
@@ -435,8 +473,9 @@ struct Warp {
           for (int n = 0; n < NT; ++n)
             mma_bf16(acc[r][m][n], a, b[2 * n], b[2 * n + 1]);
           if constexpr (SAZO) {
-            // the mask's own test; a NaN coordinate makes d2 NaN, which
-            // fails it, so fminf's / fmaxf's NaN rule never matters
+            // the mask's own test; a NaN coordinate or an excluded pair
+            // makes d2 NaN, which fails it, so fminf's / fmaxf's NaN rule
+            // never matters
 #pragma unroll
             for (int i = 0; i < 2; ++i)
 #pragma unroll

@@ -57,6 +57,16 @@
 // the smallest instance that holds A.  The instances without attributes
 // keep their 32-column B and compile as before.
 //
+// exclude_radius (_entry_sweep's base_mask) keeps the pairs with
+// f32(e*e) <= d2 <= f32(r*r): packed_excl_kernel<NR, SAZO> and
+// packed_attr_excl_kernel<NR, NATTR> run packed_body with the
+// Excluding<Difference> policy of moment_mma.cuh (an excluded pair's d2
+// becomes a NaN, which fails every radius and the sazo fold: 1 compare
+// and 1 select a pair, in the bound's distance term).  They are kernels
+// of their own names, so the instances without exclusion compile as
+// before and each family keeps its launch count and ptxas line.  The
+// chebyshev metric takes no exclusion, as in the reference.
+//
 // Built as a plain C library (nvcc -shared) and called through ctypes:
 // the launcher runs on the caller's stream and returns
 // cudaGetLastError().
@@ -75,7 +85,7 @@ __device__ __forceinline__ void packed_body(
     mm::SmemT<mm::cols_for(NATTR)>& smem, const float* __restrict__ q_t,
     const float* __restrict__ cand_t, const float* __restrict__ centers,
     mm::Radii radii, int q_cap, int c_cap, long long lanes, int n_attr,
-    float* __restrict__ out) {
+    float* __restrict__ out, const Dist& dist) {
   using W = mm::Warp<NR, SAZO, NATTR>;
   constexpr int kSlots = NATTR > 0 ? NATTR : 1;
 
@@ -137,7 +147,7 @@ __device__ __forceinline__ void packed_body(
       mm::stage_row(smem.tile, px, py, pz, cx, cy, cz);
     __syncthreads();
     load(tile + mm::kTile, px, py, pz, pa);
-    if (busy) w.accumulate(smem.tile, w_tile / 16, r2, Dist());
+    if (busy) w.accumulate(smem.tile, w_tile / 16, r2, dist);
   }
   __syncthreads();     // the tile's shared memory becomes the epilogue's
   if (busy) w.store(smem, out, e, q_first, q_cap);
@@ -151,9 +161,22 @@ packed_moments_kernel(const float* __restrict__ q_t,
                       int q_cap, int c_cap, long long lanes,
                       float* __restrict__ out) {
   __shared__ mm::Smem smem;
-  packed_body<NR, SAZO, 0, mm::Difference>(smem, q_t, cand_t, centers,
-                                           radii, q_cap, c_cap, lanes, 0,
-                                           out);
+  packed_body<NR, SAZO, 0>(smem, q_t, cand_t, centers, radii, q_cap, c_cap,
+                           lanes, 0, out, mm::Difference());
+}
+
+// exclude_radius: the pairs with d2 >= e2 only.
+template <int NR, bool SAZO>
+__global__ void __launch_bounds__(mm::kThreads)
+packed_excl_kernel(const float* __restrict__ q_t,
+                   const float* __restrict__ cand_t,
+                   const float* __restrict__ centers, mm::Radii radii,
+                   float e2, int q_cap, int c_cap, long long lanes,
+                   float* __restrict__ out) {
+  __shared__ mm::Smem smem;
+  packed_body<NR, SAZO, 0>(smem, q_t, cand_t, centers, radii, q_cap, c_cap,
+                           lanes, 0, out,
+                           mm::Excluding<mm::Difference>(e2));
 }
 
 // The vector extraction: euclidean, NATTR attribute slots.
@@ -165,8 +188,22 @@ packed_attr_kernel(const float* __restrict__ q_t,
                    int q_cap, int c_cap, long long lanes, int n_attr,
                    float* __restrict__ out) {
   __shared__ mm::SmemT<mm::cols_for(NATTR)> smem;
-  packed_body<NR, false, NATTR, mm::Difference>(
-      smem, q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+  packed_body<NR, false, NATTR>(smem, q_t, cand_t, centers, radii, q_cap,
+                                c_cap, lanes, n_attr, out, mm::Difference());
+}
+
+// The vector extraction with exclude_radius.
+template <int NR, int NATTR>
+__global__ void __launch_bounds__(mm::kThreads)
+packed_attr_excl_kernel(const float* __restrict__ q_t,
+                        const float* __restrict__ cand_t,
+                        const float* __restrict__ centers, mm::Radii radii,
+                        float e2, int q_cap, int c_cap, long long lanes,
+                        int n_attr, float* __restrict__ out) {
+  __shared__ mm::SmemT<mm::cols_for(NATTR)> smem;
+  packed_body<NR, false, NATTR>(smem, q_t, cand_t, centers, radii, q_cap,
+                                c_cap, lanes, n_attr, out,
+                                mm::Excluding<mm::Difference>(e2));
 }
 
 // The packed attribute interp: chebyshev, one radius, NATTR slots.
@@ -178,8 +215,8 @@ packed_interp_kernel(const float* __restrict__ q_t,
                      int q_cap, int c_cap, long long lanes, int n_attr,
                      float* __restrict__ out) {
   __shared__ mm::SmemT<mm::cols_for(NATTR)> smem;
-  packed_body<1, false, NATTR, mm::Chebyshev>(
-      smem, q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+  packed_body<1, false, NATTR>(smem, q_t, cand_t, centers, radii, q_cap,
+                               c_cap, lanes, n_attr, out, mm::Chebyshev());
 }
 
 dim3 grid_of(int n_entries, int q_cap, int n_radii) {
@@ -188,45 +225,76 @@ dim3 grid_of(int n_entries, int q_cap, int n_radii) {
   return dim3(n_entries, (q_cap + per_block - 1) / per_block);
 }
 
-template <int NR>
-void launch(bool sazo, int n_entries, int q_cap, cudaStream_t s,
-            const float* q_t, const float* cand_t, const float* centers,
-            const mm::Radii& radii, int c_cap, long long lanes, float* out) {
+template <int NR, bool SAZO>
+void launch_nr(bool exclude, float e2, int n_entries, int q_cap,
+               cudaStream_t s, const float* q_t, const float* cand_t,
+               const float* centers, const mm::Radii& radii, int c_cap,
+               long long lanes, float* out) {
   constexpr int kQ = mm::Shape<NR>::kQueries;
   const dim3 grid(n_entries, (q_cap + kQ - 1) / kQ);
-  if (sazo)
-    packed_moments_kernel<NR, true><<<grid, mm::kThreads, 0, s>>>(
-        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
+  if (exclude)
+    packed_excl_kernel<NR, SAZO><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, e2, q_cap, c_cap, lanes, out);
   else
-    packed_moments_kernel<NR, false><<<grid, mm::kThreads, 0, s>>>(
+    packed_moments_kernel<NR, SAZO><<<grid, mm::kThreads, 0, s>>>(
         q_t, cand_t, centers, radii, q_cap, c_cap, lanes, out);
 }
 
+template <int NR>
+void launch(bool sazo, bool exclude, float e2, int n_entries, int q_cap,
+            cudaStream_t s, const float* q_t, const float* cand_t,
+            const float* centers, const mm::Radii& radii, int c_cap,
+            long long lanes, float* out) {
+  if (sazo)
+    launch_nr<NR, true>(exclude, e2, n_entries, q_cap, s, q_t, cand_t,
+                        centers, radii, c_cap, lanes, out);
+  else
+    launch_nr<NR, false>(exclude, e2, n_entries, q_cap, s, q_t, cand_t,
+                         centers, radii, c_cap, lanes, out);
+}
+
+template <int NR, int NATTR>
+void launch_attr_nr(bool exclude, float e2, dim3 grid, int q_cap,
+                    cudaStream_t s, const float* q_t, const float* cand_t,
+                    const float* centers, const mm::Radii& radii, int c_cap,
+                    long long lanes, int n_attr, float* out) {
+  if (exclude)
+    packed_attr_excl_kernel<NR, NATTR><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, e2, q_cap, c_cap, lanes, n_attr, out);
+  else
+    packed_attr_kernel<NR, NATTR><<<grid, mm::kThreads, 0, s>>>(
+        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+}
+
 template <int NATTR>
-cudaError_t launch_attr(bool chebyshev, int n_radii, int n_entries,
-                        int q_cap, cudaStream_t s, const float* q_t,
-                        const float* cand_t, const float* centers,
-                        const mm::Radii& radii, int c_cap, long long lanes,
-                        int n_attr, float* out) {
+cudaError_t launch_attr(bool chebyshev, bool exclude, float e2, int n_radii,
+                        int n_entries, int q_cap, cudaStream_t s,
+                        const float* q_t, const float* cand_t,
+                        const float* centers, const mm::Radii& radii,
+                        int c_cap, long long lanes, int n_attr, float* out) {
   const dim3 grid = grid_of(n_entries, q_cap, n_radii);
   if (chebyshev) {
-    if (n_radii != 1) return cudaErrorInvalidValue;
+    if (n_radii != 1 || exclude) return cudaErrorInvalidValue;
     packed_interp_kernel<NATTR><<<grid, mm::kThreads, 0, s>>>(
         q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
     return cudaSuccess;
   }
   switch (n_radii) {
-    case 1: packed_attr_kernel<1, NATTR><<<grid, mm::kThreads, 0, s>>>(
-        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+    case 1: launch_attr_nr<1, NATTR>(exclude, e2, grid, q_cap, s, q_t,
+                                     cand_t, centers, radii, c_cap, lanes,
+                                     n_attr, out);
       break;
-    case 2: packed_attr_kernel<2, NATTR><<<grid, mm::kThreads, 0, s>>>(
-        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+    case 2: launch_attr_nr<2, NATTR>(exclude, e2, grid, q_cap, s, q_t,
+                                     cand_t, centers, radii, c_cap, lanes,
+                                     n_attr, out);
       break;
-    case 3: packed_attr_kernel<3, NATTR><<<grid, mm::kThreads, 0, s>>>(
-        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+    case 3: launch_attr_nr<3, NATTR>(exclude, e2, grid, q_cap, s, q_t,
+                                     cand_t, centers, radii, c_cap, lanes,
+                                     n_attr, out);
       break;
-    case 4: packed_attr_kernel<4, NATTR><<<grid, mm::kThreads, 0, s>>>(
-        q_t, cand_t, centers, radii, q_cap, c_cap, lanes, n_attr, out);
+    case 4: launch_attr_nr<4, NATTR>(exclude, e2, grid, q_cap, s, q_t,
+                                     cand_t, centers, radii, c_cap, lanes,
+                                     n_attr, out);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -239,31 +307,32 @@ cudaError_t launch_attr(bool chebyshev, int n_radii, int n_entries,
 // q_t (E, 3, q_cap), cand_t (3, E * c_cap), centers (E, 3) and
 // out (E, q_cap, n_radii * 16): contiguous float32 on `device`.
 // with_sazo: nonzero for the sazo instance (slab rows 10 / 11).
+// exclude: nonzero for exclude_radius, e2 = f32(e*e) its threshold.
 // r2_*: f32 squared radii (unused ones ignored).  Returns a cudaError_t.
 extern "C" int packed_moments_launch(
     const float* q_t, const float* cand_t, const float* centers,
     float* out, int n_entries, int q_cap, int c_cap, int n_radii,
-    int with_sazo, float r2_0, float r2_1, float r2_2, float r2_3,
-    int device, void* stream) {
+    int with_sazo, int exclude, float e2, float r2_0, float r2_1,
+    float r2_2, float r2_3, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_entries <= 0 || q_cap <= 0) return 0;
   const mm::Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
   const long long lanes = static_cast<long long>(n_entries) * c_cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool sazo = with_sazo != 0;
+  const bool sazo = with_sazo != 0, excl = exclude != 0;
   switch (n_radii) {
-    case 1: launch<1>(sazo, n_entries, q_cap, s, q_t, cand_t, centers,
-                      radii, c_cap, lanes, out);
+    case 1: launch<1>(sazo, excl, e2, n_entries, q_cap, s, q_t, cand_t,
+                      centers, radii, c_cap, lanes, out);
       break;
-    case 2: launch<2>(sazo, n_entries, q_cap, s, q_t, cand_t, centers,
-                      radii, c_cap, lanes, out);
+    case 2: launch<2>(sazo, excl, e2, n_entries, q_cap, s, q_t, cand_t,
+                      centers, radii, c_cap, lanes, out);
       break;
-    case 3: launch<3>(sazo, n_entries, q_cap, s, q_t, cand_t, centers,
-                      radii, c_cap, lanes, out);
+    case 3: launch<3>(sazo, excl, e2, n_entries, q_cap, s, q_t, cand_t,
+                      centers, radii, c_cap, lanes, out);
       break;
-    case 4: launch<4>(sazo, n_entries, q_cap, s, q_t, cand_t, centers,
-                      radii, c_cap, lanes, out);
+    case 4: launch<4>(sazo, excl, e2, n_entries, q_cap, s, q_t, cand_t,
+                      centers, radii, c_cap, lanes, out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -273,13 +342,14 @@ extern "C" int packed_moments_launch(
 
 // The attribute and chebyshev instances.  cand_t (3 + n_attr, E * c_cap)
 // with 0 <= n_attr <= 6 attribute rows; chebyshev: nonzero for the
-// max-norm metric (one radius).  lim_*: f32 squared radii (euclidean)
-// or f32 radii (chebyshev), unused ones ignored.  Returns a cudaError_t.
+// max-norm metric (one radius, no exclusion); exclude / e2 as for
+// packed_moments_launch.  lim_*: f32 squared radii (euclidean) or f32
+// radii (chebyshev), unused ones ignored.  Returns a cudaError_t.
 extern "C" int packed_attr_launch(
     const float* q_t, const float* cand_t, const float* centers,
     float* out, int n_entries, int q_cap, int c_cap, int n_radii,
-    int n_attr, int chebyshev, float lim_0, float lim_1, float lim_2,
-    float lim_3, int device, void* stream) {
+    int n_attr, int chebyshev, int exclude, float e2, float lim_0,
+    float lim_1, float lim_2, float lim_3, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_attr < 0 || n_attr > 6) return static_cast<int>(cudaErrorInvalidValue);
@@ -287,16 +357,16 @@ extern "C" int packed_attr_launch(
   const mm::Radii radii = {{lim_0, lim_1, lim_2, lim_3}};
   const long long lanes = static_cast<long long>(n_entries) * c_cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool cheb = chebyshev != 0;
+  const bool cheb = chebyshev != 0, excl = exclude != 0;
   if (n_attr <= 1)
-    err = launch_attr<1>(cheb, n_radii, n_entries, q_cap, s, q_t, cand_t,
-                         centers, radii, c_cap, lanes, n_attr, out);
+    err = launch_attr<1>(cheb, excl, e2, n_radii, n_entries, q_cap, s, q_t,
+                         cand_t, centers, radii, c_cap, lanes, n_attr, out);
   else if (n_attr <= 4)
-    err = launch_attr<4>(cheb, n_radii, n_entries, q_cap, s, q_t, cand_t,
-                         centers, radii, c_cap, lanes, n_attr, out);
+    err = launch_attr<4>(cheb, excl, e2, n_radii, n_entries, q_cap, s, q_t,
+                         cand_t, centers, radii, c_cap, lanes, n_attr, out);
   else
-    err = launch_attr<6>(cheb, n_radii, n_entries, q_cap, s, q_t, cand_t,
-                         centers, radii, c_cap, lanes, n_attr, out);
+    err = launch_attr<6>(cheb, excl, e2, n_radii, n_entries, q_cap, s, q_t,
+                         cand_t, centers, radii, c_cap, lanes, n_attr, out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

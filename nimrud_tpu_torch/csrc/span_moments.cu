@@ -42,6 +42,12 @@
 // read as a far point and adds nothing.  precision="highest" and
 // "bf16x2" run this one kernel.
 //
+// exclude_radius (_kernel_body's base_mask) keeps the pairs with
+// f32(e*e) <= d2 <= f32(r*r): span_excl_kernel<NR> runs span_body with the
+// Excluding<Difference> policy of moment_mma.cuh (1 compare and 1 select
+// a pair); a kernel of its own name, so span_moments_kernel<NR> compiles
+// as before.
+//
 // Built as a plain C library (nvcc -shared) and called through ctypes:
 // the launcher runs on the caller's stream and returns
 // cudaGetLastError().
@@ -54,18 +60,16 @@ namespace mm = moment_mma;
 
 constexpr int kMaxSpans = 256;  // spans per entry ((m + 2)^2, m <= 8)
 
-template <int NR>
-__global__ void __launch_bounds__(mm::kThreads)
-span_moments_kernel(const float* __restrict__ q_local,
-                    const float* __restrict__ centers,
-                    const int* __restrict__ span_starts,
-                    const int* __restrict__ span_lens,
-                    const float* __restrict__ pts, long long n_pts,
-                    mm::Radii radii, int q_cap, int n_span, int span_rows,
-                    float* __restrict__ out) {
-  __shared__ mm::Smem smem;
-  __shared__ int s_off[kMaxSpans + 1];
-  __shared__ int s_start[kMaxSpans];
+// One block: entry blockIdx.x, queries from blockIdx.y * kQueries; the
+// shared arrays are the kernel's.
+template <int NR, class Dist>
+__device__ __forceinline__ void span_body(
+    mm::Smem& smem, int (&s_off)[kMaxSpans + 1], int (&s_start)[kMaxSpans],
+    const float* __restrict__ q_local, const float* __restrict__ centers,
+    const int* __restrict__ span_starts, const int* __restrict__ span_lens,
+    const float* __restrict__ pts, long long n_pts, mm::Radii radii,
+    int q_cap, int n_span, int span_rows, float* __restrict__ out,
+    const Dist& dist) {
   using W = mm::Warp<NR>;
 
   const int e = blockIdx.x;
@@ -138,36 +142,78 @@ span_moments_kernel(const float* __restrict__ q_local,
     mm::stage_row(smem.tile, px, py, pz, cx, cy, cz);
     __syncthreads();
     load(base + mm::kTile, px, py, pz);
-    if (busy) w.accumulate(smem.tile, (w_tile + 15) / 16, r2);
+    if (busy) w.accumulate(smem.tile, (w_tile + 15) / 16, r2, dist);
   }
   __syncthreads();     // the tile's shared memory becomes the epilogue's
   if (busy) w.store(smem, out, e, q_first, q_cap);
 }
 
 template <int NR>
-void launch(int n_entries, int q_cap, cudaStream_t s, const float* q_local,
-            const float* centers, const int* starts, const int* lens,
-            const float* pts, long long n_pts, const mm::Radii& radii,
-            int n_span, int span_rows, float* out) {
+__global__ void __launch_bounds__(mm::kThreads)
+span_moments_kernel(const float* __restrict__ q_local,
+                    const float* __restrict__ centers,
+                    const int* __restrict__ span_starts,
+                    const int* __restrict__ span_lens,
+                    const float* __restrict__ pts, long long n_pts,
+                    mm::Radii radii, int q_cap, int n_span, int span_rows,
+                    float* __restrict__ out) {
+  __shared__ mm::Smem smem;
+  __shared__ int s_off[kMaxSpans + 1];
+  __shared__ int s_start[kMaxSpans];
+  span_body<NR>(smem, s_off, s_start, q_local, centers, span_starts,
+                span_lens, pts, n_pts, radii, q_cap, n_span, span_rows, out,
+                mm::Difference());
+}
+
+// exclude_radius: the pairs with d2 >= e2 only.
+template <int NR>
+__global__ void __launch_bounds__(mm::kThreads)
+span_excl_kernel(const float* __restrict__ q_local,
+                 const float* __restrict__ centers,
+                 const int* __restrict__ span_starts,
+                 const int* __restrict__ span_lens,
+                 const float* __restrict__ pts, long long n_pts,
+                 mm::Radii radii, float e2, int q_cap, int n_span,
+                 int span_rows, float* __restrict__ out) {
+  __shared__ mm::Smem smem;
+  __shared__ int s_off[kMaxSpans + 1];
+  __shared__ int s_start[kMaxSpans];
+  span_body<NR>(smem, s_off, s_start, q_local, centers, span_starts,
+                span_lens, pts, n_pts, radii, q_cap, n_span, span_rows, out,
+                mm::Excluding<mm::Difference>(e2));
+}
+
+template <int NR>
+void launch(bool exclude, float e2, int n_entries, int q_cap,
+            cudaStream_t s, const float* q_local, const float* centers,
+            const int* starts, const int* lens, const float* pts,
+            long long n_pts, const mm::Radii& radii, int n_span,
+            int span_rows, float* out) {
   constexpr int kQ = mm::Shape<NR>::kQueries;
   const dim3 grid(n_entries, (q_cap + kQ - 1) / kQ);
-  span_moments_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
-      q_local, centers, starts, lens, pts, n_pts, radii, q_cap, n_span,
-      span_rows, out);
+  if (exclude)
+    span_excl_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
+        q_local, centers, starts, lens, pts, n_pts, radii, e2, q_cap,
+        n_span, span_rows, out);
+  else
+    span_moments_kernel<NR><<<grid, mm::kThreads, 0, s>>>(
+        q_local, centers, starts, lens, pts, n_pts, radii, q_cap, n_span,
+        span_rows, out);
 }
 
 }  // namespace
 
 // q_local (E, q_cap, 3), centers (E, 3), pts (n_pts, 3) float32;
 // span_starts / span_lens (E, n_span) int32; out (E, q_cap,
-// n_radii * 16) float32: contiguous, on `device`.  r2_*: f32 squared
-// radii (unused ones ignored).  Returns a cudaError_t.
+// n_radii * 16) float32: contiguous, on `device`.  exclude: nonzero for
+// exclude_radius, e2 = f32(e*e) its threshold.  r2_*: f32 squared radii
+// (unused ones ignored).  Returns a cudaError_t.
 extern "C" int span_moments_launch(
     const float* q_local, const float* centers, const int* span_starts,
     const int* span_lens, const float* pts, float* out, int n_entries,
     int q_cap, int n_span, int span_rows, long long n_pts, int n_radii,
-    float r2_0, float r2_1, float r2_2, float r2_3, int device,
-    void* stream) {
+    int exclude, float e2, float r2_0, float r2_1, float r2_2, float r2_3,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_entries <= 0 || q_cap <= 0) return 0;
@@ -175,18 +221,23 @@ extern "C" int span_moments_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const mm::Radii radii = {{r2_0, r2_1, r2_2, r2_3}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool excl = exclude != 0;
   switch (n_radii) {
-    case 1: launch<1>(n_entries, q_cap, s, q_local, centers, span_starts,
-                      span_lens, pts, n_pts, radii, n_span, span_rows, out);
+    case 1: launch<1>(excl, e2, n_entries, q_cap, s, q_local, centers,
+                      span_starts, span_lens, pts, n_pts, radii, n_span,
+                      span_rows, out);
       break;
-    case 2: launch<2>(n_entries, q_cap, s, q_local, centers, span_starts,
-                      span_lens, pts, n_pts, radii, n_span, span_rows, out);
+    case 2: launch<2>(excl, e2, n_entries, q_cap, s, q_local, centers,
+                      span_starts, span_lens, pts, n_pts, radii, n_span,
+                      span_rows, out);
       break;
-    case 3: launch<3>(n_entries, q_cap, s, q_local, centers, span_starts,
-                      span_lens, pts, n_pts, radii, n_span, span_rows, out);
+    case 3: launch<3>(excl, e2, n_entries, q_cap, s, q_local, centers,
+                      span_starts, span_lens, pts, n_pts, radii, n_span,
+                      span_rows, out);
       break;
-    case 4: launch<4>(n_entries, q_cap, s, q_local, centers, span_starts,
-                      span_lens, pts, n_pts, radii, n_span, span_rows, out);
+    case 4: launch<4>(excl, e2, n_entries, q_cap, s, q_local, centers,
+                      span_starts, span_lens, pts, n_pts, radii, n_span,
+                      span_rows, out);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,11 @@
 """
 Multiscale feature extraction of the port (the packed and span
 branches of ``nimrud_tpu/features/multiscale.py:extract_scaleset_fused``,
-plus the host helpers they need, copied: ``_pow2_bucket``,
-``_pad_rows_f32``, the NumPy branch of ``_host_unique_voxels``,
-``_voxel_occupancy_cap`` and ``_interp_packed_plan``).
+its public entry points ``extract_scaleset_device`` / ``extract_scaleset``
+on that fused path, plus the host helpers they need, copied:
+``_pow2_bucket``, ``_pad_rows_f32``, the NumPy branch of
+``_host_unique_voxels``, ``_voxel_occupancy_cap`` and
+``_interp_packed_plan``).
 
 For each band ``(voxel_edge, radii)`` the search cloud is
 voxel-downsampled on the device and every query's neighborhood moments
@@ -20,6 +22,10 @@ import torch
 from nimrud_tpu_torch.ops import (device_grid, interp, packing, span_host,
                                   unique)
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import MAX_ATTR
+
+TILED_THRESHOLD = 16384   # search points from which the reference's
+                          # method="auto" takes the fused path
+METHODS = ("auto", "dense", "tiled", "fused")
 
 # the reference's precision names -> the kernels' precision: "mixed" and
 # "high" (XLA matmul precisions) map onto the bf16 split, "default" onto
@@ -140,8 +146,9 @@ def _interp_packed_plan(search, vox_spec, lo, hi, s_bounds, m,
 
 
 def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
-                           attributes=None, bounds=None, m=3,
-                           backend="packed", precision="highest",
+                           attributes=None, exclude_radius=None,
+                           bounds=None, m=3, backend="packed",
+                           precision="highest", with_stats=False,
                            device="cuda"):
     """
     Multiscale features for every query point, on ``device`` (the card
@@ -160,10 +167,18 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     each radius, A columns a radius.  ``precision``: the reference's
     names (``kernel_precision``), for the extraction's kernel; the
     interp sums at "highest", as the reference's does.
+    ``exclude_radius``: leave out the search points closer than this to
+    the query (the reference's legacy self-exclusion: pairs with
+    ``d2 < f32(e*e)``), in the extraction's kernel of either backend;
+    the ``vector`` interp takes no exclusion, as in the reference.
 
     ``bounds``: fixed site (lo, hi) governing every grid; default the
     clouds' own bounds, with voxel grids anchored at the search bounds.
-    Returns an (n_query, width) float32 tensor.
+    Returns an (n_query, width) float32 tensor; with ``with_stats`` also
+    the overflow counters summed over the bands, as device scalars:
+    ``dropped_query`` (queries without an entry slot),
+    ``dropped_candidates`` (candidates past the packed capacity) and
+    ``interp_dropped`` (the ``vector`` interp's under-reads).
     """
     if backend == "xla":
         raise NotImplementedError(
@@ -212,6 +227,14 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
         attrs_dev = torch.from_numpy(_pad_rows_f32(attributes,
                                                    s_bucket)).to(device)
 
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    stats = dict.fromkeys(("dropped_query", "dropped_candidates",
+                           "interp_dropped"), zero)
+
+    def count(band_stats):
+        for key, value in band_stats.items():
+            stats[key] = stats[key] + value
+
     bands = []
     for edge, radii in scaleset:
         vox_spec = packing.GridSpec.fit_bounds(s_lo, s_hi, edge)
@@ -219,8 +242,10 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
         if kind == "vector":
             ispec, icap = _interp_packed_plan(search, vox_spec, lo, hi,
                                               (s_lo, s_hi), m)
-            centers, center_mask, center_attrs = interp.packed_interp(
-                search_dev, s_valid, attrs_dev, vox_spec, ispec, icap)
+            centers, center_mask, center_attrs, istats = \
+                interp.packed_interp(search_dev, s_valid, attrs_dev,
+                                     vox_spec, ispec, icap, with_stats=True)
+            count({"interp_dropped": istats["dropped_search"]})
         else:
             centers, _, center_mask = unique.unique_voxels(
                 search_dev, vox_spec, valid=s_valid)
@@ -229,13 +254,61 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
             voxel_edge=edge, entry_batch=256, x_seg=32)
         spec = device_grid.with_entry_estimate(spec, query)
         if backend == "pallas":
-            bands.append(device_grid.fused_extract_spans(
+            feats, band_stats = device_grid.fused_extract_spans(
                 query_dev, q_valid, centers, center_mask, spec, radii, kind,
-                n_query, precision=prec))
-            continue
-        cap = span_host.candidate_cap(
-            query, _host_unique_voxels(search, edge, bounds=bounds), spec)
-        bands.append(device_grid.fused_extract_packed(
-            query_dev, q_valid, centers, center_mask, spec, radii, kind,
-            n_query, int(cap), precision=prec, attributes=center_attrs))
-    return torch.cat(bands, dim=1)
+                n_query, with_stats=True, precision=prec,
+                exclude_radius=exclude_radius)
+        else:
+            cap = span_host.candidate_cap(
+                query, _host_unique_voxels(search, edge, bounds=bounds),
+                spec)
+            feats, band_stats = device_grid.fused_extract_packed(
+                query_dev, q_valid, centers, center_mask, spec, radii, kind,
+                n_query, int(cap), with_stats=True, precision=prec,
+                attributes=center_attrs, exclude_radius=exclude_radius)
+        count(band_stats)
+        bands.append(feats)
+    features = torch.cat(bands, dim=1)
+    return (features, stats) if with_stats else features
+
+
+def extract_scaleset_device(query, search, scaleset, kind="geometric", *,
+                            attributes=None, exclude_radius=None,
+                            method="auto", bounds=None, m=3,
+                            backend="packed", precision="highest",
+                            device="cuda"):
+    """
+    The reference's public extraction entry point, on the port's one
+    path: :func:`extract_scaleset_fused` (the other arguments are its).
+    ``method="fused"`` takes it; ``"auto"`` takes it where the reference
+    does (every band voxel-downsampled and at least ``TILED_THRESHOLD``
+    search points).  What the reference computes otherwise -- the dense
+    and tiled methods, and bands of voxel edge 0 -- is not ported: those
+    raise ``NotImplementedError``, they never fall back.  Returns an
+    (n_query, width) float32 tensor on ``device``.
+    """
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+    unported = "(ROADMAP.md Queue A #6, the XLA fallback and " \
+        "reference-parity paths)"
+    if any(float(edge) <= 0 for edge, _ in scaleset):
+        raise NotImplementedError(
+            f"bands of voxel edge 0 are not ported {unported}")
+    if method in ("dense", "tiled") or (
+            method == "auto"
+            and np.asarray(search).shape[0] < TILED_THRESHOLD):
+        raise NotImplementedError(
+            f"method={method!r} on {np.asarray(search).shape[0]} search "
+            f"points takes the reference's dense or tiled extraction, "
+            f"which is not ported {unported}")
+    return extract_scaleset_fused(
+        query, search, scaleset, kind, attributes=attributes,
+        exclude_radius=exclude_radius, bounds=bounds, m=m, backend=backend,
+        precision=precision, device=device)
+
+
+def extract_scaleset(query, search, scaleset, kind="geometric", **kwargs):
+    """As :func:`extract_scaleset_device` (the same arguments), as an
+    (n_query, width) float32 NumPy array."""
+    return extract_scaleset_device(query, search, scaleset, kind,
+                                   **kwargs).cpu().numpy()

@@ -516,17 +516,20 @@ def _bucket_problems(q_t, centers, starts, lens, sorted3, c_cap):
 
 
 def _bucketed_slabs(q_t, centers, starts, lens, sorted3, c_cap, radii,
-                    precision="highest", with_sazo=False, metric="euclidean"):
+                    precision="highest", with_sazo=False, metric="euclidean",
+                    exclude_radius=None):
     """Moment slabs for a slice of entries at one capacity or at split
     bucket capacities, in entry order (with the sazo rows for
     ``with_sazo``; ``sorted3`` columns past the coordinates are the
-    attribute rows).  Returns ``(slabs, dropped)``."""
+    attribute rows; pairs closer than ``exclude_radius`` left out).
+    Returns ``(slabs, dropped)``."""
     buckets, inv = _bucket_problems(q_t, centers, starts, lens, sorted3,
                                     c_cap)
     n_attr = sorted3.shape[1] - 3
-    slabs = [pm.packed_moments(q, cand_t, c, radii, precision=precision,
-                               with_sazo=with_sazo, n_attr=n_attr,
-                               metric=metric)
+    slabs = [pm.packed_moments(q, cand_t, c, radii,
+                               exclude_radius=exclude_radius,
+                               precision=precision, with_sazo=with_sazo,
+                               n_attr=n_attr, metric=metric)
              for q, cand_t, c, _ in buckets]
     dropped = sum(b[3] for b in buckets)
     if inv is None:
@@ -535,18 +538,20 @@ def _bucketed_slabs(q_t, centers, starts, lens, sorted3, c_cap, radii,
 
 
 def _band_blocks(kind, q_t, centers, starts, lens, sorted3, c_cap, radii,
-                 precision="highest", metric="euclidean"):
+                 precision="highest", metric="euclidean",
+                 exclude_radius=None):
     """Feature blocks of one band for a slice of entries; the sazo layout
     takes the kernel's sazo instance, the vector layout its attribute
     means (the columns of ``sorted3`` past the coordinates), one block
-    of A columns a radius."""
+    of A columns a radius; ``exclude_radius`` the exclusion instances."""
     from nimrud_tpu_torch.features import layouts
 
     sazo = layouts.needs_sazo(kind)
     n_attr = sorted3.shape[1] - 3
     slabs, dropped = _bucketed_slabs(q_t, centers, starts, lens, sorted3,
                                      c_cap, radii, precision=precision,
-                                     with_sazo=sazo, metric=metric)
+                                     with_sazo=sazo, metric=metric,
+                                     exclude_radius=exclude_radius)
     stats = moments_from_slabs(slabs, centers, radii, with_sazo=sazo,
                                n_attr=n_attr)
     if kind == "vector":
@@ -559,7 +564,8 @@ def _band_blocks(kind, q_t, centers, starts, lens, sorted3, c_cap, radii,
 
 
 def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
-                        kind, n_out, with_stats=False, precision="highest"):
+                        kind, n_out, with_stats=False, precision="highest",
+                        exclude_radius=None):
     """
     Padded clouds -> (n_out, width) features of one band through the
     span kernel ``span_moments``, in caller order: the kernel reads each
@@ -569,7 +575,9 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
     ``dropped_query`` (queries without an entry slot).  The span kernel
     has neither a sazo fold nor attribute rows: ``kind="sazo"`` and
     ``"vector"`` raise (the reference takes an XLA path there, not
-    ported).  ``precision``: "highest" or "bf16x2".
+    ported).  ``precision``: "highest" or "bf16x2".  ``exclude_radius``
+    leaves out the pairs with ``d2 < f32(e*e)`` (the kernel's exclusion
+    instance).
     """
     from nimrud_tpu_torch.features import layouts
 
@@ -585,7 +593,7 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
         prob["span_starts"].to(torch.int32).contiguous(),
         prob["span_lens"].to(torch.int32).contiguous(),
         prob["sorted_pts"].contiguous(), radii, prob["span_rows"],
-        precision=precision)
+        exclude_radius=exclude_radius, precision=precision)
     blocks = [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
                                   prob["q_pts"], radius)
               for p, radius in zip(moments_from_slabs(slabs, centers, radii),
@@ -600,7 +608,7 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
 def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
                          kind, n_out, c_cap, with_stats=False,
                          precision="highest", attributes=None,
-                         metric="euclidean"):
+                         metric="euclidean", exclude_radius=None):
     """
     Padded clouds -> (n_out, width) features of one band through the
     packed-candidate ``packed_moments`` kernel, in caller order.
@@ -613,7 +621,8 @@ def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
     kernel's attribute rows; ``kind="vector"`` then gives their masked
     means, A columns a radius.  ``metric="chebyshev"`` masks on the
     max-norm ball (the packed attribute interp).  ``precision``:
-    "highest" or "bf16x2".
+    "highest" or "bf16x2".  ``exclude_radius`` leaves out the pairs with
+    ``d2 < f32(e*e)`` (the kernel's exclusion instances; euclidean only).
     """
     if kind == "vector" and attributes is None:
         raise ValueError("kind='vector' requires attributes")
@@ -622,7 +631,7 @@ def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
     blocks, dropped = _band_blocks(
         kind, prob["q_t"], prob["centers"], prob["span_starts"],
         prob["span_lens"], _far_extended(prob["sorted_pts"]), c_cap, radii,
-        precision=precision, metric=metric)
+        precision=precision, metric=metric, exclude_radius=exclude_radius)
     feats = torch.cat(blocks, dim=-1)
     out = _unsort_features(feats, prob, spec, query.shape[0], n_out)
     if not with_stats:

@@ -18,8 +18,7 @@ reference-parity paths): the XLA moment path (``_entry_stats``,
 ``backend="xla"``), ``tiled_moments``, attributes and the ``vector``
 layout, the chebyshev metric, reduced precisions in the sums and the
 sazo layout (the entry kernel has neither a sazo fold nor attribute
-rows; the reference takes the XLA path for them).  ``exclude_radius``
-is ROADMAP.md Queue A #1, exclude_radius on the extraction paths.
+rows; the reference takes the XLA path for them).
 """
 
 from dataclasses import dataclass, field
@@ -229,8 +228,9 @@ def _gather_batch(query_pad, search_pad, candidates, batch):
 PRECISIONS = ("highest", "high", "default", "mixed")   # the reference's
 
 
-def tiled_features(problem, query, search, radii, kind, *, entry_batch=32,
-                   precision="highest", backend="pallas", device="cuda"):
+def tiled_features(problem, query, search, radii, kind, *,
+                   exclude_radius=None, entry_batch=32, precision="highest",
+                   backend="pallas", device="cuda"):
     """
     Feature extraction through the tile grid on ``device`` (the card
     unless the caller asks for the CPU): per entry batch the gather,
@@ -241,7 +241,9 @@ def tiled_features(problem, query, search, radii, kind, *, entry_batch=32,
     ``vector``, which needs attributes: it raises too).  ``precision``
     takes the reference's names (``PRECISIONS``); as in its
     ``backend="pallas"`` branch, the entry kernel's sums do not depend
-    on it (only the XLA path, not ported, reads it).
+    on it (only the XLA path, not ported, reads it).  ``exclude_radius``
+    leaves out the pairs whose clamped expanded ``d2`` is below
+    ``f32(e*e)`` (the entry kernel's exclusion instance).
     """
     from nimrud_tpu_torch.features import layouts
 
@@ -283,7 +285,8 @@ def tiled_features(problem, query, search, radii, kind, *, entry_batch=32,
             query_pad, search_pad, candidates,
             (q_index[sl], rows[sl], centers[sl]))
         slabs = mk.entry_moments(q_local.contiguous(), s_local.contiguous(),
-                                 s_valid.contiguous(), radii)
+                                 s_valid.contiguous(), radii,
+                                 exclude_radius=exclude_radius)
         feats.append(torch.cat(
             [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
                                  q_pts, radius)

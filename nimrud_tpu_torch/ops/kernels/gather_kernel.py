@@ -29,8 +29,9 @@ lo split, in the plain version as the reference sums it; the kernel
 computes that split for both).  Not ported (TPU-only): the lanes-major
 ``(4, n_pad)`` cloud and its 128-lane window alignment, the DMA ring,
 the per-step live-span compaction, ``entries_per_step``, the resident
-and debug modes.  ``exclude_radius`` raises ``NotImplementedError`` in
-both versions.
+and debug modes.  ``exclude_radius`` keeps only the pairs with
+``d2 >= f32(e*e)``, in both versions (the kernel's exclusion instance,
+counted in ``span_moments.excl_launches``).
 """
 
 import ctypes
@@ -40,19 +41,16 @@ import torch
 
 from nimrud_tpu_torch.ops.kernels import cuda_build
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import (
-    MOMENT_PAD, PAIR_BUDGET, check_launch, check_precision, check_radii,
-    check_tensors, masked_sum, moment_bound, padded_radii, slab_bytes,
+    DISTANCE_OPS, EXCLUSION_OPS, MOMENT_PAD, PAIR_BUDGET, check_launch,
+    check_precision, check_radii, check_tensors, exclusion_args,
+    exclusion_threshold, masked_sum, moment_bound, padded_radii, slab_bytes,
     slab_tolerance, squared_radii)
 
 MAX_SPANS = 256        # spans per entry the CUDA kernel takes ((m+2)^2)
 
 
 def _check(q_local, centers, span_starts, span_lens, sorted_pts, radii,
-           exclude_radius, precision):
-    if exclude_radius is not None:
-        raise NotImplementedError(
-            "span_moments is ported without exclude_radius (ROADMAP.md "
-            "Queue A #1, exclude_radius on the extraction paths)")
+           precision):
     check_precision(precision)
     check_radii(radii)
     if q_local.dim() != 3 or q_local.shape[2] != 3:
@@ -117,6 +115,7 @@ def span_moments_plain(q_local, centers, span_starts, span_lens, sorted_pts,
                    tile id.
       radii:       tuple of 1..4 radii.
       span_rows:   most live rows a span may hold.
+      exclude_radius: keep only the pairs with ``d2 >= f32(e*e)``.
       precision:   "highest" (one f32 ``matmul``) or "bf16x2" (the rows'
                    terms split into bf16 hi + mid + lo, three
                    exact-product ``matmul``s summed in that order).
@@ -126,14 +125,14 @@ def span_moments_plain(q_local, centers, span_starts, span_lens, sorted_pts,
       sxx, sxy, sxz, syy, syz, szz, 0 x 6] in the entry-local frame.
     """
     n_entries, q_cap, _ = _check(q_local, centers, span_starts, span_lens,
-                                 sorted_pts, radii, exclude_radius,
-                                 precision)
+                                 sorted_pts, radii, precision)
     n_r = len(radii)
     dev = q_local.device
     out = torch.zeros((n_entries, q_cap, n_r * MOMENT_PAD),
                       dtype=torch.float32, device=dev)
     r2 = [torch.tensor(float(v), dtype=torch.float32, device=dev)
           for v in squared_radii(radii)]
+    e2 = exclusion_threshold(exclude_radius)
     for sl in _entry_chunks(n_entries, q_cap, span_lens, span_rows):
         src, valid = _span_rows_of(span_starts, span_lens, span_rows,
                                    sorted_pts.shape[0], sl)
@@ -144,10 +143,13 @@ def span_moments_plain(q_local, centers, span_starts, span_lens, sorted_pts,
         dz = q[:, :, 2, None] - z[:, None, :]
         d2 = dx * dx + dy * dy + dz * dz
         del dx, dy, dz
+        keep = valid[:, None, :]
+        if e2 is not None:
+            keep = keep & (d2 >= e2)
         aug = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y,
                            x * z, y * y, y * z, z * z], dim=2)
         for ri in range(n_r):
-            mask = ((d2 <= r2[ri]) & valid[:, None, :]).to(torch.float32)
+            mask = ((d2 <= r2[ri]) & keep).to(torch.float32)
             out[sl, :, ri * MOMENT_PAD:ri * MOMENT_PAD + 10] = \
                 masked_sum(mask, aug, precision)
     return out
@@ -172,17 +174,20 @@ def span_tolerance(slabs, centers, span_starts, span_lens, sorted_pts,
 
 
 def span_moments_work(q_local, centers, span_starts, span_lens, sorted_pts,
-                      radii, span_rows):
+                      radii, span_rows, exclude_radius=None):
     """:func:`multiscale_kernel.moment_bound` of one call: live span rows
     x q_cap pairs; bytes are the queries, centers and span tables read
     once, each live row's 3 coordinates read once and the slabs written
-    once."""
+    once; ``exclude_radius`` adds its compare and select to each pair's
+    distance operations."""
     n_entries, q_cap = q_local.shape[:2]
     live = int(torch.clamp(span_lens.to(torch.int64), 0, span_rows).sum())
     n_bytes = 4 * (q_local.numel() + centers.numel() + span_starts.numel()
                    + span_lens.numel() + 3 * live) \
         + slab_bytes(n_entries, q_cap, len(radii))
-    return moment_bound(live * q_cap, len(radii), n_bytes)
+    ops = DISTANCE_OPS + (0 if exclude_radius is None else EXCLUSION_OPS)
+    return moment_bound(live * q_cap, len(radii), n_bytes,
+                        distance_ops=ops)
 
 
 @functools.lru_cache(maxsize=None)
@@ -190,8 +195,8 @@ def _launcher():
     fn = cuda_build.library("span_moments").span_moments_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -200,15 +205,17 @@ def span_moments(q_local, centers, span_starts, span_lens, sorted_pts, radii,
     """Raw masked moment slabs over candidate spans (see
     :func:`span_moments_plain` for the arguments and layout).  CPU
     tensors take the plain version; CUDA tensors launch the Hopper
-    kernel, or raise.  Both precisions launch the same kernel (see
+    kernel (its exclusion instance with ``exclude_radius``), or raise.
+    Both precisions launch the same kernel (see
     :func:`packed_moments.packed_moments`)."""
     n_entries, q_cap, n_span = _check(
         q_local, centers, span_starts, span_lens, sorted_pts, radii,
-        exclude_radius, precision)
+        precision)
     device = q_local.device
     if device.type == "cpu":
         return span_moments_plain(q_local, centers, span_starts, span_lens,
                                   sorted_pts, radii, span_rows,
+                                  exclude_radius=exclude_radius,
                                   precision=precision)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -227,10 +234,14 @@ def span_moments(q_local, centers, span_starts, span_lens, sorted_pts, radii,
         q_local.data_ptr(), centers.data_ptr(), span_starts.data_ptr(),
         span_lens.data_ptr(), sorted_pts.data_ptr(), out.data_ptr(),
         n_entries, q_cap, n_span, int(span_rows), sorted_pts.shape[0],
-        len(radii), *padded_radii(radii), device.index or 0,
-        torch.cuda.current_stream(device).cuda_stream))
-    span_moments.launches += 1
+        len(radii), *exclusion_args(exclude_radius), *padded_radii(radii),
+        device.index or 0, torch.cuda.current_stream(device).cuda_stream))
+    if exclude_radius is None:
+        span_moments.launches += 1
+    else:
+        span_moments.excl_launches += 1
     return out
 
 
 span_moments.launches = 0
+span_moments.excl_launches = 0

@@ -26,7 +26,10 @@ fixed order, ``qq = (q0*q0 + q1*q1) + q2*q2`` (``ss`` alike) and
 the kernel and the plain version give equal counts.  No matmul forms
 ``qs``: a library's summation order for K=3 is not fixed.  A NaN query
 or candidate counts nowhere (``d2 <= r^2`` is false), as in the
-reference.
+reference.  ``exclude_radius`` keeps the pairs whose clamped ``d2`` is
+at least ``f32(e*e)`` (:func:`exclusion_threshold`): the clamp matters
+there, since a pair whose ``d2`` rounds below 0 passes ``e = 0`` only
+clamped, and it propagates a NaN, so a NaN pair still fails.
 """
 
 import ctypes
@@ -50,6 +53,8 @@ CUDA_CORE_OPS = 132 * 128 * 1.98e9
 TENSOR_FLOPS = 989e12
 HBM_BYTES = 3.35e12
 DISTANCE_OPS = 8        # difference form: 3 sub, 3 mul, 2 add, none fused
+EXCLUSION_OPS = 2       # exclude_radius: a compare and a select a pair
+CLAMP_OPS = 1           # the expanded form's max(d2, 0) in that test
 SPLIT_TERMS = 3         # bf16 hi + mid + lo of each moment term
 MOMENT_COLS = 10        # count and the nine moment terms of a slab
 MAX_ATTR = MOMENT_PAD - MOMENT_COLS   # attribute rows a slab can carry
@@ -112,6 +117,21 @@ def squared_radii(radii):
     """f32(r*r) with r*r in float64, exactly as the reference compares
     ``d2 <= radius * radius`` against a Python float."""
     return [np.float32(float(r) * float(r)) for r in radii]
+
+
+def exclusion_threshold(exclude_radius):
+    """f32(e*e) with e*e in float64, as the reference compares ``d2 >=
+    exclude_radius * exclude_radius`` (:func:`squared_radii`); None
+    without an exclusion."""
+    if exclude_radius is None:
+        return None
+    return float(squared_radii([exclude_radius])[0])
+
+
+def exclusion_args(exclude_radius):
+    """The kernels' ``exclude, e2`` arguments."""
+    e2 = exclusion_threshold(exclude_radius)
+    return (0, 0.0) if e2 is None else (1, e2)
 
 
 def padded_radii(radii):
@@ -179,11 +199,7 @@ def slab_tolerance(slabs, extent, n_terms, attr_extent=None):
 
 # -- entry_moments ------------------------------------------------------------
 
-def _check_entry(q_local, s_local, s_valid, radii, exclude_radius):
-    if exclude_radius is not None:
-        raise NotImplementedError(
-            "entry_moments is ported without exclude_radius (ROADMAP.md "
-            "Queue A #1, exclude_radius on the extraction paths)")
+def _check_entry(q_local, s_local, s_valid, radii):
     check_radii(radii)
     if q_local.dim() != 3 or q_local.shape[2] != 3:
         raise ValueError(f"q_local must be (E, Q, 3), got "
@@ -216,18 +232,21 @@ def entry_moments_plain(q_local, s_local, s_valid, radii,
       s_local: (E, F, 3) f32 candidates, entry-local frame.
       s_valid: (E, F) bool candidate validity.
       radii:   tuple of 1..4 radii.
+      exclude_radius: keep only the pairs with ``max(d2, 0) >=
+               f32(e*e)`` (the reference's clamp, NaN-propagating:
+               ``torch.clamp``; a NaN pair fails).
 
     Returns:
       (E, Q, len(radii) * 16) f32: per radius [count, sx, sy, sz, sxx,
       sxy, sxz, syy, syz, szz, 0 x 6]; invalid candidates add nothing.
     """
-    n_entries, q_cap, flat = _check_entry(q_local, s_local, s_valid, radii,
-                                          exclude_radius)
+    n_entries, q_cap, flat = _check_entry(q_local, s_local, s_valid, radii)
     n_r = len(radii)
     out = torch.zeros((n_entries, q_cap, n_r * MOMENT_PAD),
                       dtype=torch.float32, device=q_local.device)
     r2 = [torch.tensor(float(v), dtype=torch.float32, device=q_local.device)
           for v in squared_radii(radii)]
+    e2 = exclusion_threshold(exclude_radius)
     ones = s_valid.to(torch.float32)
     x, y, z = s_local.unbind(-1)
     aug = torch.stack([ones, x, y, z, x * x, x * y, x * z, y * y, y * z,
@@ -243,8 +262,12 @@ def entry_moments_plain(q_local, s_local, s_valid, radii,
         d2 = torch.clamp((qq[sl, :, None] + ss[sl, None, :]) - 2.0 * qs,
                          min=0.0)
         del qs
+        keep = None if e2 is None else d2 >= e2
         for ri in range(n_r):
-            mask = (d2 <= r2[ri]).to(torch.float32)
+            inside = d2 <= r2[ri]
+            if keep is not None:
+                inside &= keep
+            mask = inside.to(torch.float32)
             out[sl, :, ri * MOMENT_PAD:ri * MOMENT_PAD + 10] = \
                 torch.matmul(mask, aug[sl])
     return out
@@ -256,36 +279,44 @@ def entry_tolerance(slabs, s_local, s_valid):
     return slab_tolerance(slabs, extent.amax(dim=(1, 2)), s_local.shape[1])
 
 
-def entry_moments_work(q_local, s_local, s_valid, radii):
+def entry_moments_work(q_local, s_local, s_valid, radii,
+                       exclude_radius=None):
     """:func:`moment_bound` of one ``entry_moments`` call: valid
     candidates x Q pairs, each an expanded-form distance of 8 f32
     operations (``qs`` 5, ``qq + ss`` 1, ``2 qs`` 1, the difference 1;
     the clamp ``max(d2, 0)`` cannot change ``d2 <= r^2`` for
-    ``r^2 >= 0``, so the test needs none)."""
+    ``r^2 >= 0``, so the test needs none); ``exclude_radius`` adds the
+    exclusion test's compare and select and its clamp, 3 more."""
     n_entries, q_cap = q_local.shape[:2]
     n_bytes = (4 * (q_local.numel() + s_local.numel()) + s_valid.numel()
                + slab_bytes(n_entries, q_cap, len(radii)))
-    return moment_bound(int(s_valid.sum()) * q_cap, len(radii), n_bytes)
+    ops = DISTANCE_OPS
+    if exclude_radius is not None:
+        ops += EXCLUSION_OPS + CLAMP_OPS
+    return moment_bound(int(s_valid.sum()) * q_cap, len(radii), n_bytes,
+                        distance_ops=ops)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = cuda_build.library("entry_moments").entry_moments_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
 def entry_moments(q_local, s_local, s_valid, radii, exclude_radius=None):
     """Raw masked moments (see :func:`entry_moments_plain` for the
     arguments and layout).  CPU tensors take the plain version; CUDA
-    tensors launch the Hopper kernel, or raise."""
-    n_entries, q_cap, flat = _check_entry(q_local, s_local, s_valid, radii,
-                                          exclude_radius)
+    tensors launch the Hopper kernel (its exclusion instance with
+    ``exclude_radius``, counted in ``entry_moments.excl_launches``), or
+    raise."""
+    n_entries, q_cap, flat = _check_entry(q_local, s_local, s_valid, radii)
     device = q_local.device
     if device.type == "cpu":
-        return entry_moments_plain(q_local, s_local, s_valid, radii)
+        return entry_moments_plain(q_local, s_local, s_valid, radii,
+                                   exclude_radius)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     check_tensors(device, q_local=q_local, s_local=s_local)
@@ -297,13 +328,17 @@ def entry_moments(q_local, s_local, s_valid, radii, exclude_radius=None):
     check_launch("entry_moments", _launcher()(
         q_local.data_ptr(), s_local.data_ptr(), s_valid.data_ptr(),
         out.data_ptr(), n_entries, q_cap, flat, len(radii),
-        *padded_radii(radii), device.index or 0,
-        torch.cuda.current_stream(device).cuda_stream))
-    entry_moments.launches += 1
+        *exclusion_args(exclude_radius), *padded_radii(radii),
+        device.index or 0, torch.cuda.current_stream(device).cuda_stream))
+    if exclude_radius is None:
+        entry_moments.launches += 1
+    else:
+        entry_moments.excl_launches += 1
     return out
 
 
 entry_moments.launches = 0
+entry_moments.excl_launches = 0
 
 
 def moments_from_slabs(slabs, centers, radii, with_sazo=False, n_attr=0):

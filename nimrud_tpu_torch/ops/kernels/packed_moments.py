@@ -27,14 +27,16 @@ and the chebyshev metric (``max(|dx|, |dy|, |dz|) <= r``, the packed
 attribute interp's ball) with attribute rows, at ``precision="highest"``
 or ``"bf16x2"`` (the plain version sums bf16 hi + mid + lo parts as the
 reference does; the kernel computes that split for both precisions).
-``exclude_radius`` raises ``NotImplementedError`` in both versions
-(ROADMAP.md Queue A #1, exclude_radius on the extraction paths); sazo
-with attributes, and chebyshev with sazo or ``exclude_radius``, raise
-``ValueError`` as in the reference.  Launch counts, one per instance
-family: ``packed_moments.launches`` (euclidean, no sazo, no
-attributes), ``sazo_launches`` (the sazo instance), ``attr_launches``
-(euclidean with attribute rows: the vector extraction) and
-``interp_launches`` (chebyshev: the packed attribute interp).
+``exclude_radius`` keeps only the pairs with ``f32(e*e) <= d2`` (the
+reference's legacy self-exclusion) in the euclidean instances, with or
+without sazo or attribute rows; sazo with attributes, and chebyshev
+with sazo or ``exclude_radius``, raise ``ValueError`` as in the
+reference.  Launch counts, one per instance family:
+``packed_moments.launches`` (euclidean, no sazo, no attributes),
+``sazo_launches`` (the sazo instance), ``attr_launches`` (euclidean
+with attribute rows: the vector extraction), ``interp_launches``
+(chebyshev: the packed attribute interp), and the exclusion instances
+``excl_launches``, ``excl_sazo_launches`` and ``excl_attr_launches``.
 """
 
 import ctypes
@@ -44,10 +46,10 @@ import torch
 
 from nimrud_tpu_torch.ops.kernels import cuda_build
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import (
-    DISTANCE_OPS, MAX_ATTR, MOMENT_COLS, MOMENT_PAD, PAIR_BUDGET,
-    check_launch, check_precision, check_radii, check_tensors,
-    chebyshev_radii, masked_sum, moment_bound, padded_radii, slab_bytes,
-    slab_tolerance, squared_radii)
+    DISTANCE_OPS, EXCLUSION_OPS, MAX_ATTR, MOMENT_COLS, MOMENT_PAD,
+    PAIR_BUDGET, check_launch, check_precision, check_radii, check_tensors,
+    chebyshev_radii, exclusion_args, exclusion_threshold, masked_sum,
+    moment_bound, padded_radii, slab_bytes, slab_tolerance, squared_radii)
 
 LANES = 128            # c_cap granularity (the packing contract)
 FAR = 1.0e6            # dead-slot sentinel: d2 >= 1e12 fails every
@@ -80,10 +82,6 @@ def _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
     if not 0 <= n_attr <= MAX_ATTR:
         raise ValueError(
             f"packed kernel fits at most {MAX_ATTR} attributes")
-    if exclude_radius is not None:
-        raise NotImplementedError(
-            "packed_moments is ported without exclude_radius (ROADMAP.md "
-            "Queue A #1, exclude_radius on the extraction paths)")
     check_precision(precision)
     check_radii(radii)
 
@@ -141,6 +139,9 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
       metric:  "euclidean" (``dx*dx + dy*dy + dz*dz <= f32(r*r)``) or
                "chebyshev" (``max(|dx|, |dy|, |dz|) <= f32(r)``, the
                maximum propagating a NaN as ``jnp.maximum`` does).
+      exclude_radius: euclidean only: keep only the pairs with
+               ``d2 >= f32(e*e)`` (e*e in float64, as the reference),
+               in every radius and in the sazo folds.
 
     Returns:
       (E, q_cap, len(radii) * 16) f32: per radius [count, sx, sy, sz,
@@ -156,6 +157,7 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
                       dtype=torch.float32, device=q_t.device)
     limits = [torch.tensor(v, dtype=torch.float32, device=q_t.device)
               for v in _thresholds(radii, metric)]
+    e2 = exclusion_threshold(exclude_radius)
     cand = cand_t.view(3 + n_attr, n_entries, c_cap)
     width = MOMENT_COLS + n_attr
     chunk = max(1, PAIR_BUDGET // max(q_cap * c_cap, 1))
@@ -175,11 +177,14 @@ def packed_moments_plain(q_t, cand_t, centers, radii, exclude_radius=None,
         del dx, dy
         neg_dz = -dz if with_sazo else None
         del dz
+        keep = None if e2 is None else dist >= e2
         aug = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y,
                            x * z, y * y, y * z, z * z]
                           + list(cand[3:, sl].unbind(0)), dim=2)
         for ri in range(n_r):
             inside = dist <= limits[ri]
+            if keep is not None:
+                inside &= keep
             row = ri * MOMENT_PAD
             out[sl, :, row:row + width] = masked_sum(
                 inside.to(torch.float32), aug, precision)
@@ -211,15 +216,16 @@ def moment_tolerance(slabs, cand_t, centers, n_attr=0):
 
 
 def packed_moments_work(q_t, cand_t, centers, radii, with_sazo=False,
-                        n_attr=0, metric="euclidean"):
+                        n_attr=0, metric="euclidean", exclude_radius=None):
     """:func:`multiscale_kernel.moment_bound` of one call: live lanes
     (not the FAR sentinel) x q_cap pairs; bytes are the inputs read once
     and the slabs written once.  The distance term counts the
     instance's own formula: ``DISTANCE_OPS`` for the euclidean test,
     ``CHEBYSHEV_OPS`` for the max-norm one; ``with_sazo`` adds the
     fold's masked max and min, ``SAZO_OPS`` CUDA-core operations a pair
-    and radius (the z difference is the distance's own).  The tensor
-    term sums 10 + ``n_attr`` columns."""
+    and radius (the z difference is the distance's own);
+    ``exclude_radius`` its compare and select, ``EXCLUSION_OPS`` a
+    pair.  The tensor term sums 10 + ``n_attr`` columns."""
     n_entries, q_cap, _ = _shapes(q_t, cand_t, centers, n_attr)
     live = int((cand_t[:3] != FAR).any(0).sum())
     n_bytes = 4 * (q_t.numel() + cand_t.numel() + centers.numel()) \
@@ -228,6 +234,8 @@ def packed_moments_work(q_t, cand_t, centers, radii, with_sazo=False,
         ops = CHEBYSHEV_OPS
     else:
         ops = DISTANCE_OPS + (SAZO_OPS * len(radii) if with_sazo else 0)
+        if exclude_radius is not None:
+            ops += EXCLUSION_OPS
     return moment_bound(live * q_cap, len(radii), n_bytes,
                         distance_ops=ops, n_attr=n_attr)
 
@@ -236,8 +244,8 @@ def packed_moments_work(q_t, cand_t, centers, radii, with_sazo=False,
 def _launcher():
     fn = cuda_build.library("packed_moments").packed_moments_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -245,8 +253,8 @@ def _launcher():
 def _attr_launcher():
     fn = cuda_build.library("packed_moments").packed_attr_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -258,14 +266,16 @@ def packed_moments(q_t, cand_t, centers, radii, exclude_radius=None,
     tensors launch the Hopper kernel -- its sazo instance with
     ``with_sazo``, an attribute instance with ``n_attr`` (the B operand
     widened to :func:`attr_slots` rows), a chebyshev instance (one
-    radius, 1, 4 or 6 attribute rows) for ``metric="chebyshev"`` -- or
-    raise.  Both precisions launch the same kernel: its tensor-core sums
-    take the bf16x2 split, whose exact products make it an f32 sum in
-    another order."""
+    radius, 1, 4 or 6 attribute rows) for ``metric="chebyshev"``, the
+    exclusion instance of each euclidean family with
+    ``exclude_radius`` -- or raise.  Both precisions launch the same
+    kernel: its tensor-core sums take the bf16x2 split, whose exact
+    products make it an f32 sum in another order."""
     _check_variant(radii, exclude_radius, precision, with_sazo, n_attr,
                    metric)
     if q_t.device.type == "cpu":
         return packed_moments_plain(q_t, cand_t, centers, radii,
+                                    exclude_radius=exclude_radius,
                                     precision=precision,
                                     with_sazo=with_sazo, n_attr=n_attr,
                                     metric=metric)
@@ -287,24 +297,22 @@ def packed_moments(q_t, cand_t, centers, radii, exclude_radius=None,
     device = q_t.device.index or 0
     pointers = (q_t.data_ptr(), cand_t.data_ptr(), centers.data_ptr(),
                 out.data_ptr())
+    excl = "" if exclude_radius is None else "excl_"
     if n_attr or chebyshev:
         limits = chebyshev_radii(radii) if chebyshev \
             else padded_radii(radii)
         check_launch("packed_moments", _attr_launcher()(
             *pointers, n_entries, q_cap, c_cap, n_r, n_attr, int(chebyshev),
-            *limits, device, stream))
-        if chebyshev:
-            packed_moments.interp_launches += 1
-        else:
-            packed_moments.attr_launches += 1
-        return out
-    check_launch("packed_moments", _launcher()(
-        *pointers, n_entries, q_cap, c_cap, n_r, int(bool(with_sazo)),
-        *padded_radii(radii), device, stream))
-    if with_sazo:
-        packed_moments.sazo_launches += 1
+            *exclusion_args(exclude_radius), *limits, device, stream))
+        family = "interp_launches" if chebyshev else "attr_launches"
     else:
-        packed_moments.launches += 1
+        check_launch("packed_moments", _launcher()(
+            *pointers, n_entries, q_cap, c_cap, n_r, int(bool(with_sazo)),
+            *exclusion_args(exclude_radius), *padded_radii(radii), device,
+            stream))
+        family = "sazo_launches" if with_sazo else "launches"
+    family = excl + family
+    setattr(packed_moments, family, getattr(packed_moments, family) + 1)
     return out
 
 
@@ -312,3 +320,6 @@ packed_moments.launches = 0
 packed_moments.sazo_launches = 0
 packed_moments.attr_launches = 0
 packed_moments.interp_launches = 0
+packed_moments.excl_launches = 0
+packed_moments.excl_sazo_launches = 0
+packed_moments.excl_attr_launches = 0

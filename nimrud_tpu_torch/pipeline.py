@@ -18,6 +18,13 @@ plan and the ``span_moments`` kernel, its features return to caller
 order, and the classifier runs on all bands' features.  Only labels
 (and the overflow counters) leave the device.
 
+A model with ``exclude_radius`` (the reference's legacy self-exclusion)
+never takes the fused serving step, as in the reference: ``fit`` and
+``predict_device`` / ``predict`` extract through
+``multiscale.extract_scaleset_fused(exclude_radius=...)`` (the packed
+kernel's exclusion instances, one fused extraction per band), then the
+classifier's ``proba_device`` and an argmax; ``stage`` raises.
+
 The port has one path: configurations it does not carry raise
 (``NotImplementedError``), they never fall back to another method.
 """
@@ -217,16 +224,21 @@ class GeometryClassifier:
                   mapped onto it); "bf16x2" needs ``backend`` named
                   "packed" or "pallas".  Fit extracts at "highest", as
                   the reference does.
+      exclude_radius: leave out the search points closer than this to
+                  each query (the reference's legacy self-exclusion).
+                  Such a model fits and predicts through the per-band
+                  packed extraction (:meth:`extract_device`), whatever
+                  its ``backend``: it has no staged serving step.
       vector_s_cap: accepted for the reference's API; the packed
                   interp sizes its capacities on the host instead.
       device:     the torch device everything runs on.
     """
 
     def __init__(self, scaleset, kind="minimal", classifier="linear",
-                 classifier_kwargs=None, transfer_dtype="float32",
-                 vector_s_cap=32, bounds=None, trim_entries=False,
-                 backend="auto", precision="highest", tile_m=3,
-                 device="cuda"):
+                 classifier_kwargs=None, exclude_radius=None,
+                 transfer_dtype="float32", vector_s_cap=32, bounds=None,
+                 trim_entries=False, backend="auto", precision="highest",
+                 tile_m=3, device="cuda"):
         self.scaleset = [(float(e), tuple(float(r) for r in rs))
                          for e, rs in scaleset]
         if any(edge <= 0 for edge, _ in self.scaleset):
@@ -254,6 +266,8 @@ class GeometryClassifier:
                 "precision='bf16x2' needs backend='pallas' or 'packed' "
                 "(named explicitly, not 'auto')")
         self.precision = precision
+        self.exclude_radius = None if exclude_radius is None \
+            else float(exclude_radius)
         self.vector_s_cap = int(vector_s_cap)
         self._backend = "packed" if backend == "auto" else backend
         if transfer_dtype not in ("float32", "uint16"):
@@ -295,16 +309,32 @@ class GeometryClassifier:
             return None
         return multiscale.check_attributes(attributes, n_points)
 
-    def extract_device(self, cloud, search=None, attributes=None):
+    def extract_device(self, cloud, search=None, attributes=None,
+                       with_stats=False):
         """Multiscale features for every point, as a tensor on
         ``self.device``, on the serving grids when ``bounds`` is fixed
         (``vector``: through the same packed attribute interp as
-        serving, so the fit features are the served features)."""
+        serving, so the fit features are the served features), without
+        the pairs closer than ``exclude_radius``.  ``with_stats`` adds
+        the extraction's overflow counters (``COUNTERS``, device
+        scalars)."""
         _self_search(cloud, search)
         attributes = self._check_attributes(attributes, len(cloud))
-        return multiscale.extract_scaleset_fused(
+        out = multiscale.extract_scaleset_fused(
             cloud, cloud, self.scaleset, self.kind, attributes=attributes,
-            bounds=self.bounds, m=self.tile_m, device=self.device)
+            exclude_radius=self.exclude_radius, bounds=self.bounds,
+            m=self.tile_m, with_stats=with_stats, device=self.device)
+        if not with_stats:
+            return out
+        features, stats = out
+        diag = dict.fromkeys(COUNTERS, torch.zeros(
+            (), dtype=torch.int64, device=self.device))
+        diag.update(stats)
+        return features, diag
+
+    def extract(self, cloud, search=None, attributes=None):
+        """:meth:`extract_device` as a NumPy array."""
+        return self.extract_device(cloud, search, attributes).cpu().numpy()
 
     # -- training -------------------------------------------------------------
 
@@ -329,7 +359,8 @@ class GeometryClassifier:
             features, torch.as_tensor(labels.astype(np.int64),
                                       device=self.device),
             n_classes=n_classes)
-        self._size_serving(cloud, self._attr_width(attributes))
+        if self.exclude_radius is None:     # no staged serving to size
+            self._size_serving(cloud, self._attr_width(attributes))
         return self
 
     def install_classifier(self, classifier, fit_cloud, attributes=None):
@@ -340,7 +371,8 @@ class GeometryClassifier:
         self.classifier = classifier
         self._spec_cache = None
         self._stage_spec_cache = {}
-        self._size_serving(fit_cloud, self._attr_width(attributes))
+        if self.exclude_radius is None:
+            self._size_serving(fit_cloud, self._attr_width(attributes))
         return self
 
     def _attr_width(self, attributes):
@@ -486,7 +518,14 @@ class GeometryClassifier:
         """Host prep + upload of one cloud: quantize (uint16) or pad, and
         copy to the device, with its attribute columns for ``vector``
         (padded to the same bucket, float32).  Returns the staged handle
-        for :meth:`predict_staged`."""
+        for :meth:`predict_staged`.  A model with ``exclude_radius`` has
+        no staged step (the reference's ``stage`` returns None for it):
+        it raises."""
+        if self.exclude_radius is not None:
+            raise ValueError(
+                "a model with exclude_radius has no staged serving step: "
+                "serve it with predict_device or predict (per-band "
+                "extraction, then the classifier)")
         _self_search(cloud, search)
         attributes = self._check_attributes(attributes, len(cloud))
         cloud = np.asarray(cloud, dtype=np.float32)[:, :3]
@@ -536,15 +575,40 @@ class GeometryClassifier:
             out = out + (diag,)
         return out if len(out) > 1 else labels
 
-    def predict_device(self, cloud, search=None, attributes=None):
-        """Per-point class labels as a device tensor."""
-        return self.predict_staged(self.stage(cloud, search, attributes))
+    def predict_proba_device(self, cloud, search=None, attributes=None):
+        """Class probabilities of every point through
+        :meth:`extract_device` and the classifier, as a device tensor."""
+        return self.classifier.proba_device(
+            self.extract_device(cloud, search, attributes))
+
+    def predict_proba(self, cloud, search=None, attributes=None):
+        """:meth:`predict_proba_device` as a NumPy array."""
+        return self.predict_proba_device(cloud, search,
+                                         attributes).cpu().numpy()
+
+    def predict_device(self, cloud, search=None, attributes=None,
+                       with_diag=False):
+        """Per-point class labels as a device tensor (with
+        ``with_diag`` also the overflow counters, as
+        :meth:`predict_staged` gives them).  A model with
+        ``exclude_radius`` takes its own path: the per-band extraction,
+        the classifier, argmax."""
+        if self.exclude_radius is not None:
+            features, diag = self.extract_device(cloud, search, attributes,
+                                                 with_stats=True)
+            labels = torch.argmax(self.classifier.proba_device(features),
+                                  dim=1).to(torch.int32)
+        else:
+            labels, diag = self.predict_staged(
+                self.stage(cloud, search, attributes), with_diag=True)
+        return (labels, diag) if with_diag else labels
 
     def predict(self, cloud, search=None, attributes=None):
         """Per-point class labels as a NumPy array; warns when the
-        cloud overflowed the model's fixed capacities."""
-        labels, diag = self.predict_staged(
-            self.stage(cloud, search, attributes), with_diag=True)
+        cloud overflowed the model's fixed capacities (or, with
+        ``exclude_radius``, the extraction's capacities)."""
+        labels, diag = self.predict_device(cloud, search, attributes,
+                                           with_diag=True)
         dropped = {k: int(v) for k, v in diag.items() if int(v) > 0}
         if dropped:
             warnings.warn(

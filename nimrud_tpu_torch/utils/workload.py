@@ -36,7 +36,11 @@ def make_bench_model(cloud, backend="packed", epochs=10, kind="minimal",
     ``device``; ``backend`` "packed" or "pallas" (span serving).
     ``kind`` is the feature layout, "minimal" for the headline workload;
     the port serves "geometric", "oriented", "covariance", "eigen" and
-    (packed only) "sazo" too, everything else identical."""
+    (packed only) "sazo" and "vector" too, everything else identical.
+    ``kwargs`` go to ``GeometryClassifier``: ``exclude_radius=e`` makes
+    the legacy self-exclusion model, which fits and predicts through the
+    per-band extraction (``predict_device`` / ``predict``; its
+    ``stage`` raises)."""
     from nimrud_tpu_torch.pipeline import GeometryClassifier
 
     scaleset = [(edge, (radius,))

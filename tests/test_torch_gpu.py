@@ -1,10 +1,11 @@
 """
 Tests that need a CUDA card (marker ``gpu``): the hand-written Hopper
 kernels (``packed_moments`` and its sazo, attribute and chebyshev
-instances, ``span_moments``, ``entry_moments``) against their plain
-PyTorch twins on the card, and small serving runs of both backends (and
-of the ``vector`` layout) on the card against the same model on the
-CPU.
+instances, ``span_moments``, ``entry_moments``, and the
+``exclude_radius`` instances of all three) against their plain PyTorch
+twins on the card, and small serving runs of both backends (and of the
+``vector`` layout and an ``exclude_radius`` model) on the card against
+the same model on the CPU.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -23,6 +24,7 @@ from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 from nimrud_tpu_torch.utils import workload
 from torch_entry_cases import entry_problem, with_nan
+import torch_exclude_cases as excl
 
 pytestmark = pytest.mark.gpu
 
@@ -411,6 +413,137 @@ def _serve_card_and_cpu(cuda, backend, kind):
     a, pa = gpu.predict_staged(gpu.stage(cloud, attributes=attrs),
                                with_proba=True)
     b = cpu.predict_staged(cpu.stage(cloud, attributes=attrs))
+    top2 = torch.sort(pa.cpu(), dim=1).values[:, -2:]
+    near_tie = (top2[:, 1] - top2[:, 0]) < 1e-4
+    differ = a.cpu() != b
+    assert not bool((differ & ~near_tie).any())
+    assert int(differ.sum()) <= 0.001 * len(cloud)
+
+
+# -- exclude_radius -----------------------------------------------------------
+
+EXCL_COUNTS = ("launches", "sazo_launches", "attr_launches",
+               "interp_launches", "excl_launches", "excl_sazo_launches",
+               "excl_attr_launches")
+
+
+def _bit_equal(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("variant", ["plain", "sazo", "attr1", "attr4",
+                                     "attr6"])
+@pytest.mark.parametrize("exclude_radius", excl.EXCLUDE_RADII)
+@pytest.mark.parametrize("precision", ["highest", "bf16x2"])
+def test_packed_exclusion_matches_plain_on_card(cuda, variant,
+                                                exclude_radius, precision):
+    kw = {"plain": {}, "sazo": {"with_sazo": True}, "attr1": {"n_attr": 1},
+          "attr4": {"n_attr": 4}, "attr6": {"n_attr": 6}}[variant]
+    arrays = excl.packed_problem(37, 130, 256, (0.5, 1.0), seed=11,
+                                 n_attr=kw.get("n_attr", 0))
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    family = "excl_" + ("sazo_launches" if "with_sazo" in kw
+                        else "attr_launches" if "n_attr" in kw
+                        else "launches")
+    before = {k: getattr(pm.packed_moments, k) for k in EXCL_COUNTS}
+    got = pm.packed_moments(*args, (0.5, 1.0), exclude_radius=exclude_radius,
+                            precision=precision, **kw)
+    torch.cuda.synchronize()
+    after = {k: getattr(pm.packed_moments, k) for k in EXCL_COUNTS}
+    assert after == {**before, family: before[family] + 1}
+    ref = pm.packed_moments_plain(*args, (0.5, 1.0),
+                                  exclude_radius=exclude_radius,
+                                  precision=precision, **kw)
+    assert torch.equal(got[..., 0::16], ref[..., 0::16])
+    assert ref[..., 0::16].max() > 0
+    live = slice(0, 36)                  # the last entry holds NaN
+    tol = pm.moment_tolerance(ref[live], args[1][:, :36 * 256], args[2][live],
+                              n_attr=kw.get("n_attr", 0))
+    assert bool(((got[live] - ref[live]).abs() <= tol).all())
+    if "with_sazo" in kw:
+        for row in (10, 11):
+            assert torch.equal(got[live, :, row::16], ref[live, :, row::16])
+    if exclude_radius == 0.0:
+        # the same mask and the same sum order as without the exclusion
+        _bit_equal(got, pm.packed_moments(*args, (0.5, 1.0),
+                                          precision=precision, **kw))
+
+
+@pytest.mark.parametrize("exclude_radius", excl.EXCLUDE_RADII)
+@pytest.mark.parametrize("precision", ["highest", "bf16x2"])
+def test_span_exclusion_matches_plain_on_card(cuda, exclude_radius,
+                                              precision):
+    args = [torch.from_numpy(a).to(cuda) for a in
+            excl.span_problem(41, 130, 25, 40, (0.5, 1.0), seed=9)]
+    before = (gk.span_moments.launches, gk.span_moments.excl_launches)
+    got = gk.span_moments(*args, (0.5, 1.0), 40,
+                          exclude_radius=exclude_radius, precision=precision)
+    torch.cuda.synchronize()
+    assert (gk.span_moments.launches, gk.span_moments.excl_launches) \
+        == (before[0], before[1] + 1)
+    ref = gk.span_moments_plain(*args, (0.5, 1.0), 40,
+                                exclude_radius=exclude_radius,
+                                precision=precision)
+    assert torch.equal(got[..., 0::16], ref[..., 0::16])
+    assert ref[..., 0::16].max() > 0
+    tol = gk.span_tolerance(ref, *args[1:], 40)
+    assert bool(((got - ref).abs() <= tol).all())
+    if exclude_radius == 0.0:
+        _bit_equal(got, gk.span_moments(*args, (0.5, 1.0), 40,
+                                        precision=precision))
+
+
+@pytest.mark.parametrize("exclude_radius", excl.EXCLUDE_RADII)
+@pytest.mark.parametrize("q_cap,flat,radii", [
+    (512, 1000, (0.5,)), (130, 5000, (0.5, 1.0, 1.5)),
+    (64, 300, (0.5, 1.0, 1.5, 2.0))])
+def test_entry_exclusion_matches_plain_on_card(cuda, exclude_radius, q_cap,
+                                               flat, radii):
+    args = [torch.from_numpy(a).to(cuda) for a in
+            excl.entry_problem(19, q_cap, flat, radii, seed=q_cap)]
+    before = (mk.entry_moments.launches, mk.entry_moments.excl_launches)
+    got = mk.entry_moments(*args, radii, exclude_radius=exclude_radius)
+    torch.cuda.synchronize()
+    assert (mk.entry_moments.launches, mk.entry_moments.excl_launches) \
+        == (before[0], before[1] + 1)
+    ref = mk.entry_moments_plain(*args, radii,
+                                 exclude_radius=exclude_radius)
+    assert torch.equal(got[..., 0::16], ref[..., 0::16])
+    assert ref[1:, :, 0::16].max() > 0
+    tol = mk.entry_tolerance(ref, args[1], args[2])
+    assert bool(((got - ref).abs() <= tol).all())
+    if exclude_radius == 0.0:
+        _bit_equal(got, mk.entry_moments(*args, radii))
+
+
+@pytest.mark.parametrize("exclude_radius", [0.0, 1e-30])
+def test_entry_exclusion_clamps_negative_d2_on_card(cuda, exclude_radius):
+    q, s, valid, d2 = excl.clamp_problem()
+    assert d2 < 0
+    got = mk.entry_moments(*(torch.from_numpy(a).to(cuda)
+                             for a in (q, s, valid)), (0.5,),
+                           exclude_radius=exclude_radius)
+    # the negative-d2 pair counts (max.NaN clamp); the NaN query and the
+    # NaN candidate count nowhere
+    assert got[0, 0, 0].item() == 1
+    assert got[0, 1:, 0].abs().sum().item() == 0
+
+
+def test_exclusion_serving_on_card_matches_cpu(cuda):
+    cloud, labels = workload.make_bench_cloud(30000, seed=0)
+    gpu = workload.make_bench_model(cloud, device=cuda, exclude_radius=0.1)
+    before = pm.packed_moments.excl_launches
+    gpu.fit(cloud, labels, sample=15000)
+    assert pm.packed_moments.excl_launches > before
+    clf = gpu.classifier
+    cpu = workload.make_bench_model(cloud, device="cpu", exclude_radius=0.1)
+    cpu.install_classifier(SoftmaxClassifier.from_state(
+        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
+        clf.scale_.cpu(), device="cpu"), cloud)
+    a, diag = gpu.predict_device(cloud, with_diag=True)
+    assert all(int(v) == 0 for v in diag.values())
+    pa = gpu.predict_proba_device(cloud)
+    b = cpu.predict_device(cloud)
     top2 = torch.sort(pa.cpu(), dim=1).values[:, -2:]
     near_tie = (top2[:, 1] - top2[:, 0]) < 1e-4
     differ = a.cpu() != b

@@ -275,15 +275,20 @@ def test_work_and_bound_from_the_inputs():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"exclude_radius": 0.1}, {"exclude_radius": 0.0},
-    {"exclude_radius": 0.25, "with_sazo": True}])
+    {"exclude_radius": 0.1, "metric": "chebyshev", "n_attr": 1},
+    {"exclude_radius": 0.0, "metric": "chebyshev", "n_attr": 1},
+    {"exclude_radius": 0.25, "with_sazo": True, "n_attr": 1}])
 def test_unported_variants_raise(kwargs):
+    # exclude_radius is ported (tests/test_torch_exclude_kernels.py); the
+    # variants the reference refuses with it still raise ValueError
     q_t, cand_t, centers = _problem(1, 16, 128, (0.5,), seed=0)
     args = (torch.from_numpy(q_t), torch.from_numpy(cand_t),
             torch.from_numpy(centers), (0.5,))
     for fn in (tpm.packed_moments, tpm.packed_moments_plain):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             fn(*args, **kwargs)
+        out = fn(*args, exclude_radius=kwargs["exclude_radius"])
+        assert out.shape == (1, 16, MOMENT_PAD)
 
 
 def test_unknown_precision_raises():

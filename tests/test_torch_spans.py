@@ -224,14 +224,17 @@ def test_extract_scaleset_fused_span_backend_matches_reference():
 
 @pytest.mark.parametrize("kwargs", [{"exclude_radius": 0.1}])
 def test_unported_variants_raise(kwargs):
+    # exclude_radius is ported (tests/test_torch_exclude_kernels.py): the
+    # wrapper serves it on the CPU with the twin; an unknown precision
+    # still raises, with or without it
     args = [torch.from_numpy(a) for a in
             _exact_problem(1, 8, 4, 8, (0.5,), seed=0)]
+    assert torch.equal(tgk.span_moments(*args, (0.5,), 8, **kwargs),
+                       tgk.span_moments_plain(*args, (0.5,), 8, **kwargs))
     for fn in (tgk.span_moments, tgk.span_moments_plain):
-        with pytest.raises(NotImplementedError):
-            fn(*args, (0.5,), 8, **kwargs)
-    for fn in (tgk.span_moments, tgk.span_moments_plain):
-        with pytest.raises(ValueError, match="precision"):
-            fn(*args, (0.5,), 8, precision="bf16")
+        for extra in ({}, kwargs):
+            with pytest.raises(ValueError, match="precision"):
+                fn(*args, (0.5,), 8, precision="bf16", **extra)
 
 
 def _random_problem(n_entries, q_cap, n_span, span_rows, seed):
