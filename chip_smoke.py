@@ -22,6 +22,18 @@ Phases, one or more lines each:
               without and with the sazo fold, ``packed_attr_excl_kernel``
               at 1-4 radii and 1, 4 or 6 slots; 8 of the two others: 1-4
               radii without and with the exclusion).
+2b. native -- the C++ host runtime (``ops/native.py``, csrc/tilesort.cpp):
+              its g++ build, then each of its eight functions against
+              its NumPy twin on the 1M-point bench cloud, bit for bit,
+              with both host times: ``quantize_u16`` (and on a cloud of
+              exact half-step ties), ``minmax3``, ``tile_sort`` at
+              factors 1 and 3 on band 0's serving grid, the tables of
+              ``build_tiled_problem`` at band 0 (``fill_table``,
+              ``mark_neighbors``, ``neighbor_rows``), ``voxel_unique``
+              at the three band edges, ``parse_ascii`` of the cloud as
+              CSV text.  Then ``stage`` of the packed model with
+              ``impl="numpy"`` and native on the three clouds of phase
+              4 (uploads equal), host ms to synchronize.
 3. kernel  -- the CUDA ``packed_moments`` against its plain PyTorch twin
               on the card, at the packed path's shapes (serving: q_cap
               512, band-0 capacity buckets; fit: q_cap 256), at both
@@ -41,6 +53,21 @@ Phases, one or more lines each:
               2).  All overflow counters 0, ``packed_moments`` launched
               in fit and in serving, accuracy > 0.8; per-step host time
               ending in ``synchronize``; peak device memory.
+4b. designated -- designated-search streamed serving (the reference's
+              ``scripts/bench_designated.py``): the fitted model's
+              ``stage_search`` of the cloud, map overflow 0; the cloud
+              and two 1 cm jitters of it (``default_rng(7)``) through
+              ``predict_stream(..., staged_search=handle)``, counted
+              from zero: only ``packed_moments`` launched (its launches
+              a step printed), labels equal to the per-cloud
+              ``stage(c, search=map)`` labels exactly, accuracy > 0.8,
+              counters 0; the handle build time, each step's ms
+              (staging + ``predict_staged`` to synchronize) and the
+              stream's wall time per cloud against that loop's.  Then
+              ``sazo`` and ``vector`` designated at 100k points
+              (``vector`` with the bench attributes on the map), and
+              ``minimal`` designated card against CPU at 100k (labels
+              differ only at near-ties).
 5. span    -- the span path: ``make_bench_model(backend="pallas")``
               serving the same three clouds with the packed model's
               classifier (``install_classifier``).  ``span_moments``
@@ -140,7 +167,7 @@ instances of each kernel too (``excl_launches``, ``excl_sazo_launches``,
 ``excl_attr_launches``), listed with the suffix ``_excl``.
 
 With ``--profile DIR`` a profile phase runs after the serving steps of
-phases 4 and 5, after the tiled runs of phase 6 and after the vector
+phases 4, 4b and 5, after the tiled runs of phase 6 and after the vector
 run of phase 7: ``torch.profiler`` over three steady serving steps of
 that backend or layout (clouds staged before the window) or three
 ``tiled_features`` runs of band 0, printing device
@@ -310,7 +337,7 @@ def _staged_band0(model, cloud, device):
     from nimrud_tpu_torch import pipeline
     from nimrud_tpu_torch.features import multiscale
 
-    band = model._fused_band_specs(cloud)[0]
+    band = model._fused_band_specs(cloud, cloud)[0]
     q_bucket = multiscale._pow2_bucket(len(cloud))
     quant, dequant = pipeline._quantize_upload(
         cloud, model.bounds[0], model.bounds[1], q_bucket, device)
@@ -1110,7 +1137,8 @@ def _vector_problems(model, cloud, attrs, device):
     from nimrud_tpu_torch.features import multiscale
     from nimrud_tpu_torch.ops import device_grid, interp, unique
 
-    band = model._fused_band_specs(cloud, attr_width=attrs.shape[1])[0]
+    band = model._fused_band_specs(cloud, cloud,
+                                    attr_width=attrs.shape[1])[0]
     vox, dev, radii, ispec, icap, c_cap = band
     q_bucket = multiscale._pow2_bucket(len(cloud))
     quant, dequant = pipeline._quantize_upload(
@@ -1716,6 +1744,268 @@ def _profile_phase(tag, stem, steps, out_dir):
               f"{name[:90]}", flush=True)
 
 
+def _host_ms(fn, repeat=3):
+    """Least host ms of ``repeat`` calls of ``fn``, and its last result."""
+    best, out = None, None
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        out = fn()
+        ms = 1e3 * (time.perf_counter() - t0)
+        best = ms if best is None else min(best, ms)
+    return best, out
+
+
+def _same_bits(a, b):
+    """Equal dtype, shape and bits, element-wise through tuples and the
+    tiled plan's tables."""
+    import numpy as np
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_same_bits, a, b))
+    if hasattr(a, "query_index"):
+        return all(_same_bits(getattr(a, f), getattr(b, f))
+                   for f in ("query_index", "neighbor_rows", "candidates",
+                             "entry_centers")) and a.stats == b.stats
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+def _native_phase(model, cloud, clouds, device):
+    """The C++ host runtime: its build, each of its eight functions
+    against its NumPy twin on the bench cloud, bit for bit, with both
+    host times (least of three calls); then ``stage`` of the packed model
+    with ``impl="numpy"`` and native on the three clouds."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.ops import grid, native
+
+    t0 = time.perf_counter()
+    native.library()
+    runtimes = sorted({line.split()[-1] for line in open("/proc/self/maps")
+                       if "libgomp" in line or "libiomp" in line})
+    print(f"[native] g++ build and load {time.perf_counter() - t0:.2f} s: "
+          f"{os.path.basename(native.library_path())}; OpenMP runtimes "
+          f"{runtimes}", flush=True)
+    lo, hi = model.bounds
+    spec = model._fused_band_specs(cloud, cloud)[0][1]
+    q_bucket = multiscale._pow2_bucket(len(cloud))
+    step = max(float((hi.astype(np.float64) - lo).max()), 1e-6) / 65000.0
+    rng = np.random.default_rng(5)
+    ties = ((rng.integers(0, 64999, (len(cloud), 3)) + 0.5) / 64
+            ).astype(np.float32)
+    search = multiscale._host_unique_voxels(cloud, model.scaleset[0][0],
+                                            bounds=model.bounds)
+    text = "\n".join(f"{x:.5f},{y:.5f},{z:.5f}"
+                     for x, y, z in cloud.tolist()).encode()
+    cases = [
+        ("quantize_u16", lambda impl: native.quantize_u16(
+            cloud, lo, step, pad_to=q_bucket, impl=impl)),
+        ("quantize_u16 ties", lambda impl: native.quantize_u16(
+            ties, np.zeros(3), 1 / 64, pad_to=q_bucket, impl=impl)),
+        ("minmax3", lambda impl: native.minmax3(cloud, impl=impl))]
+    cases += [(f"tile_sort m={m}", lambda impl, m=m: native.tile_sort(
+        cloud, spec.lo, spec.tile_edge, spec.dims, m, impl=impl))
+        for m in (1, 3)]
+    cases.append((
+        "build_tiled_problem band 0 (fill_table, mark_neighbors, "
+        "neighbor_rows)", lambda impl: grid.build_tiled_problem(
+            cloud, search, max(model.scaleset[0][1]), query_tile_factor=3,
+            entry_batch=TILED_BATCH, impl=impl)))
+    cases += [(f"voxel_unique edge {edge}",
+               lambda impl, edge=edge: multiscale._host_unique_voxels(
+                   cloud, edge, bounds=model.bounds, impl=impl))
+              for edge, _ in model.scaleset]
+    cases.append(("parse_ascii", lambda impl: native.parse_ascii(
+        text, impl=impl)))
+    results = {}
+    for what, fn in cases:
+        native_ms, results[what] = _host_ms(lambda: fn("native"))
+        numpy_ms, twin = _host_ms(lambda: fn("numpy"), 1)
+        print(f"[native] {what}: bit-equal to the NumPy twin; host ms "
+              f"native {native_ms:.3f}, numpy {numpy_ms:.3f}", flush=True)
+        _check(_same_bits(results[what], twin),
+               f"native {what} differs from its twin")
+    # ties round up: half to even would give other steps on many rows
+    even = np.round(ties.astype(np.float64) * 64)
+    moved = (even != results["quantize_u16 ties"][:len(ties)]).any(1).mean()
+    print(f"[native] tie cloud: {moved:.4f} of rows round otherwise half "
+          "to even", flush=True)
+    _check(moved > 0.3, "the tie cloud has no ties")
+
+    model.stage(cloud)                         # sizes and caches the specs
+    rows = []
+    for c in clouds:
+        staged = {}
+        for impl in ("numpy", "native", "native", "numpy"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = model.stage(c, impl=impl)
+            torch.cuda.synchronize()
+            staged.setdefault(impl, []).append(
+                (1e3 * (time.perf_counter() - t0), st["query"]))
+        _check(all(torch.equal(q, staged["numpy"][0][1])
+                   for impl in staged for _, q in staged[impl]),
+               "stage uploads differ between native and numpy")
+        rows.append(tuple(min(ms for ms, _ in staged[impl])
+                          for impl in ("numpy", "native")))
+    print("[native] stage of the packed model, host ms to synchronize "
+          "(numpy twin, native; least of two each): "
+          + "; ".join(f"{a:.3f}, {b:.3f}" for a, b in rows), flush=True)
+
+
+def _designated_phase(model, cloud, truth, device, profile_dir=None):
+    """Designated-search streamed serving (the reference's
+    ``scripts/bench_designated.py``): the fitted packed model's
+    ``stage_search`` of the fit cloud (a copy, so no query is the map
+    itself), overflow 0; three clouds (the cloud, then two 1 cm jitters
+    of it from ``default_rng(7)``) through ``predict_stream``, counted
+    from zero: only the plain ``packed_moments`` launched; labels equal
+    to the per-cloud ``stage(c, search=map)`` labels exactly, accuracy
+    > 0.8, every counter 0; then the handle's steps one at a time
+    (staging plus ``predict_staged`` to synchronize), and the stream's
+    wall time per cloud against that sequential loop's; with a
+    ``profile_dir``, three handle steps profiled (staged before the
+    window).  Then the small designated runs (``_designated_small``).
+    Returns the launches a step."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.pipeline import COUNTERS
+
+    search = cloud.copy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = model.stage_search(search)
+    torch.cuda.synchronize()
+    handle_s = time.perf_counter() - t0
+    overflow = model.search_overflow(handle)
+    _check(overflow == {"vox_dropped": 0, "interp_dropped": 0},
+           f"designated map overflow {overflow}")
+    rng = np.random.default_rng(7)
+    clouds = [cloud] + [(cloud + rng.normal(0, 0.01, cloud.shape))
+                        .astype(np.float32) for _ in range(2)]
+    list(model.predict_stream(clouds, staged_search=handle))     # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    streamed = list(model.predict_stream(clouds, staged_search=handle))
+    torch.cuda.synchronize()
+    stream_ms = 1e3 * (time.perf_counter() - t0) / len(clouds)
+    counts = _counts()
+    _only(counts, ("packed_moments",), "the designated stream")
+    _check(counts["packed_moments"] > 0, "the designated stream launched "
+           "no packed_moments")
+    steps, diags, distinct_ms = [], [], []
+    for c, got in zip(clouds, streamed):
+        t0 = time.perf_counter()
+        staged = model.stage(c, staged_search=handle)
+        t1 = time.perf_counter()
+        labels, diag = model.predict_staged(staged, with_diag=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        steps.append((1e3 * (t2 - t0), 1e3 * (t1 - t0), 1e3 * (t2 - t1)))
+        diags.append({k: int(v) for k, v in diag.items()})
+        t0 = time.perf_counter()
+        distinct = model.predict_staged(model.stage(c, search=search))
+        torch.cuda.synchronize()
+        distinct_ms.append(1e3 * (time.perf_counter() - t0))
+        _check(torch.equal(got, labels) and torch.equal(got, distinct),
+               "designated labels differ: stream, staged handle and "
+               "stage(c, search=map) must agree exactly")
+    accs = _check_served("designated", diags,
+                         [g.cpu() for g in streamed], [truth] * len(clouds))
+    _check(set(diags[0]) == set(COUNTERS), f"counters {diags[0]}")
+    sequential_ms = sum(t for t, _, _ in steps) / len(steps)
+    per_step = counts["packed_moments"] / len(clouds)
+    print(f"[designated] stage_search {handle_s:.3f} s, overflow "
+          f"{overflow}; stream of {len(clouds)} clouds: "
+          f"{per_step:g} packed_moments launches a step, wall "
+          f"{stream_ms:.3f} ms a cloud against {sequential_ms:.3f} ms a "
+          f"step one at a time; steps ms (total, stage, predict+sync): "
+          f"{_steps_text(steps)}; stage(c, search=map) + predict_staged "
+          "ms: " + ", ".join(f"{t:.3f}" for t in distinct_ms)
+          + "; labels equal to it; accuracy "
+          + ", ".join(f"{a:.4f}" for a in accs) + f"; counters {diags}; "
+          f"launches {counts}", flush=True)
+    if profile_dir:
+        staged = [model.stage(c, staged_search=handle) for c in clouds]
+        _profile_phase("[profile designated]", "serving_designated",
+                       [lambda s=s: model.predict_staged(s)
+                        for s in staged], profile_dir)
+    _designated_small(device)
+    return per_step
+
+
+def _designated_small(device):
+    """Designated search at E2E_POINTS: ``sazo`` and ``vector`` fitted
+    against a copy of the cloud as the map (``vector`` with the bench
+    attributes on the map), served through a handle, each counted from
+    zero (only the sazo instance; only the attribute instance, the
+    interp having run at ``stage_search``): labels equal to
+    ``stage(c, search=map)``'s, counters 0, accuracy > 0.8.  Then
+    ``minimal`` on the card against the same classifier on the CPU,
+    each through its own handle: labels differ only at near-ties, at
+    most MAX_FLIPS."""
+    import torch
+    from nimrud_tpu_torch.utils import workload
+
+    small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
+    other, other_labels = workload.make_bench_cloud(E2E_POINTS, seed=1)
+    search = small.copy()
+    for kind, mine in (("sazo", ("packed_moments_sazo",)),
+                       ("vector", ("packed_moments_attr",))):
+        attrs = workload.make_bench_attributes(small_labels) \
+            if kind == "vector" else None
+        model = workload.make_bench_model(small, kind=kind, device=device)
+        model.fit(small, small_labels, search=search,
+                  sample=E2E_POINTS // 2, attributes=attrs)
+        handle = model.stage_search(search, attributes=attrs)
+        overflow = model.search_overflow(handle)
+        torch.cuda.synchronize()
+        _reset_counts()
+        labels, diag = model.predict_staged(
+            model.stage(small, staged_search=handle), with_diag=True)
+        torch.cuda.synchronize()
+        counts = _counts()
+        distinct = model.predict_staged(model.stage(small, search=search,
+                                                    attributes=attrs))
+        _check(torch.equal(labels, distinct), f"designated {kind}: handle "
+               "labels differ from stage(c, search=map)'s")
+        diag = {k: int(v) for k, v in diag.items()}
+        accs = _check_served(f"designated {kind}", [diag], [labels.cpu()],
+                             [small_labels])
+        _check(overflow == {"vox_dropped": 0, "interp_dropped": 0},
+               f"designated {kind} map overflow {overflow}")
+        _only(counts, mine, f"designated {kind}")
+        _check(all(counts[k] > 0 for k in mine), f"designated {kind}: "
+               f"{mine} did not run")
+        print(f"[designated] {kind} at {E2E_POINTS}: labels equal to "
+              f"stage(c, search=map)'s; accuracy {accs[0]:.4f}; counters "
+              f"{diag}; map overflow {overflow}; launches {counts}",
+              flush=True)
+    gpu = workload.make_bench_model(small, device=device)
+    gpu.fit(small, small_labels, search=search, sample=E2E_POINTS // 2)
+    cpu = workload.make_bench_model(small, device="cpu")
+    cpu.install_classifier(_on_cpu(gpu.classifier), small, search=search)
+    g_lab, g_prob = gpu.predict_staged(
+        gpu.stage(other, staged_search=gpu.stage_search(search)),
+        with_proba=True)
+    t0 = time.perf_counter()
+    c_lab = cpu.predict_staged(cpu.stage(other,
+                                         staged_search=cpu.stage_search(
+                                             search)))
+    cpu_s = time.perf_counter() - t0
+    near_tie = _top2_gap(g_prob.cpu()) < TIE_GAP
+    differ = g_lab.cpu() != c_lab
+    print(f"[designated] minimal card vs cpu at {E2E_POINTS}: "
+          f"{int(differ.sum())} labels differ, {int(near_tie.sum())} "
+          f"near-ties; cpu serve {cpu_s:.2f} s", flush=True)
+    _check(not bool((differ & ~near_tie).any()),
+           "designated: card and cpu labels differ away from near-ties")
+    _check(int(differ.sum()) <= MAX_FLIPS * E2E_POINTS,
+           "designated: too many label flips")
+
+
 def _build_phase(cuda_build):
     """Build every kernel, all nvcc processes together; print ptxas's
     usage and the tensor-core instructions of each template instance.
@@ -1770,6 +2060,10 @@ def main():
 
     cloud, labels = workload.make_bench_cloud(N_POINTS, seed=0)
     model = workload.make_bench_model(cloud, device=device)
+    served = [workload.make_bench_cloud(N_POINTS, seed=s) for s in (0, 1, 2)]
+    clouds = [c for c, _ in served]
+    truths = [t for _, t in served]
+    _native_phase(model, cloud, clouds, device)
     record = dict(zip(("packed_moments", "packed_moments_sazo"),
                       _packed_kernel_phase(model, cloud, device)))
     print("[kernel] SM clock, max SM clock: "
@@ -1783,9 +2077,6 @@ def main():
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = _counts()
-    served = [workload.make_bench_cloud(N_POINTS, seed=s) for s in (0, 1, 2)]
-    clouds = [c for c, _ in served]
-    truths = [t for _, t in served]
     steps, packed_labels, _, diags = _serve(model, clouds)
     counts = _counts()
     serve_launches = counts["packed_moments"] \
@@ -1805,13 +2096,16 @@ def main():
     launches = {"packed_moments": counts["packed_moments"]}
     if args.profile:
         _serving_profile(model, args.profile)
+    designated_step = _designated_phase(model, cloud, labels, device,
+                                        args.profile)
 
     launches["span_moments"], record["span_moments"] = _span_phase(
         model, packed_labels, clouds, truths, cloud, device, args.profile)
     launches["entry_moments"], record["entry_moments"], band0 = \
         _tiled_phase(model, cloud, device, args.profile)
     print(f"[launches] packed_moments: fit {fit_counts['packed_moments']}, "
-          f"serving {serve_launches / len(clouds):g} a step; span_moments "
+          f"serving {serve_launches / len(clouds):g} a step, designated "
+          f"serving {designated_step:g} a step; span_moments "
           f"{launches['span_moments'] / len(clouds):g} a step; entry_moments "
           f"{launches['entry_moments']} a tiled run ({len(model.scaleset)} "
           "bands)", flush=True)

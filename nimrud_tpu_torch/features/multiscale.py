@@ -3,8 +3,8 @@ Multiscale feature extraction of the port (the packed and span
 branches of ``nimrud_tpu/features/multiscale.py:extract_scaleset_fused``,
 its public entry points ``extract_scaleset_device`` / ``extract_scaleset``
 on that fused path, plus the host helpers they need, copied:
-``_pow2_bucket``, ``_pad_rows_f32``, the NumPy branch of
-``_host_unique_voxels``, ``_voxel_occupancy_cap`` and
+``_pow2_bucket``, ``_pad_rows_f32``, ``_host_unique_voxels`` (on the
+C++ host runtime, ``ops.native``), ``_voxel_occupancy_cap`` and
 ``_interp_packed_plan``).
 
 For each band ``(voxel_edge, radii)`` the search cloud is
@@ -19,8 +19,8 @@ of those center attributes over each radius.
 import numpy as np
 import torch
 
-from nimrud_tpu_torch.ops import (device_grid, interp, packing, span_host,
-                                  unique)
+from nimrud_tpu_torch.ops import (device_grid, interp, native, packing,
+                                  span_host, unique)
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import MAX_ATTR
 
 TILED_THRESHOLD = 16384   # search points from which the reference's
@@ -78,31 +78,24 @@ def _pad_rows_f32(array, target):
     return out
 
 
-def _host_unique_voxels(search, edge, bounds=None):
-    """Host voxel downsample -> float32 centers sorted by voxel address.
+def _host_unique_voxels(search, edge, bounds=None, impl="native"):
+    """Host voxel downsample -> float32 centers sorted by voxel address,
+    through the C++ host runtime (``impl="numpy"``: its twin).
 
     ``bounds``: explicit (lo, hi) grid anchor (default: the search
     cloud's own bounds); fixed-bounds models pass theirs so fit-time
     voxelization matches the serving grid exactly."""
-    s64 = search.astype(np.float64)
+    search = np.asarray(search, np.float32)[:, :3]
     if bounds is None:
-        b_lo, b_hi = s64.min(0), s64.max(0)
+        b_lo, b_hi = (b.astype(np.float64)
+                      for b in native.minmax3(search, impl=impl))
     else:
         b_lo = np.asarray(bounds[0], np.float64)
         b_hi = np.asarray(bounds[1], np.float64)
     origin = b_lo - edge / 2
     span = (b_hi + edge / 2) - origin
     dims = np.maximum(np.ceil(span / edge).astype(np.int64), 1)
-    cell = np.clip(np.floor((s64 - origin) / edge).astype(np.int64),
-                   0, dims - 1)
-    addr = (cell[:, 0] + cell[:, 1] * dims[0]
-            + cell[:, 2] * dims[0] * dims[1])
-    cell = np.unique(addr)
-    cx = cell % dims[0]
-    cy = (cell // dims[0]) % dims[1]
-    cz = cell // (dims[0] * dims[1])
-    return (origin[None, :] + (np.stack([cx, cy, cz], axis=1) + 0.5)
-            * edge).astype(np.float32)
+    return native.voxel_unique(search, origin, edge, dims, impl=impl)
 
 
 def _voxel_occupancy_cap(search, spec):

@@ -19,8 +19,9 @@ Every gather clamps its indices where the reference relied on XLA's
 implicit clamping (CUDA index kernels assert instead).
 
 Host sizing (``DeviceGridSpec``, ``make_spec``, ``estimate_entries``,
-``with_entry_estimate``) is the reference's NumPy, copied; the native
-C++ tile sort is not used (NumPy branch only).
+``with_entry_estimate``) is the reference's, copied: the entry estimate
+counts populations with the C++ host runtime's tile sort
+(``ops.native``).
 """
 
 import dataclasses
@@ -29,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nimrud_tpu_torch.ops import native
 from nimrud_tpu_torch.ops.grid import _pow2
 from nimrud_tpu_torch.ops.packing import scalar
 from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
@@ -106,17 +108,21 @@ def make_spec(bounds_lo, bounds_hi, tile_edge, *, n_query, m=3, q_cap=128,
 
 def estimate_entries(query, spec):
     """Host-exact entry demand: the sum of ceil(population / q_cap) over
-    occupied coarse-row segments (the reference's NumPy branch)."""
+    occupied coarse-row segments, the populations from the host
+    runtime's tile sort."""
     query = np.asarray(query, np.float32)
     lo = np.asarray(spec.lo, np.float64)
     dims = np.asarray(spec.dims, np.int64)
-    cell = np.clip(
-        np.floor((query.astype(np.float64) - lo) / spec.tile_edge
-                 ).astype(np.int64), 0, dims - 1) // spec.m
-    qd = np.asarray(spec.qdims, np.int64)
-    ids = cell[:, 0] + cell[:, 1] * qd[0] + cell[:, 2] * qd[0] * qd[1]
-    counts = np.bincount(ids, minlength=int(qd.prod()))
     qd = spec.qdims
+    got = native.tile_sort(query, lo, spec.tile_edge, dims, spec.m)
+    if got is not None:
+        counts = got[2]
+    else:                        # a coarse grid past int32 ids
+        cell = np.clip(
+            np.floor((query.astype(np.float64) - lo) / spec.tile_edge
+                     ).astype(np.int64), 0, dims - 1) // spec.m
+        ids = cell[:, 0] + cell[:, 1] * qd[0] + cell[:, 2] * qd[0] * qd[1]
+        counts = np.bincount(ids, minlength=int(np.prod(qd)))
     x_seg = max(min(spec.x_seg, qd[0]), 1)
     if x_seg > 1:
         nseg_x, _ = spec.seg_shape
@@ -293,7 +299,8 @@ def _shared_span_rows(plan, spec):
     return int(np.ceil(x_seg * ratio) + slop) * spec.s_cap
 
 
-def _band_spans(plan, search, s_valid, spec, attrs=None, presorted=False):
+def _band_spans(plan, search, s_valid, spec, attrs=None, presorted=False,
+                tables=None):
     """Candidate x-row spans of one band's fine grid against a (possibly
     coarser-grained) shared entry packing: per entry, one contiguous
     span of the tile-sorted search rows for every (dy, dz) row of its
@@ -301,14 +308,20 @@ def _band_spans(plan, search, s_valid, spec, attrs=None, presorted=False):
     (E, n_rows^2), ``sorted_pts`` (with ``attrs`` as columns 3..3+A)
     and ``clipped``, the live rows past ``span_rows`` that the lengths
     drop (the reference clips them silently; the port counts them with
-    the candidates past the capacity)."""
+    the candidates past the capacity).
+
+    ``tables``: this band's precomputed :func:`_search_tables` (a
+    designated search map); ``search``, ``s_valid`` and ``attrs`` are
+    then unused.  Like ``presorted`` a trust contract: the tables come
+    from this band's spec."""
     n_grid = spec.n_grid
     dims = spec.dims
     count = plan["count"]
     tx_lo, tx_hi = plan["tx_lo"], plan["tx_hi"]
     ty, tz = plan["ty"], plan["tz"]
-    tables = _search_tables(search, s_valid, spec, attrs=attrs,
-                            presorted=presorted)
+    if tables is None:
+        tables = _search_tables(search, s_valid, spec, attrs=attrs,
+                                presorted=presorted)
 
     ratio = plan["coarse_edge"] / float(spec.tile_edge)
     span_rows = _shared_span_rows(plan, spec)
@@ -645,7 +658,7 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
                                pack_spec, band_specs, radii_bands, kind,
                                c_caps, reduce_fn, with_stats=False,
                                presorted=False, precision="highest",
-                               attributes=None):
+                               attributes=None, search_tables=None):
     """
     All bands of a scaleset over ONE shared query plan: ``_pack_plan``
     runs once on ``pack_spec`` (the finest band's grid), every band
@@ -667,18 +680,31 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
     sorted with their payloads, as in the reference.  ``kind="vector"``
     gives each band's attribute means, A columns a radius.
     ``precision``: "highest" or "bf16x2".
+
+    ``search_tables`` (one :func:`_search_tables` a band, from a
+    designated search map) replace each band's search rows:
+    ``searches``, ``s_valids`` and ``attributes`` are then ignored, and
+    a table's columns past the coordinates are its attributes.
     """
     plan = _pack_plan(query, q_valid, pack_spec)
-    attributes = attributes or (None,) * len(band_specs)
-    if kind == "vector" and any(a is None for a in attributes):
+    n_bands = len(band_specs)
+    attributes = attributes or (None,) * n_bands
+    search_tables = search_tables or (None,) * n_bands
+    if search_tables[0] is not None:
+        searches = s_valids = attributes = (None,) * n_bands
+        n_attrs = [t["sorted_pts"].shape[1] - 3 for t in search_tables]
+    else:
+        n_attrs = [0 if a is None else a.shape[1] for a in attributes]
+    if kind == "vector" and min(n_attrs) == 0:
         raise ValueError("kind='vector' requires attributes in every band")
     dropped = query.new_zeros((), dtype=torch.int64)
     blocks = []
-    for search, s_valid, spec, radii, c_cap, attrs in zip(
+    for search, s_valid, spec, radii, c_cap, attrs, tables in zip(
             searches, s_valids, band_specs, radii_bands, c_caps,
-            attributes):
+            attributes, search_tables):
         band = _band_spans(plan, search, s_valid, spec, attrs=attrs,
-                           presorted=presorted and attrs is None)
+                           presorted=presorted and attrs is None,
+                           tables=tables)
         bl, dr = _band_blocks(kind, plan["q_t"], plan["centers"],
                               band["span_starts"], band["span_lens"],
                               _far_extended(band["sorted_pts"]), c_cap,

@@ -5,10 +5,9 @@ Tiled neighbor search (port of the span-free tile-grid path of
 The search cloud is binned into cubic tiles of edge >= the largest
 radius and the query cloud into tiles ``m`` times coarser; every query's
 neighborhood lies in the (m+2)^3 search tiles around its query tile.
-:func:`build_tiled_problem` builds the static tables on the host (the
-reference's NumPy branches, copied; the C++ runtime it can call instead
-is not loaded, ROADMAP.md Queue A #2, the C++ host runtime).
-:func:`tiled_features` runs
+:func:`build_tiled_problem` builds the static tables on the host, its
+tile sorts and tables through the C++ host runtime (``ops.native``), as
+the reference's native branches do.  :func:`tiled_features` runs
 the moments on the device in entry batches through the
 ``entry_moments`` kernel (the reference's ``backend="pallas"`` branch),
 then the feature layout, and scatters the rows back to caller order.
@@ -26,6 +25,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from nimrud_tpu_torch.ops import native
 from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 
 
@@ -56,22 +56,12 @@ def _linear(coords, d):
     return coords[:, 0] + coords[:, 1] * d[0] + coords[:, 2] * d[0] * d[1]
 
 
-def _fill_table(order, starts, counts, cap):
-    """(len(starts) + 1, cap) int32 table: row r holds
-    ``order[starts[r] : starts[r] + counts[r]]``, -1 elsewhere (the last
-    row stays all -1)."""
-    table = np.full((len(starts) + 1, cap), -1, dtype=np.int32)
-    row = np.repeat(np.arange(len(starts)), counts)
-    col = (np.arange(int(counts.sum()))
-           - np.repeat(np.cumsum(counts) - counts, counts))
-    table[row, col] = order[np.repeat(starts, counts) + col]
-    return table
-
-
 def build_tiled_problem(query, search, tile_edge, *, query_tile_factor=2,
-                        query_capacity=None, entry_batch=32):
+                        query_capacity=None, entry_batch=32, impl="native"):
     """
-    Bin both clouds on the host (NumPy, vectorized).
+    Bin both clouds on the host: the tile sorts, the neighbor tables and
+    the index tables through the C++ host runtime (``ops.native``), the
+    rest vectorized NumPy.
 
     Args:
       tile_edge: search tile edge; must be >= the largest radius later
@@ -81,6 +71,8 @@ def build_tiled_problem(query, search, tile_edge, *, query_tile_factor=2,
       query_capacity: queries per entry; default a power of two around
                  2x the mean occupied-query-tile population (16..512).
       entry_batch: the entry count is padded to a multiple of this.
+      impl:      ``"native"``, or ``"numpy"`` for the host runtime's
+                 NumPy twins (the same tables, bit for bit).
     """
     query = np.asarray(query, dtype=np.float32)
     search = np.asarray(search, dtype=np.float32)
@@ -88,27 +80,38 @@ def build_tiled_problem(query, search, tile_edge, *, query_tile_factor=2,
     m = int(query_tile_factor)
 
     # all cell-assignment math in float64
-    lo = np.minimum(query.min(0), search.min(0)).astype(np.float64) - 1e-3
-    hi = np.maximum(query.max(0), search.max(0)).astype(np.float64) + 1e-3
+    (q_lo, q_hi), (s_lo, s_hi) = (native.minmax3(c[:, :3], impl=impl)
+                                  for c in (query, search))
+    lo = np.minimum(q_lo, s_lo).astype(np.float64) - 1e-3
+    hi = np.maximum(q_hi, s_hi).astype(np.float64) + 1e-3
     dims = np.maximum(np.ceil((hi - lo) / tile_edge).astype(np.int64), 1)
     qdims = -(-dims // m)
     n_grid = int(dims.prod())
     dense_ok = n_grid <= (1 << 26)
 
-    s_coords = np.clip(
-        np.floor((search.astype(np.float64) - lo) / tile_edge
-                 ).astype(np.int64), 0, dims - 1)
-    s_ids = _linear(s_coords, dims)
-    s_order = np.argsort(s_ids, kind="stable").astype(np.int64)
-    s_sorted_ids = s_ids[s_order]
-
-    q_coords = np.clip(
-        np.floor((query.astype(np.float64) - lo) / tile_edge
-                 ).astype(np.int64), 0, dims - 1) // m
-    q_ids = _linear(q_coords, qdims)
-    q_order = np.argsort(q_ids, kind="stable").astype(np.int64)
-    tile_ids, tile_starts = np.unique(q_ids[q_order], return_index=True)
-    tile_counts = np.diff(np.append(tile_starts, len(query)))
+    if dense_ok:
+        s_ids, s_order, per_tile_counts = native.tile_sort(
+            search, lo, tile_edge, dims, 1, impl=impl)
+        _, q_order, q_tile_counts = native.tile_sort(
+            query, lo, tile_edge, dims, m, impl=impl)
+        tile_ids = np.nonzero(q_tile_counts)[0]
+        tile_counts = q_tile_counts[tile_ids]
+        tile_starts = (np.cumsum(q_tile_counts) - q_tile_counts)[tile_ids]
+    else:
+        # huge sparse grids: NumPy sorts (as the reference)
+        s_coords = np.clip(
+            np.floor((search.astype(np.float64) - lo) / tile_edge
+                     ).astype(np.int64), 0, dims - 1)
+        s_ids = _linear(s_coords, dims)
+        s_order = np.argsort(s_ids, kind="stable").astype(np.int64)
+        s_sorted_ids = s_ids[s_order]
+        q_coords = np.clip(
+            np.floor((query.astype(np.float64) - lo) / tile_edge
+                     ).astype(np.int64), 0, dims - 1) // m
+        q_ids = _linear(q_coords, qdims)
+        q_order = np.argsort(q_ids, kind="stable").astype(np.int64)
+        tile_ids, tile_starts = np.unique(q_ids[q_order], return_index=True)
+        tile_counts = np.diff(np.append(tile_starts, len(query)))
 
     if query_capacity is None:
         query_capacity = int(
@@ -134,7 +137,9 @@ def build_tiled_problem(query, search, tile_edge, *, query_tile_factor=2,
     entry_start = tile_starts_ext[entry_tile] + entry_rank * q_cap
     entry_count = np.maximum(np.minimum(
         tile_counts_ext[entry_tile] - entry_rank * q_cap, q_cap), 0)
-    query_index = _fill_table(q_order, entry_start, entry_count, q_cap)[:-1]
+    query_index = native.fill_table(
+        q_order, entry_start, entry_count, np.arange(e_pad), q_cap,
+        impl=impl)[:-1]
 
     # candidate search tiles per occupied query tile: offsets -1..m
     n_off = (m + 2) ** 3
@@ -142,34 +147,26 @@ def build_tiled_problem(query, search, tile_edge, *, query_tile_factor=2,
         [tile_ids % qdims[0],
          (tile_ids // qdims[0]) % qdims[1],
          tile_ids // (qdims[0] * qdims[1])], axis=1)
-    offsets = np.array([(dx, dy, dz)
-                        for dx in range(-1, m + 1)
-                        for dy in range(-1, m + 1)
-                        for dz in range(-1, m + 1)], dtype=np.int64)
-    ncoord = (tile_q_coords * m)[:, None, :] + offsets[None, :, :]
-    ok = np.all((ncoord >= 0) & (ncoord < dims), axis=2)
-    nid = np.where(ok, _linear(ncoord.reshape(-1, 3), dims).reshape(
-        ok.shape), -1)                                  # (T, n_off)
 
     if dense_ok:
         # dense O(grid) maps: only tiles both occupied and next to a
         # query tile get candidate rows; empty neighbors share the
         # all-pad row
-        per_tile_counts = np.bincount(s_ids, minlength=n_grid)
-        tile_first = np.concatenate([[0], np.cumsum(per_tile_counts)])[:-1]
-        neighbor_mask = np.zeros(n_grid, dtype=bool)
-        neighbor_mask[nid[ok]] = True
+        tile_first = np.cumsum(per_tile_counts) - per_tile_counts
+        neighbor_mask = native.mark_neighbors(tile_ids, dims, qdims, m,
+                                              n_grid, impl=impl)
         needed = np.nonzero(neighbor_mask & (per_tile_counts > 0))[0]
         empty_row = len(needed)
         grid_row = np.full(n_grid, empty_row, dtype=np.int32)
         grid_row[needed] = np.arange(len(needed), dtype=np.int32)
         counts = per_tile_counts[needed]
         starts = tile_first[needed]
-        tile_rows = np.where(
-            nid >= 0, grid_row[np.where(nid < 0, 0, nid)], empty_row
-        ).astype(np.int32)
+        tile_rows = native.neighbor_rows(tile_ids, dims, qdims, m, grid_row,
+                                         empty_row, impl=impl)
     else:
         # huge sparse grids: binary searches over the sorted tile ids
+        nid, ok = native.neighbor_ids(tile_ids, dims, qdims, m)
+        nid = np.where(ok, nid, -1)
         needed = np.unique(nid[ok])
         empty_row = len(needed)
         starts = np.searchsorted(s_sorted_ids, needed, side="left")
@@ -186,7 +183,8 @@ def build_tiled_problem(query, search, tile_edge, *, query_tile_factor=2,
 
     # candidate table: one row per needed tile (+ trailing all-pad row)
     s_cap = _pow2(int(counts.max()) if len(counts) else 1)
-    candidates = _fill_table(s_order, starts, counts, s_cap)
+    candidates = native.fill_table(s_order, starts, counts,
+                                   np.arange(len(needed)), s_cap, impl=impl)
 
     # entry_tile's padding rows point at the sentinel row appended here
     tile_rows_ext = np.vstack(

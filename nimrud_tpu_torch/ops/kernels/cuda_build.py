@@ -11,6 +11,8 @@ keeps what ``-Xptxas -v`` printed (registers, shared memory, spills)
 beside the library.  A failed build raises with nvcc's stderr.
 
 :func:`build_all` starts one nvcc per source at once and waits for all.
+:func:`start_compile` is the build step shared with the port's C++ host
+runtime (``ops/native.py``).
 """
 
 import ctypes
@@ -20,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -44,10 +47,11 @@ def _nvcc():
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
-def source_key(src):
+def source_key(src, flags=NVCC_FLAGS, salt=""):
     """Hash of a source file, the local headers it includes (each once,
-    recursively) and the nvcc flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    recursively), the compiler flags and ``salt`` (anything else the
+    library depends on, such as the compiler's version)."""
+    digest = hashlib.sha256((" ".join(flags) + salt).encode())
     seen, todo = set(), [os.path.abspath(src)]
     while todo:
         path = todo.pop(0)
@@ -71,31 +75,43 @@ def _paths(name):
     return src, lib, lib[:-3] + ".ptxas.txt"
 
 
-def _start(name):
-    """Start nvcc for one kernel unless a build of this exact source
-    exists.  Returns a finisher giving ``(library path, ptxas report)``."""
-    src, lib, log = _paths(name)
-    if os.path.exists(lib) and os.path.exists(log):
+def start_compile(argv, src, lib, log=None):
+    """Start ``argv -o <tmp> src`` unless ``lib`` (and ``log``, when
+    given) exists.  The output goes to a file of this process and
+    thread, renamed to ``lib`` once the compiler succeeds, so processes
+    building at once never load a partial library.  Returns a finisher
+    giving ``(lib, compiler output)``; it raises with the compiler's
+    stderr when the build fails."""
+    if os.path.exists(lib) and (log is None or os.path.exists(log)):
         def cached():
+            if log is None:
+                return lib, ""
             with open(log) as handle:
                 return lib, handle.read()
         return cached
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.Popen([*argv, "-o", tmp, src], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
     def finish():
         out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {src}:\n{err}")
-        with open(log, "w") as handle:
-            handle.write(err + out)
+            raise RuntimeError(f"{os.path.basename(argv[0])} failed "
+                               f"({proc.returncode}) building {src}:\n{err}")
+        if log is not None:
+            with open(log, "w") as handle:
+                handle.write(err + out)
         os.replace(tmp, lib)
         return lib, err + out
     return finish
+
+
+def _start(name):
+    """Start nvcc for one kernel unless a build of this exact source
+    exists.  Returns a finisher giving ``(library path, ptxas report)``."""
+    src, lib, log = _paths(name)
+    return start_compile([_nvcc(), *NVCC_FLAGS], src, lib, log)
 
 
 def build(name):

@@ -18,6 +18,17 @@ plan and the ``span_moments`` kernel, its features return to caller
 order, and the classifier runs on all bands' features.  Only labels
 (and the overflow counters) leave the device.
 
+The search cloud is the query cloud itself, or a designated search map
+(``search=``): the query and the map then upload as float32 (the uint16
+upload is a self-search optimization), and the map's bands dedup on its
+own grid anchor.  ``stage_search`` computes a map's per-band voxel sets
+and span tables once; clouds staged against that handle
+(``stage(cloud, staged_search=handle)``) skip all search-side work, with
+labels equal to ``stage(cloud, search=map)``'s.  ``predict_stream``
+stages one cloud ahead in a worker thread on a CUDA stream of its own.
+The host work of staging (bounds, uint16 quantization, the sizing of
+uncached specs) runs on the C++ host runtime (``ops.native``).
+
 A model with ``exclude_radius`` (the reference's legacy self-exclusion)
 never takes the fused serving step, as in the reference: ``fit`` and
 ``predict_device`` / ``predict`` extract through
@@ -37,8 +48,8 @@ import torch
 from nimrud_tpu_torch.features import layouts, multiscale
 from nimrud_tpu_torch.learning.classifiers import param_classifier
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
-from nimrud_tpu_torch.ops import (device_grid, interp, packing, span_host,
-                                  unique)
+from nimrud_tpu_torch.ops import (device_grid, interp, native, packing,
+                                  span_host, unique)
 
 _CHUNK_SLOTS = 2 * 1024 * 1024    # entry slots above which the reference
                                   # serves in entry chunks (not ported;
@@ -48,29 +59,27 @@ COUNTERS = ("vox_dropped", "dropped_query", "dropped_search",
             "interp_dropped", "dropped_candidates")
 
 
-def _self_search(cloud, search):
-    """The port serves self-search only: ``search`` is None or ``cloud``."""
-    if search is not None and search is not cloud:
-        raise NotImplementedError(
-            "a separate search cloud (designated-search serving) is not "
-            "ported yet (ROADMAP.md Queue A #3, designated-search serving)")
-
-
-def _quantize_upload(cloud, c_lo, c_hi, q_bucket, device):
-    """uint16-quantized upload: 65000 steps over the widest bound span
-    (1e-6 floor), rounded and clipped on the host.  Returns (device
-    int16 (q_bucket, 3) holding the uint16 bit patterns, device f32 (4,)
+def _quantize_upload(cloud, c_lo, c_hi, q_bucket, device, impl="native"):
+    """uint16-quantized upload, the one copy of the quantization contract
+    shared by every staging path: 65000 steps over the widest bound span
+    (1e-6 floor), ``floor(g + 0.5)`` and clipped on the host by the host
+    runtime (``impl="numpy"``: its twin).  Returns (device int16
+    (q_bucket, 3) holding the uint16 bit patterns, device f32 (4,)
     [lo_xyz, step]); the bits travel as int16 because CUDA kernels for
     torch.uint16 are sparse, and the device widens them with a mask."""
     lo = np.asarray(c_lo, np.float64)
     span = float((np.asarray(c_hi, np.float64) - lo).max())
     step = max(span, 1e-6) / 65000.0
-    padded = multiscale._pad_rows_f32(cloud, q_bucket)
-    quant = np.clip(np.round((padded.astype(np.float64) - lo) / step),
-                    0, 65535).astype(np.uint16)
+    quant = native.quantize_u16(cloud, lo, step, pad_to=q_bucket, impl=impl)
     return (torch.from_numpy(quant.view(np.int16)).to(device),
             torch.from_numpy(np.append(lo, step).astype(np.float32))
             .to(device))
+
+
+def _cloud_bounds(arr, impl="native"):
+    """Per-axis (lo, hi) of an (n, 3) float32 cloud in one host-runtime
+    pass."""
+    return native.minmax3(arr, impl=impl)
 
 
 def _dequantize(quant, dequant):
@@ -103,7 +112,9 @@ class _FusedReducer:
 
 def _band_search_prep(search, s_valid, band, kind="minimal",
                       attributes=None, tile_sorted=True):
-    """One band's search-side prep.  The geometry layouts: voxel dedup
+    """One band's search-side prep, shared by the serving steps and
+    :meth:`GeometryClassifier.stage_search` (so a staged map's tables are
+    the ones the step would build).  The geometry layouts: voxel dedup
     (tile-sorted for the packed path's presorted tables), then the
     ``v_cap`` prefix trim (voxels past it are counted).  ``vector``: the
     packed attribute interp on the band's interp spec and capacity
@@ -127,29 +138,34 @@ def _band_search_prep(search, s_valid, band, kind="minimal",
     return centers, mask, None, vox_dropped, zero
 
 
-def _step_inputs(query, dequant):
-    """A staged upload as f32 coordinates (dequantized when it came as
-    uint16 steps), and the five overflow counters at zero."""
+def _step_inputs(query, search, dequant):
+    """Staged uploads as f32 coordinates (dequantized when they came as
+    uint16 steps; a quantized search is the query itself), and the five
+    overflow counters at zero."""
     if dequant is not None:
+        shared = search is query
         query = _dequantize(query, dequant)
+        search = query if shared else _dequantize(search, dequant)
     zero = torch.zeros((), dtype=torch.int64, device=query.device)
-    return query, dict.fromkeys(COUNTERS, zero)
+    return query, search, dict.fromkeys(COUNTERS, zero)
 
 
-def _span_predict_step(query, q_valid, clf_params, band_specs, kind,
-                       n_query, dequant=None, with_proba=False,
-                       attributes=None, precision="highest"):
+def _span_predict_step(query, q_valid, search, s_valid, clf_params,
+                       band_specs, kind, n_query, dequant=None,
+                       with_proba=False, attributes=None,
+                       precision="highest"):
     """The span backend's serving step (the reference's per-band loop):
-    per band its own plan through ``span_moments``, features in caller
-    order, then the classifier on the concatenated bands.  The span
-    kernel carries no attributes: ``attributes`` must be None."""
+    per band the search's voxel set, its own plan through
+    ``span_moments``, features in caller order, then the classifier on
+    the concatenated bands.  The span kernel carries no attributes:
+    ``attributes`` must be None."""
     if attributes is not None:
         raise ValueError("the span serving step takes no attributes")
-    query, diag = _step_inputs(query, dequant)
+    query, search, diag = _step_inputs(query, search, dequant)
     bands = []
     for band in band_specs:
         centers, mask, _, v_inc, _ = _band_search_prep(
-            query, q_valid, band, kind, tile_sorted=False)
+            search, s_valid, band, kind, tile_sorted=False)
         diag["vox_dropped"] = diag["vox_dropped"] + v_inc
         feats, stats = device_grid.fused_extract_spans(
             query, q_valid, centers, mask, band[1], band[2], kind, n_query,
@@ -162,31 +178,35 @@ def _span_predict_step(query, q_valid, clf_params, band_specs, kind,
     return labels, probs if with_proba else None, diag
 
 
-def _fused_predict_step(query, q_valid, clf_params, band_specs, kind,
-                        n_query, dequant=None, with_proba=False,
-                        attributes=None, precision="highest"):
-    """The packed backend's serving step for one staged cloud, searched
-    against itself (its ``attributes`` rows aligned with it for
+def _fused_predict_step(query, q_valid, search, s_valid, clf_params,
+                        band_specs, kind, n_query, dequant=None,
+                        with_proba=False, attributes=None,
+                        precision="highest", search_tables=None):
+    """The packed backend's serving step for one staged cloud against
+    its search cloud (``attributes`` rows aligned with the search for
     ``vector``): labels (n_query,), probabilities or None, and the five
-    overflow counters."""
-    query, diag = _step_inputs(query, dequant)
+    overflow counters.  ``search_tables`` (one per band, from
+    :meth:`GeometryClassifier.stage_search`) replace the search side:
+    ``search``, ``s_valid`` and ``attributes`` are then None."""
+    query, search, diag = _step_inputs(query, search, dequant)
     pack_spec = min((b[1] for b in band_specs), key=lambda s: s.tile_edge)
     searches, masks, cattrs = [], [], []
-    for band in band_specs:
-        centers, mask, ca, v_inc, i_inc = _band_search_prep(
-            query, q_valid, band, kind, attributes)
-        diag["vox_dropped"] = diag["vox_dropped"] + v_inc
-        diag["interp_dropped"] = diag["interp_dropped"] + i_inc
-        searches.append(centers)
-        masks.append(mask)
-        cattrs.append(ca)
+    if search_tables is None:
+        for band in band_specs:
+            centers, mask, ca, v_inc, i_inc = _band_search_prep(
+                search, s_valid, band, kind, attributes)
+            diag["vox_dropped"] = diag["vox_dropped"] + v_inc
+            diag["interp_dropped"] = diag["interp_dropped"] + i_inc
+            searches.append(centers)
+            masks.append(mask)
+            cattrs.append(ca)
     (out_rank, q_order), stats = device_grid.fused_extract_packed_multi(
         query, q_valid, searches, masks, pack_spec,
         tuple(b[1] for b in band_specs), tuple(b[2] for b in band_specs),
         kind, tuple(b[5] for b in band_specs),
         _FusedReducer(clf_params, with_proba), with_stats=True,
         presorted=kind != "vector", precision=precision,
-        attributes=tuple(cattrs))
+        attributes=tuple(cattrs), search_tables=search_tables)
     diag["dropped_query"] = stats["dropped_query"]
     diag["dropped_candidates"] = stats["dropped_candidates"]
     # out_rank is in sorted-rank order; q_order maps rank -> caller row
@@ -286,6 +306,7 @@ class GeometryClassifier:
         self.device = torch.device(device)
         self._spec_cache = None
         self._stage_spec_cache = {}
+        self._stage_stream = None       # predict_stream's staging stream
         if isinstance(classifier, str):
             self.classifier = param_classifier(
                 classifier, **(classifier_kwargs or {}))
@@ -300,8 +321,8 @@ class GeometryClassifier:
     # -- features -------------------------------------------------------------
 
     def _check_attributes(self, attributes, n_points):
-        """``vector`` takes attributes (rows aligned with the cloud), the
-        other layouts none.  Returns them as float32, or None."""
+        """``vector`` takes attributes (rows aligned with the search
+        cloud), the other layouts none.  Returns them as float32, or None."""
         if (self.kind == "vector") != (attributes is not None):
             raise ValueError("kind='vector' needs attributes=, and the "
                              "other layouts take none")
@@ -311,17 +332,18 @@ class GeometryClassifier:
 
     def extract_device(self, cloud, search=None, attributes=None,
                        with_stats=False):
-        """Multiscale features for every point, as a tensor on
+        """Multiscale features for every point of ``cloud`` against
+        ``search`` (default the cloud itself), as a tensor on
         ``self.device``, on the serving grids when ``bounds`` is fixed
-        (``vector``: through the same packed attribute interp as
-        serving, so the fit features are the served features), without
-        the pairs closer than ``exclude_radius``.  ``with_stats`` adds
-        the extraction's overflow counters (``COUNTERS``, device
-        scalars)."""
-        _self_search(cloud, search)
-        attributes = self._check_attributes(attributes, len(cloud))
+        (``vector``: ``attributes`` rows aligned with the search, through
+        the same packed attribute interp as serving, so the fit features
+        are the served features), without the pairs closer than
+        ``exclude_radius``.  ``with_stats`` adds the extraction's
+        overflow counters (``COUNTERS``, device scalars)."""
+        search = cloud if search is None else search
+        attributes = self._check_attributes(attributes, len(search))
         out = multiscale.extract_scaleset_fused(
-            cloud, cloud, self.scaleset, self.kind, attributes=attributes,
+            cloud, search, self.scaleset, self.kind, attributes=attributes,
             exclude_radius=self.exclude_radius, bounds=self.bounds,
             m=self.tile_m, with_stats=with_stats, device=self.device)
         if not with_stats:
@@ -340,16 +362,17 @@ class GeometryClassifier:
 
     def fit(self, cloud, labels, search=None, sample=None, seed=0,
             attributes=None):
-        """Extract features and fit the classifier on the device.
-        ``sample`` caps the training points (a seeded random subset);
-        ``attributes`` (``vector`` only) are the cloud's per-point
-        attribute columns."""
-        _self_search(cloud, search)
+        """Extract features of ``cloud`` against ``search`` (default the
+        cloud) and fit the classifier on the device.  ``sample`` caps the
+        training points (a seeded random subset); ``attributes``
+        (``vector`` only) are the search cloud's per-point attribute
+        columns.  The serving specs are sized on the fit cloud, as the
+        reference sizes them."""
         labels = np.asarray(labels)
         n_classes = int(labels.max() + 1)
         self._spec_cache = None
         self._stage_spec_cache = {}
-        features = self.extract_device(cloud, attributes=attributes)
+        features = self.extract_device(cloud, search, attributes)
         if sample is not None and sample < len(labels):
             rows = np.random.RandomState(seed).permutation(
                 len(labels))[:sample]
@@ -360,30 +383,38 @@ class GeometryClassifier:
                                       device=self.device),
             n_classes=n_classes)
         if self.exclude_radius is None:     # no staged serving to size
-            self._size_serving(cloud, self._attr_width(attributes))
+            self._size_serving(cloud, self._attr_width(attributes, search,
+                                                       cloud))
         return self
 
-    def install_classifier(self, classifier, fit_cloud, attributes=None):
+    def install_classifier(self, classifier, fit_cloud, attributes=None,
+                           search=None):
         """Serve ``classifier`` (e.g. ``SoftmaxClassifier.from_state`` of
         a reference fit), with the serving specs sized from
-        ``fit_cloud`` (and, for ``vector``, its attribute width) exactly
-        as :meth:`fit` sizes them."""
+        ``fit_cloud`` (and, for ``vector``, the width of ``attributes``,
+        rows aligned with ``search``, default the fit cloud) exactly as
+        :meth:`fit` with the same arguments sizes them."""
         self.classifier = classifier
         self._spec_cache = None
         self._stage_spec_cache = {}
         if self.exclude_radius is None:
-            self._size_serving(fit_cloud, self._attr_width(attributes))
+            self._size_serving(fit_cloud, self._attr_width(
+                attributes, search, fit_cloud))
         return self
 
-    def _attr_width(self, attributes):
+    def _attr_width(self, attributes, search, cloud):
+        """The width of ``attributes``, checked against the rows of the
+        search cloud (``cloud`` when ``search`` is None), or None."""
         if attributes is None:
             return None
-        return self._check_attributes(attributes, len(attributes)).shape[1]
+        rows = len(cloud if search is None else search)
+        return self._check_attributes(attributes, rows).shape[1]
 
     def _size_serving(self, cloud, attr_width=None):
         """With fixed bounds and ``trim_entries``: cache the serving
-        specs sized from this cloud's occupancy -- entry capacity per
-        band, and a voxel capacity for every geometry band, also where
+        specs sized from this cloud's occupancy (searched against
+        itself, as the reference sizes them) -- entry capacity per band,
+        and a voxel capacity for every geometry band, also where
         ``_fused_band_specs`` left it unbounded (1.25x + 4096 voxels,
         rounded up to 16384); a ``vector`` band carries its interp's
         spec and capacity in those places instead."""
@@ -392,8 +423,8 @@ class GeometryClassifier:
         arr = np.asarray(cloud, dtype=np.float32)[:, :3]
         trimmed = []
         for (edge, _), (vox, dev, rr, interp_spec, v_cap, c_cap) in zip(
-                self.scaleset, self._fused_band_specs(arr,
-                                                      attr_width=attr_width)):
+                self.scaleset, self._fused_band_specs(
+                    arr, arr, attr_width=attr_width)):
             if v_cap is None:
                 n_vox = len(multiscale._host_unique_voxels(
                     arr, edge, bounds=self.bounds))
@@ -402,8 +433,8 @@ class GeometryClassifier:
             trimmed.append((vox, device_grid.with_entry_estimate(dev, arr),
                             rr, interp_spec, v_cap, c_cap))
         trimmed = tuple(trimmed)
-        self._spec_cache = (self._spec_key(arr.shape[0], attr_width),
-                            trimmed)
+        self._spec_cache = (self._spec_key(arr.shape[0], arr.shape[0],
+                                           attr_width), trimmed)
 
     # -- serving ------------------------------------------------------------
 
@@ -417,66 +448,84 @@ class GeometryClassifier:
                 "mean": clf.mean_.to(self.device),
                 "scale": clf.scale_.to(self.device)}
 
-    def _spec_key(self, n_query, attr_width=None):
+    def _spec_key(self, n_query, n_search, attr_width=None):
         """Cache key shared by ``_fused_band_specs`` and the fit sizing:
-        the size bucket and, for ``vector``, the attribute width (a
-        cached spec never serves another width)."""
+        the query and search size buckets and, for ``vector``, the
+        attribute width (a cached spec never serves another width)."""
         return (multiscale._pow2_bucket(n_query),
+                multiscale._pow2_bucket(n_search),
                 attr_width if self.kind == "vector" else None)
 
-    def _fused_band_specs(self, cloud, bounds=None, attr_width=None):
+    def _fused_band_specs(self, cloud, search, bounds=None, attr_width=None):
         """Static per-band specs ``(vox_spec, dev_spec, radii, None,
-        v_cap, c_cap)`` of the serving step, sized on the host; for
-        ``vector`` ``(vox_spec, dev_spec, radii, interp_spec,
-        interp_cap, c_cap)``, the packed attribute interp's own plan
-        (``multiscale._interp_packed_plan``) and no voxel cap.
+        v_cap, c_cap)`` of the serving step for ``cloud`` against
+        ``search``, sized on the host; for ``vector`` ``(vox_spec,
+        dev_spec, radii, interp_spec, interp_cap, c_cap)``, the packed
+        attribute interp's own plan (``multiscale._interp_packed_plan``)
+        and no voxel cap.  ``bounds``: ``(c_lo, c_hi, s_lo, s_hi)`` of the
+        two clouds when the caller has them (default the model's fixed
+        bounds, else one host-runtime pass over each cloud); the tile
+        grids cover both clouds, the voxel grids anchor at the search
+        bounds.
 
-        Packed: entry capacity from the cloud's segment occupancy,
+        Packed: entry capacity from the query's segment occupancy,
         per-band candidate capacities (split into rank buckets) from the
-        host mirror of the shared plan, and per-band voxel capacities
-        from the real voxel count (1.25x + 4096); raises where the
-        reference would serve in entry chunks (not ported).  Span
-        (``backend="pallas"``): q_cap 256 and the grid's worst-case
-        entry capacity, no voxel or candidate capacity; with
-        ``trim_entries``, :meth:`_size_serving` then sizes the entry
-        and voxel capacities from the fit cloud."""
+        host mirror of the shared plan against the search's voxel set,
+        and per-band voxel capacities from its real voxel count (1.25x +
+        4096); raises where the reference would serve in entry chunks
+        (not ported).  Span (``backend="pallas"``): q_cap 256 and the
+        grid's worst-case entry capacity, no voxel or candidate
+        capacity; with ``trim_entries``, :meth:`_size_serving` then sizes
+        the entry and voxel capacities from the fit cloud."""
         if self.kind == "vector" and attr_width is None:
             raise ValueError("kind='vector' sizes its specs with the "
                              "attribute width")
-        key = self._spec_key(cloud.shape[0], attr_width)
+        key = self._spec_key(cloud.shape[0], search.shape[0], attr_width)
         if self._spec_cache is not None and self._spec_cache[0] == key:
             return self._spec_cache[1]
         if self.bounds is not None and key in self._stage_spec_cache:
             return self._stage_spec_cache[key]
+        if bounds is None and self.bounds is not None:
+            bounds = (*self.bounds, *self.bounds)
         if bounds is None:
-            bounds = self.bounds if self.bounds is not None \
-                else (cloud.min(0), cloud.max(0))
-        lo = np.asarray(bounds[0], np.float64)
-        hi = np.asarray(bounds[1], np.float64)
+            c_lo, c_hi = _cloud_bounds(cloud)
+            s_lo, s_hi = (c_lo, c_hi) if search is cloud \
+                else _cloud_bounds(search)
+        else:
+            c_lo, c_hi, s_lo, s_hi = bounds
+        lo = np.minimum(c_lo, s_lo).astype(np.float64)
+        hi = np.maximum(c_hi, s_hi).astype(np.float64)
+        s_lo = np.asarray(s_lo, np.float64)
+        s_hi = np.asarray(s_hi, np.float64)
         q_bucket = multiscale._pow2_bucket(cloud.shape[0])
         if self.backend == "pallas":
-            specs = self._span_band_specs(lo, hi, q_bucket)
+            specs = self._span_band_specs(lo, hi, s_lo, s_hi, q_bucket)
         else:
-            specs = self._packed_band_specs(cloud, lo, hi, q_bucket)
+            specs = self._packed_band_specs(cloud, search, lo, hi, s_lo,
+                                            s_hi, q_bucket)
         if self.bounds is not None:
             if len(self._stage_spec_cache) > 8:
                 self._stage_spec_cache.clear()
             self._stage_spec_cache[key] = specs
         return specs
 
-    def _span_band_specs(self, lo, hi, q_bucket):
+    def _span_band_specs(self, lo, hi, s_lo, s_hi, q_bucket):
         """Span backend: every band on its own grid, q_cap 256."""
         return tuple(
-            (packing.GridSpec.fit_bounds(lo, hi, edge),
+            (packing.GridSpec.fit_bounds(s_lo, s_hi, edge),
              device_grid.make_spec(lo, hi, max(radii), n_query=q_bucket,
                                    voxel_edge=edge, q_cap=256,
                                    m=self.tile_m, x_seg=32),
              radii, None, None, None)
             for edge, radii in self.scaleset)
 
-    def _packed_band_specs(self, cloud, lo, hi, q_bucket):
-        """Packed backend: capacities measured on ``cloud``."""
+    def _packed_band_specs(self, cloud, search, lo, hi, s_lo, s_hi,
+                           q_bucket):
+        """Packed backend: capacities measured on ``cloud`` against
+        ``search``."""
         q3 = np.asarray(cloud, np.float32)[:, :3]
+        s3 = q3 if search is cloud else np.asarray(search, np.float32)[:, :3]
+        s_bucket = multiscale._pow2_bucket(s3.shape[0])
         dev_specs = [device_grid.with_entry_estimate(device_grid.make_spec(
             lo, hi, max(radii), n_query=q_bucket, voxel_edge=edge,
             q_cap=512, m=self.tile_m, x_seg=32), q3)
@@ -494,14 +543,14 @@ class GeometryClassifier:
             q3, np.ones(q3.shape[0], bool), pack_spec)
         specs = []
         for (edge, radii), dev_spec in zip(self.scaleset, dev_specs):
-            vox_spec = packing.GridSpec.fit_bounds(lo, hi, edge)
+            vox_spec = packing.GridSpec.fit_bounds(s_lo, s_hi, edge)
             host_centers = multiscale._host_unique_voxels(
-                q3, edge, bounds=(lo, hi))
+                s3, edge, bounds=(s_lo, s_hi))
             c_cap = span_host.candidate_caps_split(
                 None, host_centers, dev_spec, plan=host_plan)
             if self.kind == "vector":
                 interp_spec, interp_cap = multiscale._interp_packed_plan(
-                    q3, vox_spec, lo, hi, (lo, hi), self.tile_m,
+                    s3, vox_spec, lo, hi, (s_lo, s_hi), self.tile_m,
                     host_centers=host_centers)
                 specs.append((vox_spec, dev_spec, radii, interp_spec,
                               interp_cap, c_cap))
@@ -509,71 +558,277 @@ class GeometryClassifier:
             n_vox = len(host_centers)
             v_cap = n_vox + n_vox // 4 + 4096
             v_cap = -(-v_cap // 16384) * 16384
-            if v_cap >= q_bucket:
+            if v_cap >= s_bucket:
                 v_cap = None
             specs.append((vox_spec, dev_spec, radii, None, v_cap, c_cap))
         return tuple(specs)
 
-    def stage(self, cloud, search=None, attributes=None):
-        """Host prep + upload of one cloud: quantize (uint16) or pad, and
-        copy to the device, with its attribute columns for ``vector``
-        (padded to the same bucket, float32).  Returns the staged handle
-        for :meth:`predict_staged`.  A model with ``exclude_radius`` has
-        no staged step (the reference's ``stage`` returns None for it):
-        it raises."""
+    def _no_staged_step(self):
         if self.exclude_radius is not None:
             raise ValueError(
                 "a model with exclude_radius has no staged serving step: "
                 "serve it with predict_device or predict (per-band "
                 "extraction, then the classifier)")
-        _self_search(cloud, search)
-        attributes = self._check_attributes(attributes, len(cloud))
+
+    def stage_search(self, search, attributes=None):
+        """The search side of serving for a designated search map,
+        computed once: per band the map's voxel set (tile-sorted) and its
+        ``v_cap`` trim, or for ``vector`` the packed attribute interp of
+        ``attributes`` (rows aligned with ``search``, at most 6 columns,
+        carried by the handle), then the band's span tables.  Clouds
+        stream against the handle with ``stage(cloud,
+        staged_search=handle)``, and their steps skip all of that work,
+        with the labels of ``stage(cloud, search=search)``.
+
+        Needs fixed ``bounds=`` and the packed backend; an
+        ``exclude_radius`` model has no staged step and raises.  The
+        map's overflow (voxels past ``v_cap``, interp under-reads) is
+        counted into the handle as device scalars: read it once with
+        :meth:`search_overflow`; ``predict_staged(..., with_diag=True)``
+        adds it to every step's counters, :meth:`predict_stream` reads
+        none."""
+        if self.bounds is None:
+            raise ValueError(
+                "stage_search needs fixed bounds= (one grid for the "
+                "whole stream)")
+        if self.backend != "packed":
+            raise ValueError(
+                "stage_search supports the packed backend only")
+        self._no_staged_step()
+        search = np.asarray(search, np.float32)[:, :3]
+        if attributes is not None and np.asarray(attributes).shape[1] > 6:
+            raise ValueError(
+                "stage_search carries at most 6 attribute columns "
+                "(the packed kernel's budget)")
+        attributes = self._check_attributes(attributes, len(search))
+        attr_width = None if attributes is None else attributes.shape[1]
+        specs = self._fused_band_specs(search, search, attr_width=attr_width)
+        s_bucket = multiscale._pow2_bucket(search.shape[0])
+        search_dev = torch.from_numpy(multiscale._pad_rows_f32(
+            search, s_bucket)).to(self.device)
+        attrs_dev = None if attributes is None else torch.from_numpy(
+            multiscale._pad_rows_f32(attributes, s_bucket)).to(self.device)
+        s_valid = torch.arange(s_bucket, device=self.device) \
+            < search.shape[0]
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        tables, vox_dropped, interp_dropped = [], zero, zero
+        for band in specs:
+            centers, mask, ca, v_inc, i_inc = _band_search_prep(
+                search_dev, s_valid, band, self.kind, attrs_dev)
+            vox_dropped = vox_dropped + v_inc
+            interp_dropped = interp_dropped + i_inc
+            tables.append(device_grid._search_tables(
+                centers, mask, band[1], attrs=ca,
+                presorted=self.kind != "vector"))
+        return {"tables": tuple(tables), "search_host": search,
+                "attr_width": attr_width, "vox_dropped": vox_dropped,
+                "interp_dropped": interp_dropped,
+                "config_key": self._search_handle_key()}
+
+    def search_overflow(self, handle):
+        """The overflow counters a :meth:`stage_search` handle recorded
+        (``vox_dropped``: the map's voxels past a band's ``v_cap``;
+        ``interp_dropped``: the ``vector`` interp's under-reads), as host
+        ints: the one device read of setting up a designated map.
+        Nonzero means the map is denser than the capacities were sized
+        for: size them on it (fit, or ``install_classifier`` with it)."""
+        return {"vox_dropped": int(handle["vox_dropped"]),
+                "interp_dropped": int(handle["interp_dropped"])}
+
+    def _search_handle_key(self):
+        """Everything a :meth:`stage_search` handle's tables depend on: a
+        handle built under another configuration (grids, layout,
+        capacities, device) must not serve this one."""
+        lo, hi = self.bounds
+        return (tuple(self.scaleset), self.kind, self.exclude_radius,
+                lo.tobytes(), hi.tobytes(), self.tile_m, self.vector_s_cap,
+                self.trim_entries, str(self.device))
+
+    def _stage_with_search(self, cloud, handle):
+        """:meth:`stage` against a :meth:`stage_search` handle: the query
+        uploads alone, as float32 under either ``transfer_dtype`` (the
+        handle's tables hold float32 map rows, and the distinct-search
+        step it must equal uploads the query as float32)."""
+        if self.bounds is None:
+            raise ValueError(
+                "staged_search serving needs fixed bounds= (the handle "
+                "was built against one grid)")
+        if self.backend != "packed":
+            raise ValueError(
+                "staged_search serving supports the packed backend only")
+        self._no_staged_step()
+        if handle.get("config_key") != self._search_handle_key():
+            raise ValueError(
+                "stage_search handle was built under a different model "
+                "configuration (scaleset / kind / bounds / tile_m / "
+                "capacities / device); rebuild it with this model's "
+                "stage_search()")
         cloud = np.asarray(cloud, dtype=np.float32)[:, :3]
-        bounds = self.bounds if self.bounds is not None \
-            else (cloud.min(0), cloud.max(0))
+        specs = self._fused_band_specs(cloud, handle["search_host"],
+                                       attr_width=handle["attr_width"])
+        n_query = cloud.shape[0]
+        q_bucket = multiscale._pow2_bucket(n_query)
+        return {"query": torch.from_numpy(multiscale._pad_rows_f32(
+                    cloud, q_bucket)).to(self.device),
+                "search": None, "n_query": n_query, "q_bucket": q_bucket,
+                "n_search": 0, "s_bucket": 0, "specs": specs,
+                "dequant": None, "attributes": None,
+                "search_tables": handle["tables"],
+                "staged_vox_dropped": handle["vox_dropped"],
+                "staged_interp_dropped": handle["interp_dropped"]}
+
+    def stage(self, cloud, search=None, attributes=None, staged_search=None,
+              impl="native"):
+        """Host prep + upload of one cloud and its search cloud: quantize
+        (uint16, self-search only) or pad, and copy to the device, with
+        the search's attribute columns for ``vector`` (padded to its
+        bucket, float32).  A ``search`` other than the cloud uploads
+        beside it, both as float32.  ``staged_search``: a
+        :meth:`stage_search` handle to serve against (the search and its
+        attributes then come from the handle).  Returns the staged
+        handle for :meth:`predict_staged`.  A model with
+        ``exclude_radius`` has no staged step (the reference's ``stage``
+        returns None for it): it raises.  ``impl="numpy"`` runs the
+        bounds scan and the quantization on the host runtime's NumPy
+        twins (for comparison; the specs' sizing, cached under fixed
+        bounds, stays native)."""
+        if staged_search is not None:
+            if search is not None or attributes is not None:
+                raise ValueError(
+                    "with staged_search, the search cloud and its "
+                    "attributes come from the stage_search handle")
+            return self._stage_with_search(cloud, staged_search)
+        self._no_staged_step()
+        same = search is None or search is cloud
+        cloud = np.asarray(cloud, dtype=np.float32)[:, :3]
+        search_arr = cloud if same \
+            else np.asarray(search, dtype=np.float32)[:, :3]
+        attributes = self._check_attributes(attributes, len(search_arr))
+        if self.bounds is not None:
+            c_lo, c_hi = s_lo, s_hi = self.bounds
+        else:
+            c_lo, c_hi = _cloud_bounds(cloud, impl)
+            s_lo, s_hi = (c_lo, c_hi) if same \
+                else _cloud_bounds(search_arr, impl)
         specs = self._fused_band_specs(
-            cloud, bounds=bounds,
+            cloud, search_arr, bounds=(c_lo, c_hi, s_lo, s_hi),
             attr_width=None if attributes is None else attributes.shape[1])
         n_query = cloud.shape[0]
         q_bucket = multiscale._pow2_bucket(n_query)
+        s_bucket = multiscale._pow2_bucket(search_arr.shape[0])
         dequant = None
-        if self.transfer_dtype == "uint16":
+        if self.transfer_dtype == "uint16" and same:
             query_dev, dequant = _quantize_upload(
-                cloud, bounds[0], bounds[1], q_bucket, self.device)
+                cloud, c_lo, c_hi, q_bucket, self.device, impl)
         else:
             query_dev = torch.from_numpy(multiscale._pad_rows_f32(
                 cloud, q_bucket)).to(self.device)
+        search_dev = query_dev if same else torch.from_numpy(
+            multiscale._pad_rows_f32(search_arr, s_bucket)).to(self.device)
         attrs_dev = None
         if attributes is not None:
             attrs_dev = torch.from_numpy(multiscale._pad_rows_f32(
-                attributes, q_bucket)).to(self.device)
-        return {"query": query_dev, "n_query": n_query,
-                "q_bucket": q_bucket, "specs": specs, "dequant": dequant,
+                attributes, s_bucket)).to(self.device)
+        return {"query": query_dev, "search": search_dev,
+                "n_query": n_query, "q_bucket": q_bucket,
+                "n_search": search_arr.shape[0], "s_bucket": s_bucket,
+                "specs": specs, "dequant": dequant,
                 "attributes": attrs_dev}
 
     def predict_staged(self, staged, with_proba=False, with_diag=False):
         """Labels (and optionally probabilities) of a staged cloud, as
         device tensors.  ``with_diag`` adds the overflow counters
         (``vox_dropped``, ``dropped_query``, ``dropped_search``,
-        ``interp_dropped``, ``dropped_candidates``) as device scalars;
-        nonzero means the cloud is denser than the capacities were
-        sized for."""
+        ``interp_dropped``, ``dropped_candidates``) as device scalars,
+        with a staged search map's own counts added; nonzero means the
+        cloud (or the map) is denser than the capacities were sized
+        for."""
         step = _span_predict_step if self.backend == "pallas" \
             else _fused_predict_step
+        extra = {}
+        if staged.get("search_tables") is not None:
+            extra["search_tables"] = staged["search_tables"]
+        s_valid = None
+        if staged["search"] is not None:
+            s_valid = torch.arange(staged["s_bucket"], device=self.device) \
+                < staged["n_search"]
         labels, probs, diag = step(
             staged["query"],
             torch.arange(staged["q_bucket"], device=self.device)
-            < staged["n_query"],
+            < staged["n_query"], staged["search"], s_valid,
             self._fused_classifier(), staged["specs"], self.kind,
             staged["n_query"], staged["dequant"], with_proba=with_proba,
             attributes=staged["attributes"],
-            precision=multiscale.kernel_precision(self.precision))
+            precision=multiscale.kernel_precision(self.precision), **extra)
+        if with_diag and "staged_vox_dropped" in staged:
+            diag["vox_dropped"] = diag["vox_dropped"] \
+                + staged["staged_vox_dropped"]
+            diag["interp_dropped"] = diag["interp_dropped"] \
+                + staged["staged_interp_dropped"]
         out = (labels,)
         if with_proba:
             out = out + (probs,)
         if with_diag:
             out = out + (diag,)
         return out if len(out) > 1 else labels
+
+    def predict_stream(self, clouds, staged_search=None):
+        """Labels of a stream of clouds, as device tensors in order,
+        staging each cloud (host prep and upload) one cloud ahead in a
+        worker thread while the previous step runs.  On the card the
+        worker stages on a CUDA stream of its own, one per model (an
+        upload queued on the default stream would wait for the previous
+        step's kernels);
+        each step waits for its cloud's upload, and the staged tensors
+        are recorded on the stream that uses them.  No diagnostics are
+        read: check a designated map once with :meth:`search_overflow`.
+
+        ``staged_search``: a :meth:`stage_search` handle every cloud is
+        served against.  An ``exclude_radius`` model has no staged step:
+        its clouds go through :meth:`predict_device` in turn, and with
+        ``staged_search`` it raises rather than serve another search."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if self.exclude_radius is not None:
+            if staged_search is not None:
+                self._no_staged_step()
+            for cloud in clouds:
+                yield self.predict_device(cloud)
+            return
+        side = None
+        if self.device.type == "cuda":
+            if self._stage_stream is None:
+                self._stage_stream = torch.cuda.Stream(self.device)
+            side = self._stage_stream
+
+        def stage(cloud):
+            if side is None:
+                return self.stage(cloud, staged_search=staged_search), None
+            with torch.cuda.stream(side):
+                staged = self.stage(cloud, staged_search=staged_search)
+                uploaded = torch.cuda.Event()
+                uploaded.record(side)
+            return staged, uploaded
+
+        def serve(future):
+            staged, uploaded = future.result()
+            if uploaded is not None:
+                current = torch.cuda.current_stream(self.device)
+                current.wait_event(uploaded)
+                for value in staged.values():
+                    if isinstance(value, torch.Tensor):
+                        value.record_stream(current)
+            return self.predict_staged(staged)
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = None
+            for cloud in clouds:
+                nxt = pool.submit(stage, cloud)
+                if pending is not None:
+                    yield serve(pending)
+                pending = nxt
+            if pending is not None:
+                yield serve(pending)
 
     def predict_proba_device(self, cloud, search=None, attributes=None):
         """Class probabilities of every point through
@@ -588,11 +843,11 @@ class GeometryClassifier:
 
     def predict_device(self, cloud, search=None, attributes=None,
                        with_diag=False):
-        """Per-point class labels as a device tensor (with
-        ``with_diag`` also the overflow counters, as
-        :meth:`predict_staged` gives them).  A model with
-        ``exclude_radius`` takes its own path: the per-band extraction,
-        the classifier, argmax."""
+        """Per-point class labels of ``cloud`` against ``search``
+        (default the cloud) as a device tensor (with ``with_diag`` also
+        the overflow counters, as :meth:`predict_staged` gives them).  A
+        model with ``exclude_radius`` takes its own path: the per-band
+        extraction, the classifier, argmax."""
         if self.exclude_radius is not None:
             features, diag = self.extract_device(cloud, search, attributes,
                                                  with_stats=True)

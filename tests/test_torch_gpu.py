@@ -5,7 +5,9 @@ instances, ``span_moments``, ``entry_moments``, and the
 ``exclude_radius`` instances of all three) against their plain PyTorch
 twins on the card, and small serving runs of both backends (and of the
 ``vector`` layout and an ``exclude_radius`` model) on the card against
-the same model on the CPU.
+the same model on the CPU; designated-search serving (a staged search
+map, the stream's side stream) and staging on the C++ host runtime
+against its NumPy twin.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -549,3 +551,78 @@ def test_exclusion_serving_on_card_matches_cpu(cuda):
     differ = a.cpu() != b
     assert not bool((differ & ~near_tie).any())
     assert int(differ.sum()) <= 0.001 * len(cloud)
+
+
+# -- designated search and the host runtime -----------------------------------
+
+def _drive_scene(per=400, seed=21):
+    """tests/test_drive_matrix.py's scene (a sheet, a line, a blob) and a
+    designated search map, the cloud jittered by 2 cm."""
+    rng = np.random.default_rng(seed)
+    cloud = np.vstack([rng.random((per, 3)) * [8, 8, 0.02],
+                       rng.random((per, 3)) * [0.02, 0.02, 8] + [10, 4, 0],
+                       rng.normal([16, 4, 4], 1.0, (per, 3))]
+                      ).astype(np.float32)
+    labels = np.repeat([0, 1, 2], per).astype(np.int32)
+    search = (cloud + rng.normal(0, 0.02, cloud.shape)).astype(np.float32)
+    return cloud, labels, search
+
+
+def test_designated_serving_on_card_matches_cpu(cuda):
+    from nimrud_tpu_torch.pipeline import GeometryClassifier
+
+    cloud, labels, search = _drive_scene()
+    lo = np.minimum(cloud.min(0), search.min(0)) - 0.37
+    hi = np.maximum(cloud.max(0), search.max(0)) + 0.53
+    config = dict(kind="minimal", classifier="linear",
+                  classifier_kwargs={"epochs": 10, "seed": 0},
+                  transfer_dtype="uint16", backend="packed",
+                  bounds=(lo, hi), trim_entries=True)
+    gpu = GeometryClassifier([(0.2, (0.8, 0.4))], device=cuda, **config)
+    gpu.fit(cloud, labels, search=search)
+    handle = gpu.stage_search(search)
+    assert gpu.search_overflow(handle) == {"vox_dropped": 0,
+                                           "interp_dropped": 0}
+    before = pm.packed_moments.launches
+    served, diag = gpu.predict_staged(gpu.stage(cloud, staged_search=handle),
+                                      with_diag=True)
+    assert pm.packed_moments.launches > before
+    assert all(int(v) == 0 for v in diag.values()), diag
+    assert torch.equal(served, gpu.predict_staged(
+        gpu.stage(cloud, search=search)))
+    # the stream stages on a side stream: the same labels as one at a time
+    rng = np.random.default_rng(7)
+    clouds = [cloud] + [(cloud + rng.normal(0, 0.01, cloud.shape))
+                        .astype(np.float32) for _ in range(3)]
+    for c, got in zip(clouds, gpu.predict_stream(clouds,
+                                                 staged_search=handle)):
+        assert torch.equal(got, gpu.predict_staged(
+            gpu.stage(c, staged_search=handle)))
+    clf = gpu.classifier
+    cpu = GeometryClassifier([(0.2, (0.8, 0.4))], device="cpu", **config)
+    cpu.install_classifier(SoftmaxClassifier.from_state(
+        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
+        clf.scale_.cpu(), device="cpu"), cloud, search=search)
+    _, probs = gpu.predict_staged(gpu.stage(cloud, staged_search=handle),
+                                  with_proba=True)
+    on_cpu = cpu.predict_staged(cpu.stage(cloud,
+                                          staged_search=cpu.stage_search(
+                                              search)))
+    top2 = torch.sort(probs.cpu(), dim=1).values[:, -2:]
+    near_tie = (top2[:, 1] - top2[:, 0]) < 1e-4
+    differ = served.cpu() != on_cpu
+    assert not bool((differ & ~near_tie).any())
+
+
+def test_native_stage_on_card_equals_numpy_stage(cuda):
+    cloud, labels = workload.make_bench_cloud(30000, seed=0)
+    gpu = workload.make_bench_model(cloud, device=cuda)
+    gpu.fit(cloud, labels, sample=15000)
+    other, _ = workload.make_bench_cloud(30000, seed=1)
+    native_st = gpu.stage(other)
+    numpy_st = gpu.stage(other, impl="numpy")
+    assert native_st["query"].dtype == torch.int16
+    assert torch.equal(native_st["query"], numpy_st["query"])
+    assert torch.equal(native_st["dequant"], numpy_st["dequant"])
+    assert torch.equal(gpu.predict_staged(native_st),
+                       gpu.predict_staged(numpy_st))

@@ -13,8 +13,9 @@ package.
   the reference's.
 * Fitted by the port itself: held-out accuracy within 0.03 of the JAX
   fit on the same split (Adam, PRNG and feature sums differ in bits).
-* What the port does not carry raises: a separate search cloud, and a
-  cloud large enough for the reference to serve in entry chunks.
+* What the port does not carry raises: a cloud large enough for the
+  reference to serve in entry chunks.  (A separate search cloud serves:
+  tests/test_torch_designated.py.)
 """
 
 import numpy as np
@@ -120,12 +121,10 @@ def test_unported_serving_raises(fitted, monkeypatch):
     cloud, labels, ref = fitted
     port = twl.make_bench_model(cloud, device="cpu")
     port.install_classifier(_carried(ref.classifier), cloud)
-    other = cloud + np.float32(0.01)
-    with pytest.raises(NotImplementedError, match="search"):
-        port.stage(cloud, search=other)
-    with pytest.raises(NotImplementedError, match="search"):
-        port.fit(cloud, labels, search=other)
-    port.stage(cloud, search=cloud)              # self-search, spelled out
+    # self-search spelled out is self-search: one quantized upload
+    staged = port.stage(cloud, search=cloud)
+    assert staged["search"] is staged["query"]
+    assert staged["dequant"] is not None
     monkeypatch.setattr(tpl, "_CHUNK_SLOTS", 1024)
     fresh = twl.make_bench_model(cloud, device="cpu")
     with pytest.raises(NotImplementedError, match="entry chunks"):
