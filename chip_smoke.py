@@ -156,6 +156,40 @@ Phases, one or more lines each:
               a float64 oracle without the excluded pairs
               (``_rounding_witness``), differing labels at near-ties or
               witnessed, at most 0.01%.
+10. rpte   -- the reference's ``scripts/bench_rpte.py`` workload:
+              ``make_bench_model(cloud, classifier="rpte")`` (10 trees,
+              ``wmean``, seed 0), ``fit`` (``fit_device`` on a 100k
+              sample) and serving the three clouds of phase 4, counted
+              from zero: only ``packed_moments`` launched, counters 0,
+              accuracy > 0.8; fit seconds, step times, the forest's
+              ``max_depth_``, the levels walked a step (``walk_depth_ +
+              1``: one past the deepest split, no early exit) and the
+              levels the cloud's rows need, the walk alone timed on the served
+              rows, peak memory.  Then card against CPU at 100k
+              (``_e2e_kind`` with the forest): differing labels at
+              near-ties or held by the rounding witness, the card's
+              label being the CPU walk's of the card's rows or held by
+              the walk witness (``checks.walk_witness``: a node of the
+              row's float64 path within the f32 rounding bound of its
+              split), at most 0.01%.
+11. large  -- the reference's ``scripts/bench_large.py`` workload:
+              ``make_bench_cloud(10_000_000, seed=1)``, the bench model
+              fit on ``cloud[:9_000_000:9]`` (``sample=100_000``),
+              served in entry chunks at the default ``_CHUNK_SLOTS``
+              (at least 2): e_cap, q_cap, the chunk and the chunks, the
+              host sizing seconds, three steps counted from zero (only
+              ``packed_moments``, its launches a step), counters 0,
+              accuracy > 0.8 over the 10M points and held out on the
+              last 1M, peak memory; ``packed_moments`` against its
+              plain twin at band 0's capacity buckets of the first entry
+              chunk, the chunk of the last live entry and the ragged
+              last chunk (E and c_cap of each);
+              then a second model with the same classifier and
+              un-chunked slots: its peak memory, the served feature
+              rows bit-equal to the chunked step's, labels equal,
+              probabilities within ``checks.CHUNK_PROBA_TOLERANCE``
+              (bit-equality printed).
+Phases 10 and 11 print their wall time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.  The sazo,
@@ -167,8 +201,10 @@ instances of each kernel too (``excl_launches``, ``excl_sazo_launches``,
 ``excl_attr_launches``), listed with the suffix ``_excl``.
 
 With ``--profile DIR`` a profile phase runs after the serving steps of
-phases 4, 4b and 5, after the tiled runs of phase 6 and after the vector
-run of phase 7: ``torch.profiler`` over three steady serving steps of
+phases 4, 4b, 5 and 10, after the tiled runs of phase 6 and after the
+vector run of phase 7 (for phase 10 also the forest walk's device time,
+the kernels launched inside its ``record_function`` range, as a share
+of busy time): ``torch.profiler`` over three steady serving steps of
 that backend or layout (clouds staged before the window) or three
 ``tiled_features`` runs of band 0, printing device
 busy time (the union of kernel, memcpy and memset intervals), the
@@ -193,6 +229,7 @@ import sys
 import time
 
 N_POINTS = 1_000_000
+N_LARGE = 10_000_000       # the reference's scripts/bench_large.py tile
 FIT_SAMPLE = 100_000
 E2E_POINTS = 100_000
 TIE_GAP = 1e-4
@@ -603,19 +640,6 @@ def _top2_gap(probs):
     return top2[:, 1] - top2[:, 0]
 
 
-def _served_features(model, staged):
-    """The feature rows ``model``'s serving step hands its classifier,
-    in caller order: the step run once more with ``classify_features``
-    swapped for the identity."""
-    from nimrud_tpu_torch import pipeline
-    classify = pipeline.classify_features
-    pipeline.classify_features = lambda params, features: features
-    try:
-        return model.predict_staged(staged, with_proba=True)[1]
-    finally:
-        pipeline.classify_features = classify
-
-
 def _d2_tolerance(radius, extent):
     """Bound on |f32 d2 - float64 d2| for a pair near ``radius`` whose
     entry-local coordinates lie within ``extent``: each axis difference
@@ -881,6 +905,7 @@ def _flip_witness(packed, span, clouds, span_labels, packed_labels):
     import torch
     from nimrud_tpu_torch import pipeline
     from nimrud_tpu_torch.ops import unique
+    from nimrud_tpu_torch.utils import checks
 
     generator = torch.Generator().manual_seed(0)
     totals = collections.Counter()
@@ -889,7 +914,7 @@ def _flip_witness(packed, span, clouds, span_labels, packed_labels):
         st_s, st_p = span.stage(cloud), packed.stage(cloud)
         _check(torch.equal(st_s["query"], st_p["query"]),
                "the two backends staged different coordinates")
-        feats = [_served_features(m, st)
+        feats = [checks.served_features(m, st)
                  for m, st in ((span, st_s), (packed, st_p))]
         differ = (feats[0][:, 0::4] != feats[1][:, 0::4]).any(1).cpu()
         flipped = lab != ref
@@ -1230,13 +1255,13 @@ def _e2e_phase(device):
     """Both backends on the card against the same classifier on the CPU:
     labels agree except at near-ties; then the sazo, oriented and vector
     layouts on the packed backend."""
-    from nimrud_tpu_torch.utils import workload
+    from nimrud_tpu_torch.utils import checks, workload
 
     small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
     other, other_labels = workload.make_bench_cloud(E2E_POINTS, seed=1)
     gpu = workload.make_bench_model(small, device=device)
     gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
-    clf, cpu_clf = gpu.classifier, _on_cpu(gpu.classifier)
+    clf, cpu_clf = gpu.classifier, checks.on_cpu(gpu.classifier)
     for backend in ("packed", "pallas"):
         card = workload.make_bench_model(small, backend=backend,
                                          device=device)
@@ -1262,18 +1287,12 @@ def _e2e_phase(device):
         _e2e_kind(kind, small, small_labels, other, other_labels, device)
 
 
-def _on_cpu(clf):
-    """A fitted classifier's copy on the CPU."""
-    from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
-    return SoftmaxClassifier.from_state(
-        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
-        clf.scale_.cpu(), device="cpu")
-
-
-def _e2e_kind(kind, small, small_labels, other, other_labels, device):
+def _e2e_kind(kind, small, small_labels, other, other_labels, device,
+              classifier="linear"):
     """One layout on the packed backend, card against CPU with the card
     fit's classifier (``vector`` on its fit cloud with the bench
-    attributes).  Each differing label has a near-tie (top-two gap < TIE_GAP
+    attributes; ``classifier="rpte"`` the forest).  Each differing label
+    has a near-tie (top-two gap < TIE_GAP
     on either side), or for ``oriented`` the sign witness
     (``layouts.reconcile``: the card's rows with the eigenvector signs
     turned to the CPU's and the vectors of nearly equal eigenvalues taken
@@ -1281,11 +1300,12 @@ def _e2e_kind(kind, small, small_labels, other, other_labels, device):
     (``_rounding_witness``: every feature of the two rows within its
     stated f32 bound, so only rounding moved the label).  Either witness
     first needs the card's label to be the classifier's label of the
-    card's own rows.  At most MAX_FLIPS of the labels at near-ties or by
-    rounding, and MAX_WITNESSED by signs."""
+    card's own rows (for the forest: or the walk witness,
+    ``checks.walk_witness``, holds the row).  At most MAX_FLIPS of the
+    labels at near-ties or by rounding, and MAX_WITNESSED by signs."""
     import torch
     from nimrud_tpu_torch.features import layouts
-    from nimrud_tpu_torch.utils import workload
+    from nimrud_tpu_torch.utils import checks, workload
 
     attrs = other_attrs = None
     if kind == "vector":
@@ -1293,9 +1313,10 @@ def _e2e_kind(kind, small, small_labels, other, other_labels, device):
         # capacities are sized on the fit cloud's raw density
         attrs = other_attrs = workload.make_bench_attributes(small_labels)
         other = small
-    gpu = workload.make_bench_model(small, kind=kind, device=device)
+    gpu = workload.make_bench_model(small, kind=kind, classifier=classifier,
+                                    device=device)
     gpu.fit(small, small_labels, sample=E2E_POINTS // 2, attributes=attrs)
-    cpu_clf = _on_cpu(gpu.classifier)
+    cpu_clf = checks.on_cpu(gpu.classifier)
     cpu = workload.make_bench_model(small, kind=kind, device="cpu")
     cpu.install_classifier(cpu_clf, small, attributes=attrs)
     st_g = gpu.stage(other, attributes=other_attrs)
@@ -1309,10 +1330,15 @@ def _e2e_kind(kind, small, small_labels, other, other_labels, device):
     left = differ & (gaps >= TIE_GAP)
     found = collections.Counter({"near-ties": int((differ & ~left).sum())})
     if bool(left.any()):
-        g_feats = _served_features(gpu, st_g).cpu()
-        c_feats = _served_features(cpu, st_c)
+        g_feats = checks.served_features(gpu, st_g).cpu()
+        c_feats = checks.served_features(cpu, st_c)
         # a witness first needs the card's label to be its own rows' label
         own = cpu_clf.proba_device(g_feats).argmax(1) == g_lab.cpu()
+        if classifier == "rpte" and not bool(own.all()):
+            walked = (~own).nonzero()[:, 0]
+            own[walked] = checks.walk_witness(cpu_clf._tables, g_feats,
+                                              cpu_clf.max_depth_, walked)
+            found["walk witness"] = int(own[walked].sum())
         found["labels not of the card's rows"] = int((left & ~own).sum())
         if kind == "oriented":
             rec, flipped, taken = layouts.reconcile(kind, g_feats, c_feats)
@@ -1332,9 +1358,9 @@ def _e2e_kind(kind, small, small_labels, other, other_labels, device):
         found["largest feature difference as a share of its bound"] = \
             float(f"{ratio:.4g}")
         left &= ~rounding
-    print(f"[e2e] {kind} packed: {E2E_POINTS} points, {int(differ.sum())} "
-          f"labels differ (card vs cpu): {dict(found)}; cpu serve "
-          f"{cpu_s:.2f} s", flush=True)
+    print(f"[e2e] {kind} packed ({classifier}): {E2E_POINTS} points, "
+          f"{int(differ.sum())} labels differ (card vs cpu): {dict(found)}; "
+          f"cpu serve {cpu_s:.2f} s", flush=True)
     _check(not bool(left.any()),
            f"{kind}: card and cpu labels differ without a witness at rows "
            f"{left.nonzero()[:8, 0].tolist()}")
@@ -1614,14 +1640,14 @@ def _e2e_exclusion(device):
     import numpy as np
     import torch
     from nimrud_tpu_torch.features import multiscale
-    from nimrud_tpu_torch.utils import workload
+    from nimrud_tpu_torch.utils import checks, workload
 
     e = EXCLUDE_RADIUS
     small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
     other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
     gpu = workload.make_bench_model(small, exclude_radius=e, device=device)
     gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
-    cpu_clf = _on_cpu(gpu.classifier)
+    cpu_clf = checks.on_cpu(gpu.classifier)
     cpu = workload.make_bench_model(small, exclude_radius=e, device="cpu")
     cpu.install_classifier(cpu_clf, small)
     g_feats = gpu.extract_device(other).cpu()
@@ -1685,11 +1711,13 @@ def _serving_profile(model, out_dir, cloud=None, attrs=None):
                    out_dir)
 
 
-def _profile_phase(tag, stem, steps, out_dir):
+def _profile_phase(tag, stem, steps, out_dir, annotation=None):
     """Device busy time, idle share and kernel times of ``steps`` (calls,
     each run to synchronize; the first also once before the window), from
     a ``torch.profiler`` trace.  The chrome trace and the full kernel
-    table go to ``out_dir``."""
+    table go to ``out_dir``.  ``annotation``: the name of a
+    ``record_function`` range; the device time of the kernels launched
+    inside it is printed as a share of busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1732,6 +1760,23 @@ def _profile_phase(tag, stem, steps, out_dir):
             f.write(f"{ms / n_steps:.4f} ms/step\t{n / n_steps:g} "
                     f"calls/step\t{name}\n")
     wall = sum(walls)
+    if annotation is not None:
+        ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in events if e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation"
+                  and e.get("name") == annotation]
+        inside = {e["args"]["correlation"] for e in events
+                  if e.get("ph") == "X"
+                  and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and "correlation" in e.get("args", {})
+                  and any(lo <= float(e["ts"]) <= hi for lo, hi in ranges)}
+        mine = sum(float(e["dur"]) for e in device
+                   if e.get("args", {}).get("correlation") in inside)
+        _check(len(ranges) >= n_steps and mine > 0,
+               f"{annotation}: {len(ranges)} ranges, no device time")
+        print(f"{tag} {annotation}: {mine / 1e3 / n_steps:.3f} ms/step of "
+              f"device time, {100 * mine / busy_us:.1f}% of busy",
+              flush=True)
     print(f"{tag} {n_steps} steps: traced ms to synchronize "
           + ", ".join(f"{w:.3f}" for w in walls)
           + f"; device busy {busy_us / 1e3 / n_steps:.3f} ms/step; idle "
@@ -1947,7 +1992,7 @@ def _designated_small(device):
     each through its own handle: labels differ only at near-ties, at
     most MAX_FLIPS."""
     import torch
-    from nimrud_tpu_torch.utils import workload
+    from nimrud_tpu_torch.utils import checks, workload
 
     small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
     other, other_labels = workload.make_bench_cloud(E2E_POINTS, seed=1)
@@ -1986,7 +2031,8 @@ def _designated_small(device):
     gpu = workload.make_bench_model(small, device=device)
     gpu.fit(small, small_labels, search=search, sample=E2E_POINTS // 2)
     cpu = workload.make_bench_model(small, device="cpu")
-    cpu.install_classifier(_on_cpu(gpu.classifier), small, search=search)
+    cpu.install_classifier(checks.on_cpu(gpu.classifier), small,
+                           search=search)
     g_lab, g_prob = gpu.predict_staged(
         gpu.stage(other, staged_search=gpu.stage_search(search)),
         with_proba=True)
@@ -2004,6 +2050,247 @@ def _designated_small(device):
            "designated: card and cpu labels differ away from near-ties")
     _check(int(differ.sum()) <= MAX_FLIPS * E2E_POINTS,
            "designated: too many label flips")
+
+
+def _chunking(model, cloud):
+    """Sizes the serving specs of ``cloud`` (the host work a first
+    ``stage`` of its size bucket does) and returns (seconds, e_cap,
+    q_cap, entries a chunk or None, chunks)."""
+    from nimrud_tpu_torch import pipeline
+    t0 = time.perf_counter()
+    specs = model._fused_band_specs(cloud, cloud)
+    sizing_s = time.perf_counter() - t0
+    pack = min((band[1] for band in specs), key=lambda spec: spec.tile_edge)
+    chunk = pipeline._serving_entry_chunk(pack.e_cap, pack.q_cap,
+                                          model.serving_chunk_slots)
+    n_chunks = 1 if chunk is None else -(-pack.e_cap // chunk)
+    return sizing_s, pack.e_cap, pack.q_cap, chunk, n_chunks
+
+
+def _chunk_problems(model, cloud, device):
+    """Band 0's kernel inputs on the chunked serving path: the capacity
+    buckets of the first entry chunk, of the chunk holding the last
+    live entry and of the last (ragged) chunk, each split within its
+    chunk at the chunked capacities, as
+    ``fused_extract_packed_multi(entry_chunk=)`` splits them (entries
+    past the live ones, which e_cap's estimate leaves, run as dead
+    lanes).  Returns ``[((lo, hi), (q_t, cand_t, centers), radii)]`` a
+    bucket."""
+    from nimrud_tpu_torch import pipeline
+    from nimrud_tpu_torch.ops import device_grid
+
+    band, query, valid, centers, mask = _staged_band0(model, cloud, device)
+    pack = min((b[1] for b in model._fused_band_specs(cloud, cloud)),
+               key=lambda spec: spec.tile_edge)
+    chunk = pipeline._serving_entry_chunk(pack.e_cap, pack.q_cap,
+                                          model.serving_chunk_slots)
+    plan = device_grid._pack_plan(query, valid, pack)
+    spans = device_grid._band_spans(plan, centers, mask, band[1],
+                                    presorted=True)
+    sorted3 = device_grid._far_extended(spans["sorted_pts"])
+    last_live = int((plan["count"] > 0).nonzero().max())
+    problems = []
+    for lo in sorted({0, last_live // chunk * chunk,
+                      (pack.e_cap - 1) // chunk * chunk}):
+        hi = min(lo + chunk, pack.e_cap)
+        buckets, _ = device_grid._bucket_problems(
+            plan["q_t"][lo:hi], plan["centers"][lo:hi],
+            spans["span_starts"][lo:hi], spans["span_lens"][lo:hi], sorted3,
+            band[5])
+        problems += [((lo, hi), b[:3], band[2]) for b in buckets]
+    return problems
+
+
+def _large_phase(device):
+    """The reference's ``scripts/bench_large.py`` workload: the 10M-point
+    tile (``make_bench_cloud(10_000_000, seed=1)``), the bench model fit
+    on a stride over its first 9M points, served in entry chunks at the
+    default ``_CHUNK_SLOTS`` (three label steps counted from zero, then
+    one with probabilities), ``packed_moments`` held against its twin at
+    the chunked path's band-0 buckets (``_chunk_problems``), then served
+    by a second model with the same classifier and un-chunked slots:
+    feature rows bit-equal, labels equal, probabilities within
+    ``checks.CHUNK_PROBA_TOLERANCE``."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+    from nimrud_tpu_torch.pipeline import COUNTERS
+    from nimrud_tpu_torch.utils import checks, workload
+
+    t0 = time.perf_counter()
+    cloud, labels = workload.make_bench_cloud(N_LARGE, seed=1)
+    fit_cloud, fit_labels = cloud[:9 * N_LARGE // 10:9], \
+        labels[:9 * N_LARGE // 10:9]
+    model = workload.make_bench_model(cloud, device=device)
+    model.fit(fit_cloud, fit_labels, sample=FIT_SAMPLE)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    sizing_s, e_cap, q_cap, chunk, n_chunks = _chunking(model, cloud)
+    print(f"[large] {N_LARGE} points (cloud and fit on {len(fit_cloud)}: "
+          f"{fit_s:.2f} s); host sizing {sizing_s:.2f} s; e_cap {e_cap}, "
+          f"q_cap {q_cap}: {e_cap * q_cap} slots, {chunk} entries a chunk, "
+          f"{n_chunks} chunks", flush=True)
+    _check(chunk is not None and n_chunks >= 2,
+           f"the 10M tile serves in {n_chunks} chunk(s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    steps, served, _, diags = _serve(model, [cloud] * 3)
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    accs = _check_served("large", diags, served, [labels] * 3)
+    held = float((served[0][-1_000_000:].numpy()
+                  == labels[-1_000_000:]).mean())
+    _only(counts, ("packed_moments",), "the large step")
+    _check(counts["packed_moments"] > 0, "the kernel did not run in the "
+           "large step")
+    print(f"[large] chunked steps ms (total, stage, predict+sync): "
+          f"{_steps_text(steps)}; {counts['packed_moments'] / 3:g} "
+          f"packed_moments launches a step; accuracy "
+          + ", ".join(f"{a:.4f}" for a in accs)
+          + f", held out on the last 1M {held:.4f}; counters {diags[0]}; "
+          f"peak {peak_gb:.3f} GiB", flush=True)
+    staged = model.stage(cloud)
+    labels_c, probs_c = model.predict_staged(staged, with_proba=True)
+    feats_c = checks.served_features(model, staged).cpu()
+    del staged
+    for (lo, hi), (q_t, cand_t, cen), rr in _chunk_problems(model, cloud,
+                                                            device):
+        shape = (f"chunk [{lo}, {hi}): E={q_t.shape[0]} q_cap="
+                 f"{q_t.shape[2]} c_cap={cand_t.shape[1] // q_t.shape[0]} "
+                 f"radii={len(rr)}")
+        rec = _hold(
+            f"packed_moments large {shape}",
+            lambda p: pm.packed_moments(q_t, cand_t, cen, rr, precision=p),
+            lambda p: pm.packed_moments_plain(q_t, cand_t, cen, rr,
+                                              precision=p),
+            lambda ref: pm.moment_tolerance(ref, cand_t, cen))
+        work = pm.packed_moments_work(q_t, cand_t, cen, rr)
+        print(f"[kernel] packed_moments large {shape}: "
+              f"{_work_text(rec, work)}", flush=True)
+    del q_t, cand_t, cen
+
+    whole = workload.make_bench_model(cloud, device=device,
+                                      serving_chunk_slots=2 ** 62)
+    whole.install_classifier(model.classifier, fit_cloud)
+    del model
+    sizing_w, _, _, chunk_w, _ = _chunking(whole, cloud)
+    _check(chunk_w is None, "the un-chunked model chunks")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps_w, served_w, _, diags_w = _serve(whole, [cloud])
+    peak_w = torch.cuda.max_memory_allocated() / 2**30
+    _check(all(diags_w[0][k] == 0 for k in COUNTERS),
+           f"un-chunked counters {diags_w}")
+    staged = whole.stage(cloud)
+    labels_w, probs_w = whole.predict_staged(staged, with_proba=True)
+    feats_w = checks.served_features(whole, staged).cpu()
+    same = bool(torch.equal(labels_c, labels_w))
+    err = float((probs_c - probs_w).abs().max())
+    rows = int((feats_c != feats_w).any(1).sum())
+    print(f"[large] served feature rows chunked against un-chunked: {rows} "
+          f"of {N_LARGE} differ, the largest difference "
+          f"{float((feats_c - feats_w).abs().max()):.3g}", flush=True)
+    print(f"[large] un-chunked: host sizing {sizing_w:.2f} s; step ms "
+          f"{_steps_text(steps_w)}; peak {peak_w:.3f} GiB against "
+          f"{peak_gb:.3f} GiB chunked; labels equal to the chunked step's: "
+          f"{same} ({int((labels_c != labels_w).sum())} differ); "
+          f"probabilities bit-equal: {bool(torch.equal(probs_c, probs_w))}"
+          f", largest difference {err:.3g}", flush=True)
+    _check(rows == 0, "chunked and un-chunked feature rows differ")
+    _check(same, "chunked and un-chunked labels differ")
+    _check(err <= checks.CHUNK_PROBA_TOLERANCE, "chunked and un-chunked "
+           "probabilities differ")
+    _check(bool(np.isfinite(probs_c.cpu().numpy()).all()),
+           "non-finite probabilities")
+
+
+def _levels_needed(tables, feats, max_depth):
+    """Levels of the dense walk until every (tree, row) pair of ``feats``
+    stands at a leaf: where an early exit would stop."""
+    import torch
+    n_trees, size, _ = tables["dense_vecs"].shape
+    tag = torch.ones((n_trees, feats.shape[0]), dtype=torch.int64,
+                     device=feats.device)
+    done = torch.zeros_like(tag, dtype=torch.bool)
+    tree = torch.arange(n_trees, device=feats.device)[:, None]
+    for level in range(max_depth + 1):
+        split = tables["dense_splits"][tree, tag]
+        done |= torch.isinf(split)
+        if bool(done.all()):
+            return level + 1
+        proj = (feats[None] * tables["dense_vecs"][tree, tag]).sum(2)
+        tag = torch.where(done, tag, 2 * tag + (proj > split).long())
+    return max_depth + 1
+
+
+def _rpte_phase(cloud, labels, clouds, truths, device, profile_dir=None):
+    """The reference's ``scripts/bench_rpte.py`` workload: the bench model
+    with ``classifier="rpte"`` (10 trees, ``wmean``, seed 0) fit on the
+    device (``fit_device`` on a 100k sample) and serving the three 1M
+    clouds, counted from zero; the forest walk alone timed on a step's
+    feature rows; card against CPU at 100k (``_e2e_kind``); with a
+    ``profile_dir`` three steps profiled with the walk's share."""
+    import torch
+    from nimrud_tpu_torch import pipeline
+    from nimrud_tpu_torch.utils import checks, workload
+
+    model = workload.make_bench_model(cloud, classifier="rpte",
+                                      device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    model.fit(cloud, labels, sample=FIT_SAMPLE)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = _counts()
+    steps, served, _, diags = _serve(model, clouds)
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    accs = _check_served("rpte", diags, served, truths)
+    _only(counts, ("packed_moments",), "the rpte path")
+    _check(fit_counts["packed_moments"] > 0
+           and counts["packed_moments"] > fit_counts["packed_moments"],
+           "the kernel did not run in the rpte fit and serving")
+    forest = model.classifier
+    staged = model.stage(clouds[0])
+    feats = checks.served_features(model, staged)
+    walk_ms = _events_ms(lambda: forest.proba_device(feats), 3)
+    needed = _levels_needed(forest._tables, feats, forest.max_depth_)
+    print(f"[rpte] fit {fit_s:.3f} s (fit_device, {forest.n_estimators} "
+          f"trees, {forest.d_func}); serve steps ms (total, stage, "
+          f"predict+sync): {_steps_text(steps)}; "
+          f"{(counts['packed_moments'] - fit_counts['packed_moments']) / 3:g}"
+          f" packed_moments launches a step; accuracy "
+          + ", ".join(f"{a:.4f}" for a in accs)
+          + f"; counters {diags}; max_depth_ {forest.max_depth_}, "
+          f"{forest.walk_depth_ + 1} levels walked a step (one past the "
+          f"deepest split; {needed} needed "
+          f"by the cloud's rows); the walk alone on the cloud's "
+          f"{feats.shape[0]} served rows {walk_ms:.3f} ms (CUDA events); peak "
+          f"{peak_gb:.3f} GiB", flush=True)
+    if profile_dir:
+        staged_all = [model.stage(c) for c in clouds]
+        classify = pipeline.classify_features
+
+        def annotated(params, features):
+            with torch.profiler.record_function("rpt walk"):
+                return classify(params, features)
+
+        pipeline.classify_features = annotated
+        try:
+            _profile_phase("[profile rpte]", "serving_rpte",
+                           [lambda st=st: model.predict_staged(st)
+                            for st in staged_all], profile_dir,
+                           annotation="rpt walk")
+        finally:
+            pipeline.classify_features = classify
+    del model, staged, feats
+    small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
+    other, other_labels = workload.make_bench_cloud(E2E_POINTS, seed=1)
+    _e2e_kind("minimal", small, small_labels, other, other_labels, device,
+              classifier="rpte")
 
 
 def _build_phase(cuda_build):
@@ -2128,6 +2415,13 @@ def main():
                                                    truths, band0, device)
     launches.update(excl_launches)
     record.update(excl_records)
+    for phase, run in (("rpte", lambda: _rpte_phase(
+            cloud, labels, clouds, truths, device, args.profile)),
+                       ("large", lambda: _large_phase(device))):
+        t0 = time.perf_counter()
+        run()
+        print(f"[{phase}] phase wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     sources = {
         "packed_moments": ("packed_moments",

@@ -656,22 +656,41 @@ def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
 
 def fused_extract_packed_multi(query, q_valid, searches, s_valids,
                                pack_spec, band_specs, radii_bands, kind,
-                               c_caps, reduce_fn, with_stats=False,
+                               c_caps, reduce_fn=None, with_stats=False,
                                presorted=False, precision="highest",
-                               attributes=None, search_tables=None):
+                               attributes=None, search_tables=None,
+                               order="rank", n_out=None, entry_chunk=None):
     """
     All bands of a scaleset over ONE shared query plan: ``_pack_plan``
     runs once on ``pack_spec`` (the finest band's grid), every band
     derives its spans against the shared entries, the kernel runs per
     band and capacity bucket, and ``reduce_fn`` (feature rows -> tuple
-    of per-row tensors, e.g. the classifier) runs once on all bands'
-    concatenated features.
+    of per-row tensors, e.g. the classifier) runs on the concatenated
+    features of all bands.
 
-    Returns ``(out_rank, q_order)``: the reduce outputs in sorted-rank
-    order (ranks without an entry slot get the reduce of a zero-feature
-    row) and the plan's sort permutation; ``out[q_order] = out_rank``
-    restores caller order.  This is the reference's ``order="rank"``
-    without entry chunking.
+    ``order`` (the reference's):
+
+    * ``"rank"`` with a ``reduce_fn``: ``(out_rank, q_order)``, the
+      reduce outputs in sorted-rank order (ranks without an entry slot
+      get the reduce of a zero-feature row) and the plan's sort
+      permutation; ``out[q_order] = out_rank`` restores caller order.
+      Without a ``reduce_fn``: ``(feats_flat, pos_r, q_order)``, the
+      features in (entry, slot) order and each rank's flat position
+      (the row count where a rank has no slot).
+    * ``"plan"``: ``(out_flat, pos)``, the features in (entry, slot)
+      order (or, with a ``reduce_fn``, its outputs with one trailing
+      zero-feature row each) and each caller row's flat position, the
+      sentinel being the row count; ``n_out`` rows of it.
+    * ``"caller"``: the ``(n_out, width)`` features in caller order
+      (``reduce_fn`` unused).
+
+    ``entry_chunk`` (with a ``reduce_fn``, order "plan" or "rank"): the
+    per-entry pipeline (candidate pack, kernel, layout, reduce) runs on
+    entries ``[k * entry_chunk, (k + 1) * entry_chunk)`` in turn, the
+    last chunk ragged, so its buffers are bounded by the chunk; each
+    chunk splits its capacity buckets within itself (``c_caps`` from
+    ``span_host.candidate_caps_split(entry_chunk=)``).  The reduced rows
+    concatenate to the un-chunked rows.
 
     ``presorted=True`` is a trust contract: each band's search rows come
     from ``unique.unique_voxels(..., tile_spec=band_specs[i])``.  It
@@ -685,7 +704,15 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
     designated search map) replace each band's search rows:
     ``searches``, ``s_valids`` and ``attributes`` are then ignored, and
     a table's columns past the coordinates are its attributes.
+
+    ``with_stats`` adds ``dropped_query`` and ``dropped_candidates``
+    (the candidates past a capacity, summed over chunks and buckets, and
+    each band's clipped span rows, counted once).
     """
+    if order not in ("caller", "plan", "rank"):
+        raise ValueError(f"unknown order {order!r}")
+    n_query = query.shape[0]
+    n_out = n_query if n_out is None else n_out
     plan = _pack_plan(query, q_valid, pack_spec)
     n_bands = len(band_specs)
     attributes = attributes or (None,) * n_bands
@@ -698,25 +725,66 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
     if kind == "vector" and min(n_attrs) == 0:
         raise ValueError("kind='vector' requires attributes in every band")
     dropped = query.new_zeros((), dtype=torch.int64)
-    blocks = []
+    bands = []
     for search, s_valid, spec, radii, c_cap, attrs, tables in zip(
             searches, s_valids, band_specs, radii_bands, c_caps,
             attributes, search_tables):
         band = _band_spans(plan, search, s_valid, spec, attrs=attrs,
                            presorted=presorted and attrs is None,
                            tables=tables)
-        bl, dr = _band_blocks(kind, plan["q_t"], plan["centers"],
-                              band["span_starts"], band["span_lens"],
-                              _far_extended(band["sorted_pts"]), c_cap,
-                              radii, precision=precision)
-        blocks.extend(bl)
-        dropped = dropped + dr + band["clipped"]
-    feats = torch.cat(blocks, dim=-1)
-    red = reduce_fn(feats.reshape(-1, feats.shape[-1]))
-    width = feats.shape[-1]
-    zero_row = reduce_fn(query.new_zeros((1, width)))
-    out = (_rank_compact(red, plan, pack_spec, zero_row, query.shape[0]),
-           plan["q_order"])
+        dropped = dropped + band["clipped"]
+        bands.append((band["span_starts"], band["span_lens"],
+                      _far_extended(band["sorted_pts"]), c_cap, radii))
+
+    def features(lo, hi):
+        """Feature rows of entries [lo, hi) of every band, (hi - lo,
+        q_cap, width), and the candidates they dropped."""
+        blocks, drop = [], 0
+        for starts, lens, sorted3, c_cap, radii in bands:
+            bl, dr = _band_blocks(kind, plan["q_t"][lo:hi],
+                                  plan["centers"][lo:hi], starts[lo:hi],
+                                  lens[lo:hi], sorted3, c_cap, radii,
+                                  precision=precision)
+            blocks.extend(bl)
+            drop = drop + dr
+        return torch.cat(blocks, dim=-1), drop
+
+    e_cap = pack_spec.e_cap
+    reduced = reduce_fn is not None and order != "caller"
+    if reduced and entry_chunk is not None and e_cap > entry_chunk:
+        parts = []
+        for lo in range(0, e_cap, entry_chunk):
+            feats, dr = features(lo, min(lo + entry_chunk, e_cap))
+            width = feats.shape[-1]
+            parts.append(reduce_fn(feats.reshape(-1, width)))
+            dropped = dropped + dr
+            del feats
+        red = tuple(torch.cat(leaf) for leaf in zip(*parts))
+    else:
+        feats, dr = features(0, e_cap)
+        dropped = dropped + dr
+        width = feats.shape[-1]
+        flat = feats.reshape(-1, width)
+        red = reduce_fn(flat) if reduced else None
+    n_rows = e_cap * pack_spec.q_cap
+    if red is not None:
+        zero_row = reduce_fn(query.new_zeros((1, width)))
+        if order == "rank":
+            out = (_rank_compact(red, plan, pack_spec, zero_row, n_query),
+                   plan["q_order"])
+        else:
+            out = (tuple(torch.cat([leaf, z])
+                         for leaf, z in zip(red, zero_row)),
+                   _unsort_positions(plan, pack_spec, n_query,
+                                     n_rows)[:n_out])
+    elif order == "rank":
+        out = (flat, _rank_positions(plan, pack_spec, n_query, n_rows),
+               plan["q_order"])
+    elif order == "plan":
+        out = (flat, _unsort_positions(plan, pack_spec, n_query,
+                                       n_rows)[:n_out])
+    else:
+        out = _unsort_features(feats, plan, pack_spec, n_query, n_out)
     if not with_stats:
         return out
     stats = {"dropped_query": q_valid.sum() - plan["count"].sum(),

@@ -4,11 +4,16 @@ with per-point classification on one device (port of the packed and
 span serving paths of ``nimrud_tpu/pipeline.py``).
 
 ``GeometryClassifier.fit`` extracts features on the device and trains
-the linear classifier there; ``stage`` quantizes and uploads a cloud;
-``predict_staged`` runs the whole serving step.  With the packed backend
-that is per-band voxel dedup, one shared query plan, per-band packed
-candidate blocks through the ``packed_moments`` kernel, the layout and
-the classifier in plan order, and one scatter back to caller order.
+the classifier there (the linear softmax model, or the
+random-projection-tree ensemble, ``classifier="rpte"``); ``stage``
+quantizes and uploads a cloud; ``predict_staged`` runs the whole
+serving step.  With the packed backend that is per-band voxel dedup,
+one shared query plan, per-band packed candidate blocks through the
+``packed_moments`` kernel, the layout and the classifier in plan order,
+and one scatter back to caller order.  Past ``serving_chunk_slots``
+entry slots the blocks, the kernel, the layout and the classifier run
+one chunk of entries at a time (the host sizes the capacities for the
+same chunks), which bounds the step's memory.
 The ``vector`` layout (packed only) replaces each band's voxel dedup by
 the packed attribute interp (the voxel centers' attribute means over
 the chebyshev ball of one edge, ``ops.interp.packed_interp``) and
@@ -46,14 +51,16 @@ import numpy as np
 import torch
 
 from nimrud_tpu_torch.features import layouts, multiscale
+from nimrud_tpu_torch.learning import rpt
 from nimrud_tpu_torch.learning.classifiers import param_classifier
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
 from nimrud_tpu_torch.ops import (device_grid, interp, native, packing,
                                   span_host, unique)
 
-_CHUNK_SLOTS = 2 * 1024 * 1024    # entry slots above which the reference
-                                  # serves in entry chunks (not ported;
-                                  # the 1M bench stays un-chunked)
+_CHUNK_SLOTS = 2 * 1024 * 1024    # entry slots above which serving
+                                  # runs its per-slot pipeline in entry
+                                  # chunks (the 1M bench stays
+                                  # un-chunked)
 
 COUNTERS = ("vox_dropped", "dropped_query", "dropped_search",
             "interp_dropped", "dropped_candidates")
@@ -88,8 +95,27 @@ def _dequantize(quant, dequant):
     return steps * dequant[3] + dequant[:3]
 
 
+def _serving_entry_chunk(e_cap, q_cap, chunk_slots):
+    """Entries per serving chunk, or None un-chunked (the reference's
+    sizing, shared by the host capacity sizing and the serving step, so
+    the split capacities are sized for the chunking the step runs):
+    ``chunk_slots`` (default ``_CHUNK_SLOTS``) entry slots a chunk,
+    floored to 256 entries, at least 256."""
+    max_slots = _CHUNK_SLOTS if chunk_slots is None else chunk_slots
+    if e_cap * q_cap <= max_slots:
+        return None
+    return max(max_slots // q_cap // 256, 1) * 256
+
+
 def classify_features(clf_params, features):
-    """Linear softmax probabilities of feature rows."""
+    """Class probabilities of feature rows under the serving classifier
+    of :meth:`GeometryClassifier._fused_classifier`: the linear softmax
+    (``kind`` "linear") or the random-projection-tree forest's walk
+    (``kind`` "rpte")."""
+    if clf_params["kind"] == "rpte":
+        return rpt.ensemble_proba(clf_params["tables"], features,
+                                  clf_params["max_depth"],
+                                  clf_params["d_func"])
     standardized = (features - clf_params["mean"]) / clf_params["scale"]
     return torch.softmax(standardized @ clf_params["w"] + clf_params["b"],
                          dim=1)
@@ -98,7 +124,7 @@ def classify_features(clf_params, features):
 class _FusedReducer:
     """Classifier reduce for
     ``device_grid.fused_extract_packed_multi``: feature rows -> labels
-    (+ probabilities when asked for)."""
+    (+ probabilities when asked for), per entry chunk when chunked."""
 
     def __init__(self, clf_params, with_proba):
         self.clf_params = clf_params
@@ -181,15 +207,20 @@ def _span_predict_step(query, q_valid, search, s_valid, clf_params,
 def _fused_predict_step(query, q_valid, search, s_valid, clf_params,
                         band_specs, kind, n_query, dequant=None,
                         with_proba=False, attributes=None,
-                        precision="highest", search_tables=None):
+                        precision="highest", search_tables=None,
+                        chunk_slots=None):
     """The packed backend's serving step for one staged cloud against
     its search cloud (``attributes`` rows aligned with the search for
     ``vector``): labels (n_query,), probabilities or None, and the five
     overflow counters.  ``search_tables`` (one per band, from
     :meth:`GeometryClassifier.stage_search`) replace the search side:
-    ``search``, ``s_valid`` and ``attributes`` are then None."""
+    ``search``, ``s_valid`` and ``attributes`` are then None.  Past
+    ``chunk_slots`` entry slots (default ``_CHUNK_SLOTS``) the per-slot
+    pipeline runs in entry chunks (``_serving_entry_chunk``)."""
     query, search, diag = _step_inputs(query, search, dequant)
     pack_spec = min((b[1] for b in band_specs), key=lambda s: s.tile_edge)
+    entry_chunk = _serving_entry_chunk(pack_spec.e_cap, pack_spec.q_cap,
+                                       chunk_slots)
     searches, masks, cattrs = [], [], []
     if search_tables is None:
         for band in band_specs:
@@ -206,7 +237,8 @@ def _fused_predict_step(query, q_valid, search, s_valid, clf_params,
         kind, tuple(b[5] for b in band_specs),
         _FusedReducer(clf_params, with_proba), with_stats=True,
         presorted=kind != "vector", precision=precision,
-        attributes=tuple(cattrs), search_tables=search_tables)
+        attributes=tuple(cattrs), search_tables=search_tables,
+        order="rank", entry_chunk=entry_chunk)
     diag["dropped_query"] = stats["dropped_query"]
     diag["dropped_candidates"] = stats["dropped_candidates"]
     # out_rank is in sorted-rank order; q_order maps rank -> caller row
@@ -228,7 +260,9 @@ class GeometryClassifier:
                   "covariance", "eigen", "sazo" or "vector" ("sazo" and
                   "vector" serve on the packed backend only; "vector"
                   fits and serves with ``attributes=``, 1..6 columns).
-      classifier: "linear", or an already-constructed classifier.
+      classifier: "linear" (the softmax model), "rpte" (the
+                  random-projection-tree ensemble), or an already
+                  constructed classifier of either kind.
       classifier_kwargs: forwarded to ``param_classifier``.
       transfer_dtype: "float32" or "uint16" (uploads quantized to half
                   the bytes).
@@ -239,6 +273,11 @@ class GeometryClassifier:
                   resolves to it) or "pallas" (the span kernel reads
                   candidate spans in place).  Both fit on the packed
                   path.
+      serving_chunk_slots: entry slots above which the packed
+                  serving step runs its per-slot pipeline (candidate
+                  pack, kernel, layout, classifier) in entry chunks;
+                  None is ``_CHUNK_SLOTS``.  It bounds the step's peak
+                  device memory.
       precision:  the serving kernels' moment sums: "highest" or
                   "bf16x2" (also the reference's "mixed" / "high",
                   mapped onto it); "bf16x2" needs ``backend`` named
@@ -258,7 +297,7 @@ class GeometryClassifier:
                  classifier_kwargs=None, exclude_radius=None,
                  transfer_dtype="float32", vector_s_cap=32, bounds=None,
                  trim_entries=False, backend="auto", precision="highest",
-                 tile_m=3, device="cuda"):
+                 serving_chunk_slots=None, tile_m=3, device="cuda"):
         self.scaleset = [(float(e), tuple(float(r) for r in rs))
                          for e, rs in scaleset]
         if any(edge <= 0 for edge, _ in self.scaleset):
@@ -280,6 +319,7 @@ class GeometryClassifier:
                 "reference-parity paths)")
         if backend not in ("auto", "packed", "pallas"):
             raise ValueError("backend must be packed, pallas or auto")
+        self.serving_chunk_slots = serving_chunk_slots
         multiscale.kernel_precision(precision)
         if precision == "bf16x2" and backend not in ("pallas", "packed"):
             raise ValueError(
@@ -363,11 +403,12 @@ class GeometryClassifier:
     def fit(self, cloud, labels, search=None, sample=None, seed=0,
             attributes=None):
         """Extract features of ``cloud`` against ``search`` (default the
-        cloud) and fit the classifier on the device.  ``sample`` caps the
-        training points (a seeded random subset); ``attributes``
-        (``vector`` only) are the search cloud's per-point attribute
-        columns.  The serving specs are sized on the fit cloud, as the
-        reference sizes them."""
+        cloud) and fit the classifier on the device (its ``fit_device``;
+        the labels stay on the host, as in the reference).  ``sample``
+        caps the training points (a seeded random subset);
+        ``attributes`` (``vector`` only) are the search cloud's
+        per-point attribute columns.  The serving specs are sized on the
+        fit cloud, as the reference sizes them."""
         labels = np.asarray(labels)
         n_classes = int(labels.max() + 1)
         self._spec_cache = None
@@ -378,10 +419,8 @@ class GeometryClassifier:
                 len(labels))[:sample]
             features = features[torch.as_tensor(rows, device=self.device)]
             labels = labels[rows]
-        self.classifier.fit_device(
-            features, torch.as_tensor(labels.astype(np.int64),
-                                      device=self.device),
-            n_classes=n_classes)
+        self.classifier.fit_device(features, labels.astype(np.int32),
+                                   n_classes=n_classes)
         if self.exclude_radius is None:     # no staged serving to size
             self._size_serving(cloud, self._attr_width(attributes, search,
                                                        cloud))
@@ -389,8 +428,9 @@ class GeometryClassifier:
 
     def install_classifier(self, classifier, fit_cloud, attributes=None,
                            search=None):
-        """Serve ``classifier`` (e.g. ``SoftmaxClassifier.from_state`` of
-        a reference fit), with the serving specs sized from
+        """Serve ``classifier`` (e.g. ``SoftmaxClassifier.from_state`` or
+        ``RPTEnsemble.from_tables`` of a reference fit), with the serving
+        specs sized (for the model's ``serving_chunk_slots``) from
         ``fit_cloud`` (and, for ``vector``, the width of ``attributes``,
         rows aligned with ``search``, default the fit cloud) exactly as
         :meth:`fit` with the same arguments sizes them."""
@@ -439,14 +479,23 @@ class GeometryClassifier:
     # -- serving ------------------------------------------------------------
 
     def _fused_classifier(self):
-        """The classifier's device parameters for the serving step."""
+        """The classifier's device parameters for the serving step
+        (:func:`classify_features`): the linear model's weights and
+        standardization, or the forest's tables with its walk depth and
+        decision function."""
         clf = self.classifier
-        if not isinstance(clf, SoftmaxClassifier) or clf.params is None:
-            raise ValueError("serving needs a fitted linear classifier")
-        return {"w": clf.params.w.detach().to(self.device),
-                "b": clf.params.b.detach().to(self.device),
-                "mean": clf.mean_.to(self.device),
-                "scale": clf.scale_.to(self.device)}
+        if isinstance(clf, SoftmaxClassifier) and clf.params is not None:
+            return {"kind": "linear",
+                    "w": clf.params.w.detach().to(self.device),
+                    "b": clf.params.b.detach().to(self.device),
+                    "mean": clf.mean_.to(self.device),
+                    "scale": clf.scale_.to(self.device)}
+        if isinstance(clf, rpt.RPTEnsemble) and clf._tables is not None:
+            return {"kind": "rpte",
+                    "tables": {k: v.to(self.device)
+                               for k, v in clf._tables.items()},
+                    "max_depth": clf.walk_depth_, "d_func": clf.d_func}
+        raise ValueError("serving needs a fitted linear or rpte classifier")
 
     def _spec_key(self, n_query, n_search, attr_width=None):
         """Cache key shared by ``_fused_band_specs`` and the fit sizing:
@@ -469,14 +518,15 @@ class GeometryClassifier:
         bounds.
 
         Packed: entry capacity from the query's segment occupancy,
-        per-band candidate capacities (split into rank buckets) from the
-        host mirror of the shared plan against the search's voxel set,
-        and per-band voxel capacities from its real voxel count (1.25x +
-        4096); raises where the reference would serve in entry chunks
-        (not ported).  Span (``backend="pallas"``): q_cap 256 and the
-        grid's worst-case entry capacity, no voxel or candidate
-        capacity; with ``trim_entries``, :meth:`_size_serving` then sizes
-        the entry and voxel capacities from the fit cloud."""
+        per-band candidate capacities (split into rank buckets, within
+        each entry chunk of ``_serving_entry_chunk`` under the model's
+        ``serving_chunk_slots``) from the host mirror of the shared plan
+        against the search's voxel set, and per-band voxel capacities
+        from its real voxel count (1.25x + 4096).  Span
+        (``backend="pallas"``): q_cap 256 and the grid's worst-case
+        entry capacity, no voxel or candidate capacity; with
+        ``trim_entries``, :meth:`_size_serving` then sizes the entry and
+        voxel capacities from the fit cloud."""
         if self.kind == "vector" and attr_width is None:
             raise ValueError("kind='vector' sizes its specs with the "
                              "attribute width")
@@ -533,12 +583,8 @@ class GeometryClassifier:
         # one host mirror of the shared plan (the finest band's grid)
         # sizes every band's candidate capacity
         pack_spec = min(dev_specs, key=lambda s: s.tile_edge)
-        if pack_spec.e_cap * pack_spec.q_cap > _CHUNK_SLOTS:
-            raise NotImplementedError(
-                f"{pack_spec.e_cap} entries x q_cap {pack_spec.q_cap} "
-                f"exceed {_CHUNK_SLOTS} slots: serving in entry chunks is "
-                "not ported yet (ROADMAP.md Queue A #4, entry-chunked "
-                "serving)")
+        entry_chunk = _serving_entry_chunk(
+            pack_spec.e_cap, pack_spec.q_cap, self.serving_chunk_slots)
         host_plan = span_host.pack_plan_np(
             q3, np.ones(q3.shape[0], bool), pack_spec)
         specs = []
@@ -547,7 +593,8 @@ class GeometryClassifier:
             host_centers = multiscale._host_unique_voxels(
                 s3, edge, bounds=(s_lo, s_hi))
             c_cap = span_host.candidate_caps_split(
-                None, host_centers, dev_spec, plan=host_plan)
+                None, host_centers, dev_spec, plan=host_plan,
+                entry_chunk=entry_chunk)
             if self.kind == "vector":
                 interp_spec, interp_cap = multiscale._interp_packed_plan(
                     s3, vox_spec, lo, hi, (s_lo, s_hi), self.tile_m,
@@ -743,9 +790,11 @@ class GeometryClassifier:
         with a staged search map's own counts added; nonzero means the
         cloud (or the map) is denser than the capacities were sized
         for."""
-        step = _span_predict_step if self.backend == "pallas" \
-            else _fused_predict_step
-        extra = {}
+        if self.backend == "pallas":
+            step, extra = _span_predict_step, {}
+        else:
+            step = _fused_predict_step
+            extra = {"chunk_slots": self.serving_chunk_slots}
         if staged.get("search_tables") is not None:
             extra["search_tables"] = staged["search_tables"]
         s_valid = None

@@ -1,0 +1,75 @@
+"""
+Correctness checks shared by the port's tests and ``chip_smoke.py``:
+the forest walk's rounding witness, the tolerance of chunked against
+un-chunked serving probabilities, a fitted classifier's CPU copy and
+the feature rows a serving step classifies.
+"""
+
+import numpy as np
+import torch
+
+# Entry-chunked against un-chunked serving probabilities on the card:
+# the served feature rows are bit-equal (the kernel's sums do not
+# follow a bucket's capacity), but the classifier runs on other row
+# counts (a chunk's against the whole plan's), which moved a
+# probability by one f32 ulp below 1.0 (1.19e-7) on an H100.
+CHUNK_PROBA_TOLERANCE = 1e-6
+
+
+def walk_witness(tables, feats, max_depth, rows):
+    """Whether f32 rounding of a projection can move the forest walk of
+    ``rows`` of ``feats`` (a (n, dim) tensor): each row walks every tree
+    of ``tables`` (a forest's dense or sparse tables) in float64, and is
+    witnessed where some node on its path has ``|proj - split| <= dim *
+    2^-23 * sum(|x_i v_i|)``, the bound on an f32 dot product of ``dim``
+    terms summed in any order.  Returns a (k,) bool tensor."""
+    dense = "dense_splits" in tables
+    pre = "dense_" if dense else ""
+    splits = tables[pre + "splits"].cpu().to(torch.float64).numpy()
+    vecs = tables[pre + "vecs"].cpu().to(torch.float64).numpy()
+    index = None if dense else [
+        {int(c): i for i, c in enumerate(t)} for t in tables["tags"].cpu()]
+    points = feats[rows.cpu()].cpu().to(torch.float64).numpy()
+    dim = points.shape[1]
+    held = []
+    for x in points:
+        near = False
+        for t in range(splits.shape[0]):
+            code = 1
+            for _ in range(max_depth + 1):
+                node = code if dense else index[t].get(code)
+                if node is None or np.isinf(splits[t, node]):
+                    break
+                terms = x * vecs[t, node]
+                proj = terms.sum()
+                near |= bool(abs(proj - splits[t, node])
+                             <= dim * 2.0 ** -23 * np.abs(terms).sum())
+                code = 2 * code + int(proj > splits[t, node])
+        held.append(near)
+    return torch.tensor(held, dtype=torch.bool)
+
+
+def on_cpu(clf):
+    """A fitted classifier's copy on the CPU (linear or forest)."""
+    from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+    from nimrud_tpu_torch.learning.rpt import RPTEnsemble
+    if isinstance(clf, RPTEnsemble):
+        return RPTEnsemble.from_tables(
+            {k: v.cpu().numpy() for k, v in clf._tables.items()},
+            clf.max_depth_, clf.d_func, "cpu")
+    return SoftmaxClassifier.from_state(
+        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
+        clf.scale_.cpu(), device="cpu")
+
+
+def served_features(model, staged):
+    """The feature rows ``model``'s serving step hands its classifier,
+    in caller order: the step run once more with ``classify_features``
+    swapped for the identity."""
+    from nimrud_tpu_torch import pipeline
+    classify = pipeline.classify_features
+    pipeline.classify_features = lambda params, features: features
+    try:
+        return model.predict_staged(staged, with_proba=True)[1]
+    finally:
+        pipeline.classify_features = classify

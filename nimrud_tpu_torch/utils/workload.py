@@ -29,6 +29,7 @@ def make_bench_cloud(n=BENCH_N_POINTS, seed=0):
 
 
 def make_bench_model(cloud, backend="packed", epochs=10, kind="minimal",
+                     classifier="linear", classifier_kwargs=None,
                      device="cuda", **kwargs):
     """The serving configuration bench.py measures: three bands
     (edge, radius) (0.25, 0.5), (0.5, 1.0), (1.0, 2.0), linear
@@ -37,17 +38,24 @@ def make_bench_model(cloud, backend="packed", epochs=10, kind="minimal",
     ``kind`` is the feature layout, "minimal" for the headline workload;
     the port serves "geometric", "oriented", "covariance", "eigen" and
     (packed only) "sazo" and "vector" too, everything else identical.
-    ``kwargs`` go to ``GeometryClassifier``: ``exclude_radius=e`` makes
-    the legacy self-exclusion model, which fits and predicts through the
-    per-band extraction (``predict_device`` / ``predict``; its
-    ``stage`` raises)."""
+    ``classifier="rpte"`` is the reference's ``scripts/bench_rpte.py``
+    model (the random-projection-tree ensemble, ``{"seed": 0}`` unless
+    ``classifier_kwargs`` say otherwise).  ``kwargs`` go to
+    ``GeometryClassifier``: ``exclude_radius=e`` makes the legacy
+    self-exclusion model, which fits and predicts through the per-band
+    extraction (``predict_device`` / ``predict``; its ``stage``
+    raises); ``serving_chunk_slots`` bounds the serving step's entry
+    slots a chunk."""
     from nimrud_tpu_torch.pipeline import GeometryClassifier
 
+    if classifier_kwargs is None:
+        classifier_kwargs = {"epochs": epochs, "seed": 0} \
+            if classifier == "linear" else {"seed": 0}
     scaleset = [(edge, (radius,))
                 for edge, radius in zip(BENCH_EDGES, BENCH_RADII)]
     return GeometryClassifier(
-        scaleset, kind=kind, classifier="linear",
-        classifier_kwargs={"epochs": epochs, "seed": 0},
+        scaleset, kind=kind, classifier=classifier,
+        classifier_kwargs=classifier_kwargs,
         transfer_dtype="uint16", backend=backend,
         bounds=(cloud.min(0), cloud.max(0)), trim_entries=True,
         device=device, **kwargs)

@@ -7,7 +7,9 @@ twins on the card, and small serving runs of both backends (and of the
 ``vector`` layout and an ``exclude_radius`` model) on the card against
 the same model on the CPU; designated-search serving (a staged search
 map, the stream's side stream) and staging on the C++ host runtime
-against its NumPy twin.
+against its NumPy twin; entry-chunked serving against the un-chunked
+step, and the random-projection-tree forest (its device fit, its walks
+and its serving step) on the card against the CPU.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -21,11 +23,13 @@ import pytest
 import torch
 
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+from nimrud_tpu_torch.learning.rpt import RPTEnsemble
 from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
 from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 from nimrud_tpu_torch.ops.kernels import packed_moments as pm
-from nimrud_tpu_torch.utils import workload
+from nimrud_tpu_torch.utils import checks, workload
 from torch_entry_cases import entry_problem, with_nan
+from torch_rpt_cases import forest_data
 import torch_exclude_cases as excl
 
 pytestmark = pytest.mark.gpu
@@ -626,3 +630,84 @@ def test_native_stage_on_card_equals_numpy_stage(cuda):
     assert torch.equal(native_st["dequant"], numpy_st["dequant"])
     assert torch.equal(gpu.predict_staged(native_st),
                        gpu.predict_staged(numpy_st))
+
+
+# -- entry-chunked serving and the forest -------------------------------------
+
+def test_chunked_serving_on_card_equals_unchunked(cuda):
+    from nimrud_tpu_torch import pipeline
+    cloud, labels = workload.make_bench_cloud(30000, seed=0)
+    whole = workload.make_bench_model(cloud, device=cuda)
+    whole.fit(cloud, labels, sample=15000)
+    chunked = workload.make_bench_model(cloud, device=cuda,
+                                        serving_chunk_slots=256 * 512)
+    chunked.install_classifier(whole.classifier, cloud)
+    pack = min((b[1] for b in chunked._spec_cache[1]),
+               key=lambda spec: spec.tile_edge)
+    assert pipeline._serving_entry_chunk(pack.e_cap, pack.q_cap,
+                                         256 * 512) < pack.e_cap
+    before = pm.packed_moments.launches
+    got, probs, diag = chunked.predict_staged(
+        chunked.stage(cloud), with_proba=True, with_diag=True)
+    assert pm.packed_moments.launches > before
+    assert all(int(v) == 0 for v in diag.values()), diag
+    want, want_probs = whole.predict_staged(whole.stage(cloud),
+                                            with_proba=True)
+    assert torch.equal(got, want)
+    assert float((probs - want_probs).abs().max()) <= \
+        checks.CHUNK_PROBA_TOLERANCE
+
+
+def _walk_card_and_cpu(gpu, x):
+    """The forest ``gpu`` walked on the card and its copy on the CPU:
+    probabilities within 1e-6 and labels equal except at rows the walk
+    witness holds."""
+    cpu = checks.on_cpu(gpu)
+    got = gpu.proba_device(torch.from_numpy(x).to(gpu.device)).cpu()
+    want = cpu.proba_device(torch.from_numpy(x))
+    off = ((got - want).abs().amax(1) > 1e-6) \
+        | (got.argmax(1) != want.argmax(1))
+    rows = off.nonzero()[:, 0]
+    held = checks.walk_witness(cpu._tables, torch.from_numpy(x),
+                                    cpu.max_depth_, rows)
+    assert bool(held.all()), rows[~held]
+    assert len(rows) <= 0.001 * len(x)
+
+
+def test_forest_fit_and_walks_on_card_match_cpu(cuda):
+    (x, y), (xt, _) = forest_data(3000, 0), forest_data(4000, 1)
+    gpu = RPTEnsemble(seed=0).fit_device(torch.from_numpy(x).to(cuda), y,
+                                         n_classes=3)
+    assert gpu._tables["dense_splits"].device.type == cuda.type
+    again = RPTEnsemble(seed=0).fit_device(torch.from_numpy(x).to(cuda), y,
+                                           n_classes=3)
+    for key, value in gpu._tables.items():
+        assert torch.equal(value, again._tables[key]), key
+    _walk_card_and_cpu(gpu, xt)                       # the dense walk
+    host = RPTEnsemble(seed=0, device=cuda).fit(x, y)
+    assert "dense_splits" not in host._tables
+    _walk_card_and_cpu(host, xt)                      # the sparse walk
+
+
+def test_rpte_serving_on_card_matches_cpu(cuda):
+    cloud, labels = workload.make_bench_cloud(30000, seed=0)
+    gpu = workload.make_bench_model(cloud, classifier="rpte", device=cuda)
+    gpu.fit(cloud, labels, sample=15000)
+    cpu = workload.make_bench_model(cloud, device="cpu")
+    cpu.install_classifier(checks.on_cpu(gpu.classifier), cloud)
+    before = pm.packed_moments.launches
+    staged = gpu.stage(cloud)
+    got, diag = gpu.predict_staged(staged, with_diag=True)
+    assert pm.packed_moments.launches > before
+    assert all(int(v) == 0 for v in diag.values()), diag
+    assert float((got.cpu().numpy() == labels).mean()) > 0.8
+    # the card's labels are the CPU walk's of the card's own rows, except
+    # where the walk witness holds the row
+    feats = checks.served_features(gpu, staged).cpu()
+    walked = cpu.classifier.proba_device(feats).argmax(1)
+    rows = (walked != got.cpu()).nonzero()[:, 0]
+    assert bool(checks.walk_witness(
+        cpu.classifier._tables, feats, cpu.classifier.max_depth_,
+        rows).all())
+    differ = got.cpu() != cpu.predict_staged(cpu.stage(cloud))
+    assert int(differ.sum()) <= 0.001 * len(cloud)

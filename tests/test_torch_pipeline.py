@@ -13,9 +13,11 @@ package.
   the reference's.
 * Fitted by the port itself: held-out accuracy within 0.03 of the JAX
   fit on the same split (Adam, PRNG and feature sums differ in bits).
-* What the port does not carry raises: a cloud large enough for the
-  reference to serve in entry chunks.  (A separate search cloud serves:
-  tests/test_torch_designated.py.)
+* Self-search spelled out (``search=cloud``) is one quantized upload,
+  and a model whose entry slots exceed ``_CHUNK_SLOTS`` serves in entry
+  chunks with the un-chunked labels.  (A separate search cloud serves:
+  tests/test_torch_designated.py; entry chunks against the reference:
+  tests/test_torch_chunked.py.)
 """
 
 import numpy as np
@@ -125,10 +127,17 @@ def test_unported_serving_raises(fitted, monkeypatch):
     staged = port.stage(cloud, search=cloud)
     assert staged["search"] is staged["query"]
     assert staged["dequant"] is not None
+    whole = port.predict_staged(staged)
+    # entry chunks, which the port once refused, serve the same labels
     monkeypatch.setattr(tpl, "_CHUNK_SLOTS", 1024)
     fresh = twl.make_bench_model(cloud, device="cpu")
-    with pytest.raises(NotImplementedError, match="entry chunks"):
-        fresh.install_classifier(_carried(ref.classifier), cloud)
+    fresh.install_classifier(_carried(ref.classifier), cloud)
+    spec = fresh._spec_cache[1][0][1]
+    assert tpl._serving_entry_chunk(spec.e_cap, spec.q_cap, None) \
+        == 256 < spec.e_cap
+    chunked, diag = fresh.predict_staged(fresh.stage(cloud), with_diag=True)
+    assert not any(int(diag[key]) for key in COUNTERS)
+    assert torch.equal(chunked, whole)
 
 
 def test_port_fit_accuracy_matches_reference_fit(fitted):

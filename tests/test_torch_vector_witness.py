@@ -13,6 +13,7 @@ import torch
 
 import chip_smoke
 from nimrud_tpu_torch.features import layouts
+from nimrud_tpu_torch.utils import checks
 from nimrud_tpu_torch.utils import workload as twl
 
 N = 3000
@@ -28,7 +29,7 @@ def _served(kind):
     model = twl.make_bench_model(cloud, kind=kind, device="cpu")
     model.fit(cloud, labels, sample=N // 2, attributes=attrs)
     staged = model.stage(other, attributes=other_attrs)
-    return model, staged, chip_smoke._served_features(model, staged)
+    return model, staged, checks.served_features(model, staged)
 
 
 @pytest.mark.parametrize("kind", ["sazo", "oriented"])
