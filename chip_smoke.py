@@ -84,13 +84,35 @@ Phases, one or more lines each:
               path's band-0 shapes, as in phase 3.
 6. tiled   -- the tiled entry path, per band: ``build_tiled_problem``
               on the host (voxel centers as the search cloud, tile edge
-              = radius, m = 3, entry batch 256), ``tiled_features`` on
-              the card.  ``entry_moments`` launched, features finite,
+              = radius, m = 3, entry batch 256),
+              ``tiled_features(backend="pallas")`` on the card.  ``entry_moments`` launched, features finite,
               the population column equal to the packed extraction's
               for >= 99.9% of points; host and device time per band.
               Then ``entry_moments`` against its plain twin on band 0's
               first entry batch, with the valid share of its candidate
               slots and the k16 groups the kernel runs per entry.
+6b. xla    -- the XLA candidate-table path (``backend="xla"``, no
+              kernel): ``make_bench_model(cloud, backend="xla")`` fit
+              (``sample=100_000``) and served on the three clouds of
+              phase 4, counted from zero (no moment kernel may launch),
+              counters 0, accuracy > 0.8; fit and step times, peak
+              memory, each band's entries, batches and candidate lanes.
+              The same model with the packed classifier: its labels
+              against the packed step's (at most 0.01% differ), every
+              difference held by the flip witness of phase 5 in the XLA
+              plan's entry frames.  Card against CPU at 100k: labels
+              differ only at near-ties.  Once each, counted from zero:
+              ``sazo`` on ``backend="pallas"`` (XLA bands) at 100k,
+              ``vector`` with 9 (the matmul interp) and 7 (the gather
+              interp) attribute columns on the packed backend over the
+              100k cloud's 50 m quadrant, an edge-0 model's
+              ``predict_device`` (one band, r 0.5, the tiled method over
+              the raw cloud; populations equal to the entry kernel's on
+              its tiled problem), ``extract_scaleset_device`` with
+              ``method="tiled"`` at 1M and ``"dense"`` at 16,000 points.
+              Then band 0's tiled problem of phase 6 through
+              ``tiled_features(backend="xla")`` beside ``"pallas"``
+              (CUDA events), populations equal; the phase's wall time.
 7. kinds   -- the other layouts on the packed path:
               ``make_bench_model(cloud, kind=k)``, fit
               (``sample=100_000``) and serve on the 1M-point clouds
@@ -201,7 +223,7 @@ instances of each kernel too (``excl_launches``, ``excl_sazo_launches``,
 ``excl_attr_launches``), listed with the suffix ``_excl``.
 
 With ``--profile DIR`` a profile phase runs after the serving steps of
-phases 4, 4b, 5 and 10, after the tiled runs of phase 6 and after the
+phases 4, 4b, 5, 6b and 10, after the tiled runs of phase 6 and after the
 vector run of phase 7 (for phase 10 also the forest walk's device time,
 the kernels launched inside its ``record_function`` range, as a share
 of busy time): ``torch.profiler`` over three steady serving steps of
@@ -562,7 +584,7 @@ def entry_batch(problem, cloud, search, device):
 
     zero = torch.zeros((1, 3), dtype=torch.float32, device=device)
     batch = slice(0, TILED_BATCH)
-    _, q_local, s_local, s_valid = grid._gather_batch(
+    _, q_local, s_local, s_valid, _ = grid._gather_batch(
         torch.cat([put(cloud, torch.float32), zero]),
         torch.cat([put(search, torch.float32), zero]),
         put(problem.candidates, torch.int64),
@@ -893,14 +915,17 @@ def _entry_centers(query, valid, spec):
 
 
 def _flip_witness(packed, span, clouds, span_labels, packed_labels):
-    """Why span and packed labels differ.  On each cloud, both backends'
+    """Why the labels of the per-band model ``span`` (the span backend,
+    or the XLA one) and the packed model differ.  On each cloud, both
+    backends'
     serving features, at every point where the labels or populations
     differ and at WITNESS_SAMPLE sampled points, against a float64
     oracle over the same voxel centers: each population must equal the
     float64 count up to the candidates within the f32 rounding bound of
     r^2, and where no candidate is that close, the other features must
     lie within the f32 rounding bounds of the oracle's
-    (``_feature_bounds``) in each backend's own entry frames.  Returns
+    (``_feature_bounds``) in each backend's own entry frames (the XLA
+    plan's one coarse tile an entry, ``_xla_entry_centers``).  Returns
     the report line."""
     import torch
     from nimrud_tpu_torch import pipeline
@@ -942,12 +967,13 @@ def _flip_witness(packed, span, clouds, span_labels, packed_labels):
         pack_spec = min((band[1] for band in st_p["specs"]),
                         key=lambda spec: spec.tile_edge)
         packed_frames = _entry_centers(query, valid, pack_spec)[rows]
+        frame_of = _xla_entry_centers if span.backend == "xla" \
+            else _entry_centers
         col = 0
         for band in st_s["specs"]:
             centers, _, mask = unique.unique_voxels(query, band[0],
                                                     valid=valid)
-            frames = (_entry_centers(query, valid, band[1])[rows],
-                      packed_frames)
+            frames = (frame_of(query, valid, band[1])[rows], packed_frames)
             for radius in band[2]:
                 tols[radius] = _d2_tolerance(radius, extent)
                 exact, near, gap, block, cov = _float64_oracle(
@@ -981,8 +1007,8 @@ def _flip_witness(packed, span, clouds, span_labels, packed_labels):
             f"candidate within {worst_gap:.3g} of r^2 (bounds "
             + ", ".join(f"r {r}: {t:.3g}" for r, t in tols.items())
             + "); features off the float64 oracle by at most "
-            f"{worst_ratio[0]:.3g} (span) and {worst_ratio[1]:.3g} "
-            "(packed) of their f32 rounding bounds")
+            f"{worst_ratio[0]:.3g} ({span.backend}) and "
+            f"{worst_ratio[1]:.3g} (packed) of their f32 rounding bounds")
 
 
 def _span_phase(model, packed_labels, clouds, truths, fit_cloud, device,
@@ -1056,7 +1082,7 @@ def _tiled_phase(model, cloud, device, profile_dir=None):
         t1 = time.perf_counter()
         feats = grid.tiled_features(problem, cloud, search, radii,
                                     "minimal", entry_batch=TILED_BATCH,
-                                    device=device)
+                                    backend="pallas", device=device)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         _check(bool(torch.isfinite(feats).all()),
@@ -1082,9 +1108,243 @@ def _tiled_phase(model, cloud, device, profile_dir=None):
         _profile_phase("[profile tiled band 0]", "tiled_band0", [
             lambda: grid.tiled_features(problem, cloud, search, radii,
                                         "minimal", entry_batch=TILED_BATCH,
-                                        device=device)] * 3, profile_dir)
+                                        backend="pallas", device=device)]
+            * 3, profile_dir)
     return counts["entry_moments"], _entry_kernel_phase(
         problem, cloud, search, radii, device), band0
+
+
+def _xla_entry_centers(query, valid, spec):
+    """Each query's entry center in the XLA candidate-table plan of
+    ``spec`` (``device_grid.build_tables``: one coarse tile an entry),
+    in caller order; queries without an entry slot get zeros."""
+    import torch
+    from nimrud_tpu_torch.ops import device_grid
+    query_index, _, _, centers = device_grid.build_tables(
+        query, valid, query[:1], valid[:1], spec)
+    flat = query_index.reshape(-1)
+    entry = torch.arange(query_index.shape[0], device=query.device
+                         ).repeat_interleave(query_index.shape[1])
+    live = flat >= 0
+    frames = torch.zeros_like(query)
+    frames[flat[live]] = centers[entry[live]]
+    return frames
+
+
+def _interp_s_cap(cloud, edges):
+    """``vector_s_cap`` for the gather and matmul interps on ``cloud``:
+    the densest cell of their grids at each band's edge (the voxel grid
+    anchored half an edge below the cloud, the tile grid 1e-3 below),
+    with a quarter's headroom for f32 binning, as a power of two."""
+    import numpy as np
+    from nimrud_tpu_torch.ops import grid
+    lo = cloud.min(0).astype(np.float64)
+    worst = 0
+    for edge in edges:
+        for origin in (lo - edge / 2, lo - 1e-3):
+            cell = np.floor((cloud - origin) / edge).astype(np.int64)
+            worst = max(worst, int(np.unique(cell, axis=0,
+                                             return_counts=True)[1].max()))
+    return grid._pow2(worst + worst // 4)
+
+
+def _xla_bands(model, cloud, attr_width=None):
+    """The XLA bands' sizes of ``model``'s serving step on ``cloud``:
+    entries, q_cap, entry batches and candidate lanes a query
+    ((m + 2)^3 fine tiles of s_cap rows), and the matmul interp's
+    entries where a band has its spec."""
+    def size(d):
+        return (f"e_cap {d.e_cap}, q_cap {d.q_cap}, "
+                f"{-(-d.e_cap // d.entry_batch)} batches of "
+                f"{d.entry_batch}, S {(d.m + 2) ** 3 * d.s_cap}")
+    return "; ".join(
+        f"band {b}: {size(band[1])}"
+        + ("" if band[3] is None else f" (interp grid: {size(band[3])})")
+        for b, band in enumerate(model._fused_band_specs(
+            cloud, cloud, attr_width=attr_width)))
+
+
+def _xla_phase(model, packed_labels, clouds, truths, fit_cloud, fit_labels,
+               band0, device, profile_dir=None):
+    """``backend="xla"``: the bench model fit and served on the XLA
+    candidate-table path at full width, counted from zero (no moment
+    kernel may launch); its labels with the packed model's classifier
+    against the packed labels (the flip witness); card against CPU at
+    100k; the other XLA paths once each (sazo on ``"pallas"``, vector
+    with 9 and 7 attribute columns, the tiled and dense methods, an
+    edge-0 model); and band 0's tiled problem on the XLA path beside
+    the entry kernel.  With ``profile_dir``, three xla steps profiled."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.ops import grid
+    from nimrud_tpu_torch.utils import checks, workload
+
+    t_phase = time.perf_counter()
+    xla = workload.make_bench_model(fit_cloud, backend="xla", device=device)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    xla.fit(fit_cloud, fit_labels, sample=FIT_SAMPLE)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    _only(_counts(), (), "the xla fit")
+    steps, labels, _, diags = _serve(xla, clouds)
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    accs = _check_served("xla", diags, labels, truths)
+    _only(counts, (), "the xla serving step")
+    print(f"[xla] fit {fit_s:.3f} s; serve steps ms (total, stage, "
+          f"predict+sync): {_steps_text(steps)}; accuracy "
+          + ", ".join(f"{a:.4f}" for a in accs)
+          + f"; counters {diags}; moment kernel launches {sum(counts.values())}"
+          f"; peak {peak_gb:.3f} GiB; {_xla_bands(xla, fit_cloud)}",
+          flush=True)
+    if profile_dir:
+        _serving_profile(xla, profile_dir)
+
+    # the packed model's classifier on the XLA path: its labels against
+    # the packed step's, every difference held by the flip witness
+    same = workload.make_bench_model(fit_cloud, backend="xla", device=device)
+    same.install_classifier(model.classifier, fit_cloud)
+    _, same_labels, same_probs, _ = _serve(same, clouds, with_proba=True)
+    flips = [lab != ref for lab, ref in zip(same_labels, packed_labels)]
+    n = sum(len(c) for c in clouds)
+    n_flips = sum(int(f.sum()) for f in flips)
+    n_tied = sum(int((f & (_top2_gap(p) < TIE_GAP)).sum())
+                 for f, p in zip(flips, same_probs))
+    _check(n_flips <= MAX_FLIPS * n, f"{n_flips} of {n} labels differ "
+           "between the packed and xla backends")
+    t0 = time.perf_counter()
+    witness = _flip_witness(model, same, clouds, same_labels, packed_labels)
+    print(f"[xla] with the packed classifier: {n_flips} of {n} labels "
+          f"differ from the packed step's ({n_tied} at top-two gaps < "
+          f"{TIE_GAP}); flip witness ({time.perf_counter() - t0:.1f} s): "
+          f"{witness}", flush=True)
+    del same
+
+    # card against CPU at 100k, the same classifier
+    small, _ = workload.make_bench_cloud(E2E_POINTS, seed=0)
+    other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
+    card = workload.make_bench_model(small, backend="xla", device=device)
+    card.install_classifier(xla.classifier, small)
+    cpu = workload.make_bench_model(small, backend="xla", device="cpu")
+    cpu.install_classifier(checks.on_cpu(xla.classifier), small)
+    g_lab, g_prob = card.predict_staged(card.stage(other), with_proba=True)
+    t0 = time.perf_counter()
+    c_lab, c_prob = cpu.predict_staged(cpu.stage(other), with_proba=True)
+    cpu_s = time.perf_counter() - t0
+    gaps = torch.minimum(_top2_gap(g_prob.cpu()), _top2_gap(c_prob))
+    differ = g_lab.cpu() != c_lab
+    print(f"[xla] card vs cpu: {E2E_POINTS} points, {int(differ.sum())} "
+          f"labels differ, {int((differ & (gaps < TIE_GAP)).sum())} of them "
+          f"at near-ties; cpu serve {cpu_s:.2f} s", flush=True)
+    _check(not bool((differ & (gaps >= TIE_GAP)).any()),
+           "xla: card and cpu labels differ away from near-ties")
+    _check(int(differ.sum()) <= MAX_FLIPS * E2E_POINTS,
+           "xla: too many card / cpu label flips")
+    del card, cpu, xla
+
+    # the other XLA paths, once each, counted from zero: sazo at 100k;
+    # vector on its 50 m quadrant (the matmul interp's tables cover the
+    # site whatever its points), vector_s_cap sized on its densest cell
+    small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)[1]
+    quad = (small[:, 0] < 50) & (small[:, 1] < 50)
+    runs = []
+    for kind, backend, width in (("sazo", "pallas", 0),
+                                 ("vector", "packed", 9),
+                                 ("vector", "packed", 7)):
+        c, lab, attrs, kw = small, small_labels, None, {}
+        if width:
+            c, lab = small[quad], small_labels[quad]
+            attrs = np.concatenate([
+                workload.make_bench_attributes(lab),
+                np.random.default_rng(width).random(
+                    (len(c), width - 2)).astype(np.float32)], axis=1)
+            kw = {"vector_s_cap": _interp_s_cap(c, workload.BENCH_EDGES)}
+        m = workload.make_bench_model(c, kind=kind, backend=backend,
+                                      device=device, **kw)
+        m.fit(c, lab, sample=len(c) // 2, attributes=attrs)
+        _reset_counts()
+        steps, labels, _, diags = _serve(m, [c], attrs=[attrs])
+        counts = _counts()
+        accs = _check_served(f"xla {kind} {backend} A={width}", diags,
+                             labels, [lab])
+        _only(counts, (), f"the {kind} serving step on XLA bands")
+        runs.append(f"{kind} on {backend} (A={width}, {len(c)} points, "
+                    f"vector_s_cap {m.vector_s_cap}): "
+                    f"step {_steps_text(steps)} ms, accuracy {accs[0]:.4f}"
+                    f"; {_xla_bands(m, c, width or None)}")
+    from nimrud_tpu_torch.pipeline import GeometryClassifier
+    edge0 = GeometryClassifier([(0.0, (0.5,))], kind="minimal",
+                               classifier_kwargs={"epochs": 10, "seed": 0},
+                               bounds=(small.min(0), small.max(0)),
+                               device=device)
+    edge0.fit(small, small_labels, sample=E2E_POINTS // 2)
+    _reset_counts()
+    t0 = time.perf_counter()
+    e_labels, e_diag = edge0.predict_device(small, with_diag=True)
+    torch.cuda.synchronize()
+    e_ms = 1e3 * (time.perf_counter() - t0)
+    _only(_counts(), (), "the edge-0 predict")
+    _check(all(int(v) == 0 for v in e_diag.values()),
+           f"edge-0 predict counters {e_diag}")
+    e_acc = float((e_labels.cpu().numpy() == small_labels).mean())
+    # its populations (the tiled method's XLA sums) against the entry
+    # kernel's on the same tiled problem
+    tp = grid.build_tiled_problem(small, small, 0.5, query_tile_factor=3,
+                                  entry_batch=TILED_BATCH)
+    pops = grid.tiled_features(tp, small, small, (0.5,), "minimal",
+                               entry_batch=TILED_BATCH, backend="pallas",
+                               device=device)[:, 0]
+    e_agree = float((edge0.extract_device(small)[:, 0] == pops).float()
+                    .mean())
+    _check(e_agree >= MIN_POP_AGREE,
+           f"edge-0 populations agree with the entry kernel's for {e_agree}")
+    bqs = TILED_BATCH * tp.stats["q_cap"] * tp.stats["n_off"] \
+        * tp.stats["s_cap"]
+    runs.append(f"edge-0 model (r 0.5, the raw cloud searched by the "
+                f"tiled method: {tp.n_entries} entries, stats {tp.stats}, "
+                f"(B, Q, S) {4 * bqs / 2**30:.3f} GiB a f32 tensor): "
+                f"predict {e_ms:.3f} ms, accuracy {e_acc:.4f}, populations "
+                f"equal to the entry kernel's for {e_agree:.6f}")
+    for method, cloud_m in (("tiled", clouds[0]),
+                            ("dense", clouds[0][:16_000])):
+        _reset_counts()
+        t0 = time.perf_counter()
+        feats = multiscale.extract_scaleset_device(
+            cloud_m, cloud_m, model.scaleset, "minimal", method=method,
+            device=device)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        _only(_counts(), (), f"extract_scaleset_device(method={method!r})")
+        _check(bool(torch.isfinite(feats).all())
+               and feats.shape == (len(cloud_m), 12),
+               f"method={method!r}: features")
+        runs.append(f"extract_scaleset_device(method={method!r}) on "
+                    f"{len(cloud_m)} points: {ms:.3f} ms")
+    for run in runs:
+        print(f"[xla] {run}", flush=True)
+
+    # band 0's tiled problem: the XLA sums beside the entry kernel
+    problem, search, radii = band0
+    cloud0 = clouds[0]
+    timed = {}
+    for backend in ("xla", "pallas"):
+        timed[backend] = _events_ms(lambda: grid.tiled_features(
+            problem, cloud0, search, radii, "minimal",
+            entry_batch=TILED_BATCH, backend=backend, device=device), 2)
+    got = {b: grid.tiled_features(problem, cloud0, search, radii, "minimal",
+                                  entry_batch=TILED_BATCH, backend=b,
+                                  device=device) for b in timed}
+    agree = float((got["xla"][:, 0] == got["pallas"][:, 0]).float().mean())
+    _check(agree >= MIN_POP_AGREE, f"tiled band 0: xla and pallas "
+           f"populations agree for {agree}")
+    print(f"[xla] tiled band 0 ({problem.n_entries} entries, "
+          f"{problem.stats}): xla {timed['xla']:.3f} ms, pallas "
+          f"{timed['pallas']:.3f} ms a run (CUDA events), populations "
+          f"equal for {agree:.6f}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def _kinds_phase(fit_cloud, fit_labels, clouds, truths, device,
@@ -1588,7 +1848,8 @@ def _exclusion_phase(cloud, labels, clouds, truths, band0, device):
         ("entry_moments_excl", "the tiled path, band 0",
          lambda: grid.tiled_features(
              band0[0], cloud, band0[1], band0[2], "minimal",
-             exclude_radius=e, entry_batch=TILED_BATCH, device=device),
+             exclude_radius=e, entry_batch=TILED_BATCH, backend="pallas",
+             device=device),
          ("entry_moments_excl",), 4),
         ("packed_moments_excl_sazo", "the sazo extraction",
          lambda: multiscale.extract_scaleset_fused(
@@ -2396,6 +2657,8 @@ def main():
           f"{launches['span_moments'] / len(clouds):g} a step; entry_moments "
           f"{launches['entry_moments']} a tiled run ({len(model.scaleset)} "
           "bands)", flush=True)
+    _xla_phase(model, packed_labels, clouds, truths, cloud, labels, band0,
+               device, args.profile)
     del model
     kind_launches, per_kind, vector = _kinds_phase(cloud, labels, clouds,
                                                    truths, device,

@@ -1,35 +1,59 @@
 """
-Multiscale feature extraction of the port (the packed and span
-branches of ``nimrud_tpu/features/multiscale.py:extract_scaleset_fused``,
-its public entry points ``extract_scaleset_device`` / ``extract_scaleset``
-on that fused path, plus the host helpers they need, copied:
-``_pow2_bucket``, ``_pad_rows_f32``, ``_host_unique_voxels`` (on the
-C++ host runtime, ``ops.native``), ``_voxel_occupancy_cap`` and
-``_interp_packed_plan``).
+Multiscale feature extraction of the port (port of
+``nimrud_tpu/features/multiscale.py``).
 
 For each band ``(voxel_edge, radii)`` the search cloud is
-voxel-downsampled on the device and every query's neighborhood moments
-come from the packed-candidate or the span kernel; bands concatenate
-left to right.  The ``vector`` layout (V_MSO) first interpolates the
-search points' attributes onto the voxel centers (the packed attribute
-interp, ``ops.interp.packed_interp``) and then serves the masked means
-of those center attributes over each radius.
+voxel-downsampled (edge 0: the raw cloud) and every radius of the band
+shares one distance computation; bands concatenate left to right.
+:func:`extract_scaleset_device` / :func:`extract_scaleset` take one of
+the reference's methods:
+
+* ``"fused"`` (:func:`extract_scaleset_fused`): everything on the
+  device, per band a device voxel downsample and one fused extraction
+  -- the ``packed_moments`` kernel (``backend="packed"``), the
+  ``span_moments`` kernel (``"pallas"``) or the XLA candidate-table path
+  (``"xla"``, ``ops.device_grid.fused_extract``: masked float32 matrix
+  products), routed per band as the reference routes them;
+* ``"dense"``: the O(N x S) masked moments of ``ops.moments``, queries
+  sorted by voxel address in chunks;
+* ``"tiled"``: the host tile plan and ``ops.grid.tiled_features``'s XLA
+  path;
+* ``"auto"``: fused at ``TILED_THRESHOLD`` or more search points with
+  every band voxelized, else per band tiled (at that many voxels) or
+  dense.
+
+The ``vector`` layout (V_MSO) first interpolates the search points'
+attributes onto the voxel centers (``ops.interp``: the packed, gather or
+matmul interp) and then serves the masked means of those center
+attributes over each radius.
 """
 
 import numpy as np
 import torch
 
-from nimrud_tpu_torch.ops import (device_grid, interp, native, packing,
-                                  span_host, unique)
-from nimrud_tpu_torch.ops.kernels.multiscale_kernel import MAX_ATTR
+from nimrud_tpu_torch.features import layouts
+from nimrud_tpu_torch.ops import (device_grid, grid, interp, moments, native,
+                                  packing, span_host, unique)
+from nimrud_tpu_torch.utils.geometry import VoxelFilter
 
-TILED_THRESHOLD = 16384   # search points from which the reference's
-                          # method="auto" takes the fused path
+# cap on query-chunk x search pairs a step of the dense method
+PAIRS_BUDGET = 1 << 24
+# method="auto" takes the fused path, and a band the tiled method, from
+# this many search points (voxels, for a band)
+TILED_THRESHOLD = 16384
+# voxel_downsample dedups on the host from this many points
+HOST_VOXEL_THRESHOLD = 200_000
+
+KINDS = ("minimal", "geometric", "oriented", "covariance", "eigen",
+         "sazo", "vector")
 METHODS = ("auto", "dense", "tiled", "fused")
+BACKENDS = ("packed", "pallas", "xla")
+INTERP_BACKENDS = ("auto", "gather", "matmul", "packed")
 
 # the reference's precision names -> the kernels' precision: "mixed" and
 # "high" (XLA matmul precisions) map onto the bf16 split, "default" onto
-# the f32 sums (``features/multiscale.py:461-466`` there)
+# the f32 sums (``features/multiscale.py:461-466`` there).  The XLA path
+# sums every name in f32 (``ops.grid.PRECISIONS``).
 KERNEL_PRECISION = {"highest": "highest", "default": "highest",
                     "bf16x2": "bf16x2", "mixed": "bf16x2", "high": "bf16x2"}
 
@@ -43,19 +67,12 @@ def kernel_precision(precision):
 
 
 def check_attributes(attributes, n_search):
-    """(n_search, A) float32 attributes the packed kernel can carry (at
-    most ``MAX_ATTR`` columns; wider blocks take the reference's gather
-    interp and XLA path, which the port does not carry)."""
+    """``attributes`` as a (n_search, A) float32 array, A >= 1."""
     attributes = np.asarray(attributes, dtype=np.float32)
-    if attributes.ndim != 2 or attributes.shape[0] != n_search:
+    if attributes.ndim != 2 or attributes.shape[0] != n_search \
+            or attributes.shape[1] < 1:
         raise ValueError(f"attributes must be ({n_search}, A), got "
                          f"{attributes.shape}")
-    if not 1 <= attributes.shape[1] <= MAX_ATTR:
-        raise NotImplementedError(
-            f"{attributes.shape[1]} attribute columns: the packed kernel "
-            f"carries 1..{MAX_ATTR}; wider blocks take the reference's "
-            "gather interp and XLA path (ROADMAP.md Queue A #6, the XLA "
-            "fallback and reference-parity paths)")
     return attributes
 
 
@@ -78,6 +95,16 @@ def _pad_rows_f32(array, target):
     return out
 
 
+def _effective_chunk(chunk_size, n_search_padded):
+    """Power-of-two query chunk no larger than ``chunk_size`` keeping the
+    chunk x search block within ``PAIRS_BUDGET`` (at least 64)."""
+    chunk = min(chunk_size, max(64, PAIRS_BUDGET // max(n_search_padded, 1)))
+    out = 64
+    while out * 2 <= chunk:
+        out *= 2
+    return out
+
+
 def _host_unique_voxels(search, edge, bounds=None, impl="native"):
     """Host voxel downsample -> float32 centers sorted by voxel address,
     through the C++ host runtime (``impl="numpy"``: its twin).
@@ -96,6 +123,115 @@ def _host_unique_voxels(search, edge, bounds=None, impl="native"):
     span = (b_hi + edge / 2) - origin
     dims = np.maximum(np.ceil(span / edge).astype(np.int64), 1)
     return native.voxel_unique(search, origin, edge, dims, impl=impl)
+
+
+def voxel_downsample(search, edge, attributes=None,
+                     interp_metric="chebyshev", bounds=None, device="cuda"):
+    """
+    Voxel-downsample a search cloud at ``edge`` on ``device`` (the card
+    unless the caller asks for the CPU), optionally averaging per-point
+    ``attributes`` over the ball of radius ``edge`` (``interp_metric``)
+    around each voxel center.  Returns ``(centers, attrs)`` as NumPy
+    arrays (attrs None without attributes).
+
+    The dedup runs on the device below ``HOST_VOXEL_THRESHOLD`` points
+    when the grid fits the 30-bit key budget, on the host otherwise; the
+    means come from ``grid.tiled_moments`` at ``TILED_THRESHOLD`` or
+    more points, from ``moments.multiscale_moments`` below.  ``bounds``:
+    explicit (lo, hi) voxel-grid anchor (default the cloud's bounds).
+    """
+    search = np.asarray(search, dtype=np.float32)
+    spec = None
+    if search.shape[0] < HOST_VOXEL_THRESHOLD:
+        try:
+            if bounds is None:
+                spec = packing.GridSpec.fit(search[:, :3], edge)
+            else:
+                spec = packing.GridSpec.fit_bounds(
+                    np.asarray(bounds[0], np.float64),
+                    np.asarray(bounds[1], np.float64), edge)
+        except ValueError:
+            spec = None
+    if spec is not None:
+        bucket = _pow2_bucket(search.shape[0])
+        padded = torch.from_numpy(_pad_rows_f32(search[:, :3], bucket))
+        valid = torch.arange(bucket) < search.shape[0]
+        centers, count, _ = unique.unique_voxels(
+            padded.to(device), spec, valid=valid.to(device))
+        centers = centers[:int(count)].cpu().numpy()
+    else:
+        centers = _host_unique_voxels(search, edge, bounds=bounds)
+    if attributes is None:
+        return centers, None
+
+    attributes = np.asarray(attributes, dtype=np.float32)
+    if search.shape[0] >= TILED_THRESHOLD:
+        problem = grid.build_tiled_problem(centers, search, edge)
+        got = grid.tiled_moments(problem, centers, search, (float(edge),),
+                                 attributes=attributes, metric=interp_metric,
+                                 device=device)
+        return centers, got["attr_mean"][:, 0, :]
+    n_centers = centers.shape[0]
+    s_bucket = _pow2_bucket(search.shape[0])
+    valid = torch.arange(s_bucket, device=device) < search.shape[0]
+
+    def put(array, rows):
+        return torch.from_numpy(_pad_rows_f32(array, rows)).to(device)
+
+    got = moments.multiscale_moments(
+        put(centers, _pow2_bucket(n_centers)), put(search[:, :3], s_bucket),
+        valid, (float(edge),), attributes=put(attributes, s_bucket),
+        chunk_size=_effective_chunk(256, s_bucket), metric=interp_metric)
+    return centers, got["attr_mean"][:n_centers, 0, :].cpu().numpy()
+
+
+def _band_features(query_padded, n_query, search, kind, edge, radii,
+                   attributes, exclude_radius, chunk_size, method, tuning,
+                   bounds=None, device="cuda"):
+    """Features (n_query, width) of one band by the dense or tiled
+    method; ``query_padded`` (a tensor on ``device``) is already padded
+    and sorted."""
+    if edge > 0:
+        centers, attrs = voxel_downsample(
+            search, edge, attributes if kind == "vector" else None,
+            bounds=bounds, device=device)
+    else:
+        centers = np.asarray(search, dtype=np.float32)
+        attrs = attributes
+    if method == "tiled" or (method == "auto"
+                             and centers.shape[0] >= TILED_THRESHOLD):
+        query = query_padded[:n_query].cpu().numpy()
+        batch = tuning.get("entry_batch", 256)
+        problem = grid.build_tiled_problem(
+            query, centers, tile_edge=max(radii),
+            query_tile_factor=tuning.get("query_tile_factor", 3),
+            query_capacity=tuning.get("query_capacity"), entry_batch=batch)
+        return grid.tiled_features(
+            problem, query, centers, radii, kind,
+            attributes=attrs if kind == "vector" else None,
+            exclude_radius=exclude_radius, entry_batch=batch,
+            precision=tuning.get("precision", "highest"), device=device)
+
+    s_bucket = _pow2_bucket(centers.shape[0])
+    got = moments.multiscale_moments(
+        query_padded, torch.from_numpy(_pad_rows_f32(centers, s_bucket)
+                                       ).to(device),
+        torch.arange(s_bucket, device=device) < centers.shape[0], radii,
+        attributes=None if kind != "vector" else torch.from_numpy(
+            _pad_rows_f32(attrs, s_bucket)).to(device),
+        chunk_size=_effective_chunk(chunk_size, s_bucket),
+        exclude_radius=exclude_radius, with_sazo=layouts.needs_sazo(kind))
+    blocks = []
+    for ri, radius in enumerate(radii):
+        if kind == "vector":
+            block = got["attr_mean"][:, ri]
+        else:
+            block = layouts.build_block(
+                kind, got["count"][:, ri], got["mean"][:, ri],
+                got["cov"][:, ri], query_padded, radius,
+                sazo=got["sazo"][:, ri] if "sazo" in got else None)
+        blocks.append(block[:n_query])
+    return torch.cat(blocks, dim=1)
 
 
 def _voxel_occupancy_cap(search, spec):
@@ -141,62 +277,70 @@ def _interp_packed_plan(search, vox_spec, lo, hi, s_bounds, m,
 def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
                            attributes=None, exclude_radius=None,
                            bounds=None, m=3, backend="packed",
-                           precision="highest", with_stats=False,
-                           device="cuda"):
+                           precision="highest", tuning=None,
+                           with_stats=False, device="cuda"):
     """
     Multiscale features for every query point, on ``device`` (the card
     unless the caller asks for the CPU): per band a device voxel
-    downsample and one fused extraction (``q_cap`` 256, segments of 32
-    coarse tiles, entry capacity from the measured occupancy).
-    ``backend="packed"`` packs candidate blocks at a capacity sized on
-    the host (``packed_moments``); ``"pallas"`` reads the candidate
-    spans in place (``span_moments``), with no candidate cap.
-    ``kind``: ``minimal``, ``geometric``, ``oriented``, ``covariance``,
-    ``eigen``, ``sazo`` or ``vector`` (packed only: the span path raises
-    for the last two).  ``vector`` needs ``attributes`` (rows aligned
-    with ``search``, 1..6 columns): per band the packed attribute interp
-    (q_cap 128 on a voxel-edge grid, chebyshev ball of one edge) puts
-    them on the voxel centers, and the features are their means over
-    each radius, A columns a radius.  ``precision``: the reference's
-    names (``kernel_precision``), for the extraction's kernel; the
-    interp sums at "highest", as the reference's does.
-    ``exclude_radius``: leave out the search points closer than this to
-    the query (the reference's legacy self-exclusion: pairs with
-    ``d2 < f32(e*e)``), in the extraction's kernel of either backend;
-    the ``vector`` interp takes no exclusion, as in the reference.
+    downsample (``vector``: the attribute interp) and one fused
+    extraction, routed per band as the reference routes it:
 
+    * the packed kernel (``packed_moments``, a host-sized candidate
+      capacity) for ``backend="packed"``, except ``vector`` with more
+      than 6 attribute columns;
+    * the span kernel (``span_moments``, no candidate cap) for
+      ``backend="pallas"``, except ``sazo`` and ``vector``;
+    * the XLA candidate-table path (``device_grid.fused_extract``, q_cap
+      128, one coarse tile an entry) for everything else -- every band
+      of ``backend="xla"``.
+
+    ``vector`` needs ``attributes`` (rows aligned with ``search``);
+    its interp (``tuning["interp_backend"]``, default "auto") is the
+    matmul interp above 8 columns, the packed interp at 1-6 columns on
+    the packed backend, the gather interp otherwise.  ``precision``:
+    the reference's names, the kernels' precision by
+    ``kernel_precision``; the XLA bands sum in f32 whatever the name.
+    ``exclude_radius``: leave out the search points closer than this
+    to the query (pairs with ``d2 < f32(e*e)``); the ``vector`` interp
+    takes no exclusion, as in the reference.
+
+    ``tuning``: the reference's dict -- ``query_capacity``,
+    ``query_tile_factor`` (else ``m``), ``entry_batch``,
+    ``vector_s_cap``, ``interp_backend``, ``candidate_cap``,
+    ``estimate_entries`` (default True) and ``precision`` (else the
+    argument).
     ``bounds``: fixed site (lo, hi) governing every grid; default the
     clouds' own bounds, with voxel grids anchored at the search bounds.
     Returns an (n_query, width) float32 tensor; with ``with_stats`` also
     the overflow counters summed over the bands, as device scalars:
     ``dropped_query`` (queries without an entry slot),
-    ``dropped_candidates`` (candidates past the packed capacity) and
-    ``interp_dropped`` (the ``vector`` interp's under-reads).
+    ``dropped_candidates`` (candidates past the packed capacity),
+    ``dropped_search`` (search points past an XLA band's tile capacity)
+    and ``interp_dropped`` (the ``vector`` interp's under-reads).
     """
-    if backend == "xla":
-        raise NotImplementedError(
-            "the XLA candidate-table backend is not ported (ROADMAP.md "
-            "Queue A #6, the XLA fallback and reference-parity paths)")
-    if backend not in ("packed", "pallas"):
-        raise ValueError(f"unknown backend {backend!r}: must be 'packed' "
-                         "or 'pallas'")
+    tuning = tuning or {}
+    precision = tuning.get("precision", precision)
+    m = tuning.get("query_tile_factor", m)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: must be one of "
+                         f"{BACKENDS}")
     prec = kernel_precision(precision)
+    xla_prec = "highest" if precision == "bf16x2" else precision
+    interp_backend = tuning.get("interp_backend", "auto")
+    if interp_backend not in INTERP_BACKENDS:
+        raise ValueError(f"unknown interp_backend {interp_backend!r}")
     query = np.asarray(query, dtype=np.float32)[:, :3]
     search = np.asarray(search, dtype=np.float32)[:, :3]
+    n_attr = 0
     if kind == "vector":
         if attributes is None:
             raise ValueError("kind='vector' requires attributes")
         attributes = check_attributes(attributes, search.shape[0])
-        if backend == "pallas":
-            raise NotImplementedError(
-                "kind='vector' with backend='pallas': the span kernel has "
-                "no attribute rows and the reference's XLA path is not "
-                "ported (ROADMAP.md Queue A #6, the XLA fallback and "
-                "reference-parity paths)")
+        n_attr = attributes.shape[1]
     scaleset = [(float(edge), tuple(float(r) for r in radii))
                 for edge, radii in scaleset]
     if any(edge <= 0 for edge, _ in scaleset):
-        raise ValueError("the packed path requires voxel edges > 0")
+        raise ValueError("the fused path requires voxel edges > 0")
 
     n_query = query.shape[0]
     if bounds is not None:
@@ -222,43 +366,72 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
 
     zero = torch.zeros((), dtype=torch.int64, device=device)
     stats = dict.fromkeys(("dropped_query", "dropped_candidates",
-                           "interp_dropped"), zero)
+                           "dropped_search", "interp_dropped"), zero)
 
     def count(band_stats):
         for key, value in band_stats.items():
             stats[key] = stats[key] + value
 
+    use_packed = backend == "packed" and n_attr <= 6
+    use_spans = backend == "pallas" and kind not in ("vector", "sazo")
+    use_kernel = use_packed or use_spans
     bands = []
     for edge, radii in scaleset:
         vox_spec = packing.GridSpec.fit_bounds(s_lo, s_hi, edge)
         center_attrs = None
         if kind == "vector":
-            ispec, icap = _interp_packed_plan(search, vox_spec, lo, hi,
-                                              (s_lo, s_hi), m)
-            centers, center_mask, center_attrs, istats = \
-                interp.packed_interp(search_dev, s_valid, attrs_dev,
-                                     vox_spec, ispec, icap, with_stats=True)
+            s_cap = tuning.get("vector_s_cap") or _pow2_bucket(
+                _voxel_occupancy_cap(search, vox_spec), minimum=8)
+            if interp_backend == "matmul" or (interp_backend == "auto"
+                                              and n_attr > 8):
+                centers, center_mask, center_attrs, istats = \
+                    interp.interp_to_voxels_matmul(
+                        search_dev, s_valid, attrs_dev, vox_spec,
+                        int(s_cap), s_lo, s_hi, with_stats=True)
+            elif interp_backend == "packed" or (
+                    interp_backend == "auto" and backend == "packed"
+                    and n_attr <= 6):
+                ispec, icap = _interp_packed_plan(search, vox_spec, lo, hi,
+                                                  (s_lo, s_hi), m)
+                centers, center_mask, center_attrs, istats = \
+                    interp.packed_interp(search_dev, s_valid, attrs_dev,
+                                         vox_spec, ispec, icap,
+                                         with_stats=True)
+            else:
+                centers, center_mask, center_attrs, istats = \
+                    interp.interp_to_voxels(search_dev, s_valid, attrs_dev,
+                                            vox_spec, int(s_cap),
+                                            with_stats=True)
             count({"interp_dropped": istats["dropped_search"]})
         else:
             centers, _, center_mask = unique.unique_voxels(
                 search_dev, vox_spec, valid=s_valid)
         spec = device_grid.make_spec(
-            lo, hi, max(radii), n_query=q_bucket, m=m, q_cap=256,
-            voxel_edge=edge, entry_batch=256, x_seg=32)
-        spec = device_grid.with_entry_estimate(spec, query)
-        if backend == "pallas":
-            feats, band_stats = device_grid.fused_extract_spans(
-                query_dev, q_valid, centers, center_mask, spec, radii, kind,
-                n_query, with_stats=True, precision=prec,
-                exclude_radius=exclude_radius)
-        else:
-            cap = span_host.candidate_cap(
+            lo, hi, max(radii), n_query=q_bucket, m=m,
+            q_cap=tuning.get("query_capacity") or (256 if use_kernel
+                                                   else 128),
+            voxel_edge=edge, entry_batch=tuning.get("entry_batch", 256),
+            x_seg=32 if use_kernel else 1)
+        if tuning.get("estimate_entries", True):
+            spec = device_grid.with_entry_estimate(spec, query)
+        if use_packed:
+            cap = tuning.get("candidate_cap") or span_host.candidate_cap(
                 query, _host_unique_voxels(search, edge, bounds=bounds),
                 spec)
             feats, band_stats = device_grid.fused_extract_packed(
                 query_dev, q_valid, centers, center_mask, spec, radii, kind,
                 n_query, int(cap), with_stats=True, precision=prec,
                 attributes=center_attrs, exclude_radius=exclude_radius)
+        elif use_spans:
+            feats, band_stats = device_grid.fused_extract_spans(
+                query_dev, q_valid, centers, center_mask, spec, radii, kind,
+                n_query, with_stats=True, precision=prec,
+                exclude_radius=exclude_radius)
+        else:
+            feats, band_stats = device_grid.fused_extract(
+                query_dev, q_valid, centers, center_mask, spec, radii, kind,
+                exclude_radius, xla_prec, n_query, with_stats=True,
+                attributes=center_attrs)
         count(band_stats)
         bands.append(feats)
     features = torch.cat(bands, dim=1)
@@ -267,37 +440,88 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
 
 def extract_scaleset_device(query, search, scaleset, kind="geometric", *,
                             attributes=None, exclude_radius=None,
-                            method="auto", bounds=None, m=3,
+                            chunk_size=1024, sort_queries=True,
+                            method="auto", tuning=None, bounds=None, m=3,
                             backend="packed", precision="highest",
-                            device="cuda"):
+                            with_stats=False, device="cuda"):
     """
-    The reference's public extraction entry point, on the port's one
-    path: :func:`extract_scaleset_fused` (the other arguments are its).
-    ``method="fused"`` takes it; ``"auto"`` takes it where the reference
-    does (every band voxel-downsampled and at least ``TILED_THRESHOLD``
-    search points).  What the reference computes otherwise -- the dense
-    and tiled methods, and bands of voxel edge 0 -- is not ported: those
-    raise ``NotImplementedError``, they never fall back.  Returns an
-    (n_query, width) float32 tensor on ``device``.
+    The reference's public extraction entry point, on ``device`` (the
+    card unless the caller asks for the CPU).  ``method``:
+
+    * ``"fused"``, and ``"auto"`` at ``TILED_THRESHOLD`` or more search
+      points with every band voxelized: :func:`extract_scaleset_fused`
+      (``bounds``, ``m``, ``backend``, ``precision``, ``tuning`` are
+      its);
+    * ``"dense"`` / ``"tiled"``, and ``"auto"`` otherwise: per band the
+      voxel downsample (``voxel_downsample``; edge 0 keeps the raw
+      cloud), then the tiled method at ``TILED_THRESHOLD`` or more
+      voxels (``"auto"``) or always (``"tiled"``: the host plan with
+      ``tuning``'s ``query_tile_factor`` 3, ``query_capacity``,
+      ``entry_batch`` 256, ``precision``), else the dense method
+      (queries sorted by voxel address with ``sort_queries``, padded to
+      chunks of ``chunk_size`` rows, shrunk to ``PAIRS_BUDGET``).
+
+    A configuration the fused path refuses raises; it never falls back
+    to another method.  Returns an (n_query, width) float32 tensor;
+    with ``with_stats`` also the overflow counters
+    (:func:`extract_scaleset_fused`'s; zeros on the dense and tiled
+    methods, which have no capacities).
     """
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if kind == "vector" and attributes is None:
+        raise ValueError("kind='vector' requires attributes")
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
-    unported = "(ROADMAP.md Queue A #6, the XLA fallback and " \
-        "reference-parity paths)"
-    if any(float(edge) <= 0 for edge, _ in scaleset):
-        raise NotImplementedError(
-            f"bands of voxel edge 0 are not ported {unported}")
-    if method in ("dense", "tiled") or (
-            method == "auto"
-            and np.asarray(search).shape[0] < TILED_THRESHOLD):
-        raise NotImplementedError(
-            f"method={method!r} on {np.asarray(search).shape[0]} search "
-            f"points takes the reference's dense or tiled extraction, "
-            f"which is not ported {unported}")
-    return extract_scaleset_fused(
-        query, search, scaleset, kind, attributes=attributes,
-        exclude_radius=exclude_radius, bounds=bounds, m=m, backend=backend,
-        precision=precision, device=device)
+    chunk_size = _pow2_bucket(chunk_size, minimum=64)
+    tuning = tuning or {}
+    search = np.asarray(search, dtype=np.float32)[:, :3]
+    if method == "fused" or (
+            method == "auto" and search.shape[0] >= TILED_THRESHOLD
+            and all(float(edge) > 0 for edge, _ in scaleset)):
+        return extract_scaleset_fused(
+            query, search, scaleset, kind, attributes=attributes,
+            exclude_radius=exclude_radius, bounds=bounds, m=m,
+            backend=backend, precision=precision, tuning=tuning,
+            with_stats=with_stats, device=device)
+
+    query = np.asarray(query, dtype=np.float32)[:, :3]
+    if kind == "vector":
+        attributes = check_attributes(attributes, search.shape[0])
+    n_query = query.shape[0]
+    scaleset = [(float(edge), tuple(float(r) for r in radii))
+                for edge, radii in scaleset]
+    # the tiled method groups queries by tile itself; the voxel-address
+    # sort only helps the dense method's chunk locality
+    if method == "tiled" or (method == "auto"
+                             and search.shape[0] >= TILED_THRESHOLD):
+        sort_queries = False
+    order = None
+    if sort_queries and n_query > 1:
+        finest = min(edge for edge, _ in scaleset if edge > 0) \
+            if any(edge > 0 for edge, _ in scaleset) \
+            else min(min(radii) for _, radii in scaleset)
+        vf = VoxelFilter(query.astype(np.float64), max(finest, 1e-6))
+        order = np.argsort(vf.coordinate_to_address(
+            query.astype(np.float64)), kind="stable")
+        query = query[order]
+    q_bucket = max(-(-n_query // chunk_size) * chunk_size, chunk_size)
+    query_padded = torch.from_numpy(_pad_rows_f32(query, q_bucket)).to(device)
+    features = torch.cat([
+        _band_features(query_padded, n_query, search, kind, edge, radii,
+                       attributes, exclude_radius, chunk_size, method,
+                       tuning, bounds=bounds, device=device)
+        for edge, radii in scaleset], dim=1)
+    if order is not None:
+        inverse = np.empty_like(order)
+        inverse[order] = np.arange(n_query)
+        features = features[torch.from_numpy(inverse).to(device)]
+    if not with_stats:
+        return features
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return features, dict.fromkeys(("dropped_query", "dropped_candidates",
+                                    "dropped_search", "interp_dropped"),
+                                   zero)
 
 
 def extract_scaleset(query, search, scaleset, kind="geometric", **kwargs):

@@ -1,7 +1,8 @@
 """
 Classifier factory (port of ``nimrud_tpu/learning/classifiers.py``).
 ``"linear"`` and ``"rpte"`` are ported; the sklearn-backed kinds raise
-``NotImplementedError`` (ROADMAP.md Queue A #6).
+``NotImplementedError`` (ROADMAP.md Queue A #6b, the sklearn
+classifiers, still open).
 """
 
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
@@ -21,6 +22,7 @@ def param_classifier(kind, **kwargs):
         return RPTEnsemble(**kwargs)
     if kind in CLASSIFIER_KINDS:
         raise NotImplementedError(
-            f"classifier {kind!r} is not ported yet (ROADMAP.md)")
+            f"classifier {kind!r} is not ported yet (ROADMAP.md Queue A "
+            "#6b, the sklearn classifiers)")
     raise ValueError(
         f"unknown classifier {kind!r}; choose from {CLASSIFIER_KINDS}")

@@ -9,10 +9,9 @@ the reference's derived ``dense_blk*`` walk tables are neither written
 nor read (the reference rebuilds them on load, the port walks the dense
 tables).  Loading puts the model on ``device``.
 
-A pipeline file carries the reference's extractor options ``method`` and
-``chunk_size``: the port extracts on the fused path only, so it writes
-the reference's defaults and loads only ``method="auto"`` (ignoring
-``chunk_size``, the reference's non-fused batch size).
+A pipeline file carries the model's extractor options ``method`` and
+``chunk_size`` (``GeometryClassifier``'s, the reference's meaning), and
+loading restores them.
 """
 
 import json
@@ -93,8 +92,8 @@ def save_pipeline(model, path):
         "scaleset": [[edge, list(radii)] for edge, radii in model.scaleset],
         "kind": model.kind,
         "exclude_radius": model.exclude_radius,
-        "method": "auto",
-        "chunk_size": 1024,
+        "method": model.method,
+        "chunk_size": model.chunk_size,
         "transfer_dtype": model.transfer_dtype,
         "vector_s_cap": model.vector_s_cap,
         "trim_entries": model.trim_entries,
@@ -120,15 +119,11 @@ def load_pipeline(path, device="cuda"):
     if "pipeline" not in meta:
         raise ValueError(f"{path} was not saved with save_pipeline")
     cfg = meta["pipeline"]
-    if cfg["method"] != "auto":
-        raise NotImplementedError(
-            f"method={cfg['method']!r}: the port extracts on the fused "
-            "path only (ROADMAP.md Queue A #6, the XLA fallback and "
-            "reference-parity paths)")
     return GeometryClassifier(
         cfg["scaleset"], kind=cfg["kind"],
         classifier=load_model(path, device=device),
-        exclude_radius=cfg["exclude_radius"],
+        exclude_radius=cfg["exclude_radius"], method=cfg["method"],
+        chunk_size=cfg["chunk_size"],
         transfer_dtype=cfg["transfer_dtype"],
         vector_s_cap=cfg["vector_s_cap"], trim_entries=cfg["trim_entries"],
         bounds=None if cfg["bounds"] is None else tuple(cfg["bounds"]),

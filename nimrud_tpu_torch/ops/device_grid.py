@@ -9,7 +9,10 @@ one ``c_cap``-lane candidate block per entry (split into capacity
 buckets), and runs the ``packed_moments`` kernel.  Search-side
 attributes (the ``vector`` layout and the packed attribute interp) ride
 the same plan: they travel as sort payloads beside the coordinates and
-come back as candidate rows 3..3+A.  The span path
+come back as candidate rows 3..3+A.  The XLA candidate-table path
+(:func:`build_tables`, :func:`fused_extract`) plans one coarse tile an
+entry over a candidate table of the whole fine grid and sums with the
+masked float32 matrix products of ``grid._entry_stats``: no kernel.  The span path
 (:func:`fused_extract_spans`) hands the same spans to the
 ``span_moments`` kernel, which reads them in place.  The TPU-only layout
 detours (lanes-major search tables, VMEM entry batching, gather
@@ -161,6 +164,106 @@ def _encode(points, spec, coarse):
     else:
         d = spec.dims
     return cell[:, 0] + cell[:, 1] * d[0] + cell[:, 2] * (d[0] * d[1])
+
+
+def _sort_and_count(ids, valid, n_grid):
+    """Stable sort by id (invalid rows last, as ``n_grid``); per-tile
+    counts and exclusive starts."""
+    ids = torch.where(valid, ids, n_grid)
+    order = torch.sort(ids, stable=True).indices
+    counts = torch.bincount(ids, minlength=n_grid + 1)[:n_grid]
+    starts = torch.cumsum(counts, 0) - counts
+    return order, counts, starts
+
+
+def _tile_of_entry(offsets, e_cap, n_qgrid):
+    """entry -> coarse tile: the largest t with ``offsets[t] <= e`` (a
+    scatter-max of each tile at its first entry, the empty tiles sharing
+    a slot resolved to the largest, then a forward fill).  First-entry
+    slots at or past ``e_cap`` are dropped, as the reference's
+    ``mode="drop"``."""
+    first_entry = offsets[:-1]
+    slot = torch.where(first_entry < e_cap, first_entry, e_cap)
+    first = torch.zeros(e_cap + 1, dtype=torch.int64,
+                        device=offsets.device)
+    first.scatter_reduce_(
+        0, slot, torch.arange(first_entry.shape[0], device=offsets.device),
+        reduce="amax")
+    return torch.clamp(torch.cummax(first[:e_cap], 0).values, 0,
+                       n_qgrid - 1)
+
+
+def build_tables(query, q_valid, search, s_valid, spec, with_stats=False):
+    """
+    The XLA candidate-table plan on the device: ``(query_index,
+    neighbor_rows, candidates, entry_centers)`` with the semantics of
+    the host ``grid.TiledProblem``, except that candidate rows are
+    indexed by fine tile id (row ``n_grid`` is the all-pad row).
+    Entries are one coarse tile's queries, ``q_cap`` at a time.
+
+    With ``with_stats`` a fifth element holds the overflow counters:
+    ``dropped_search`` (search points past ``s_cap`` in their fine tile,
+    left out of every neighborhood) and ``dropped_query`` (valid queries
+    without an entry slot, which get zero features).
+    """
+    dev = query.device
+    n_grid, n_qgrid = spec.n_grid, spec.n_qgrid
+    n_search = search.shape[0]
+    n_query = query.shape[0]
+
+    # candidates over the full fine grid
+    s_order, s_counts, s_starts = _sort_and_count(
+        _encode(search, spec, coarse=False), s_valid, n_grid)
+    col = torch.arange(spec.s_cap, dtype=torch.int64, device=dev)
+    gather_at = torch.clamp(s_starts[:, None] + col[None, :], 0,
+                            n_search - 1)
+    in_tile = col[None, :] < torch.clamp(s_counts, max=spec.s_cap)[:, None]
+    candidates = torch.where(in_tile, s_order[gather_at], -1)
+    candidates = torch.cat([candidates, candidates.new_full(
+        (1, spec.s_cap), -1)])
+
+    # entries over the coarse grid
+    q_order, q_counts, q_starts = _sort_and_count(
+        _encode(query, spec, coarse=True), q_valid, n_qgrid)
+    per_tile = -(-q_counts // spec.q_cap)
+    offsets = torch.cat([per_tile.new_zeros(1), torch.cumsum(per_tile, 0)])
+    entry = torch.arange(spec.e_cap, dtype=torch.int64, device=dev)
+    tile = _tile_of_entry(offsets, spec.e_cap, n_qgrid)
+    rank = entry - offsets[tile]
+    live = entry < offsets[n_qgrid]
+    count = torch.clamp(q_counts[tile] - rank * spec.q_cap, 0, spec.q_cap)
+    count = torch.where(live, count, 0)
+    start = q_starts[tile] + rank * spec.q_cap
+    qcol = torch.arange(spec.q_cap, dtype=torch.int64, device=dev)
+    q_gather = torch.clamp(start[:, None] + qcol[None, :], 0, n_query - 1)
+    query_index = torch.where(qcol[None, :] < count[:, None],
+                              q_order[q_gather], -1)
+
+    # neighbor rows and centers per entry
+    qd, dims, m = spec.qdims, spec.dims, spec.m
+    tx = tile % qd[0]
+    ty = (tile // qd[0]) % qd[1]
+    tz = tile // (qd[0] * qd[1])
+    rows = []
+    for dx in range(-1, m + 1):
+        for dy in range(-1, m + 1):
+            for dz in range(-1, m + 1):
+                x, y, z = tx * m + dx, ty * m + dy, tz * m + dz
+                ok = ((x >= 0) & (x < dims[0]) & (y >= 0) & (y < dims[1])
+                      & (z >= 0) & (z < dims[2]))
+                fine = x + y * dims[0] + z * (dims[0] * dims[1])
+                rows.append(torch.where(ok, fine, n_grid))
+    neighbor_rows = torch.stack(rows, dim=1)
+    lo = torch.tensor(spec.lo, dtype=torch.float32, device=dev)
+    coords = torch.stack([tx, ty, tz], dim=1).to(torch.float32)
+    centers = (coords + 0.5) * scalar(m * spec.tile_edge, lo) + lo
+    tables = (query_index, neighbor_rows, candidates, centers)
+    if not with_stats:
+        return tables
+    stats = {"dropped_search": torch.clamp(s_counts - spec.s_cap,
+                                           min=0).sum(),
+             "dropped_query": q_valid.sum() - count.sum()}
+    return tables + (stats,)
 
 
 def _gather_q_t(q_sorted, q_gather):
@@ -587,18 +690,18 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
     counts, so no candidate is dropped; ``with_stats`` gives
     ``dropped_query`` (queries without an entry slot).  The span kernel
     has neither a sazo fold nor attribute rows: ``kind="sazo"`` and
-    ``"vector"`` raise (the reference takes an XLA path there, not
-    ported).  ``precision``: "highest" or "bf16x2".  ``exclude_radius``
+    ``"vector"`` raise (the extraction and the serving loop route those
+    bands to :func:`fused_extract`, as the reference's do).
+    ``precision``: "highest" or "bf16x2".  ``exclude_radius``
     leaves out the pairs with ``d2 < f32(e*e)`` (the kernel's exclusion
     instance).
     """
     from nimrud_tpu_torch.features import layouts
 
     if layouts.needs_sazo(kind) or kind == "vector":
-        raise NotImplementedError(
-            f"kind={kind!r} on the span path (the reference's XLA fallback) "
-            "is not ported (ROADMAP.md Queue A #6, the XLA fallback and "
-            "reference-parity paths)")
+        raise ValueError(
+            f"kind={kind!r}: the span kernel has no sazo fold and no "
+            "attribute rows; such bands take the XLA path (fused_extract)")
     prob = _span_problem(query, q_valid, search, s_valid, spec)
     centers = prob["centers"]
     slabs = gk.span_moments(
@@ -790,3 +893,38 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
     stats = {"dropped_query": q_valid.sum() - plan["count"].sum(),
              "dropped_candidates": dropped}
     return out, stats
+
+
+def fused_extract(query, q_valid, search, s_valid, spec, radii, kind,
+                  exclude_radius, precision_name, n_out, with_stats=False,
+                  attributes=None, metric="euclidean"):
+    """
+    Padded clouds -> (n_out, width) features in caller order through the
+    XLA candidate-table path: :func:`build_tables` on the device, then
+    ``grid.tiled_batch_features`` (the masked moment products of
+    ``grid._entry_stats``, ``spec.entry_batch`` entries at a time), the
+    layout and the scatter.  No moment kernel runs.  ``with_stats``
+    also returns :func:`build_tables`' counters (``dropped_search``,
+    ``dropped_query``).  ``attributes`` (rows aligned with ``search``)
+    give ``kind="vector"`` its masked attribute means;
+    ``metric="chebyshev"`` makes it the voxel interpolation operator
+    (``ops.interp.matmul_interp``).  ``precision_name``: the reference's
+    names (``grid.PRECISIONS``), all f32 sums here.
+    """
+    from nimrud_tpu_torch.ops import grid
+
+    grid._check_precision(precision_name)
+    if kind == "vector" and attributes is None:
+        raise ValueError("kind='vector' requires attributes")
+    built = build_tables(query, q_valid, search, s_valid, spec,
+                         with_stats=with_stats)
+    query_index, neighbor_rows, candidates, centers = built[:4]
+    zero = query.new_zeros((1, 3))
+    attr_pad = None if attributes is None else torch.cat(
+        [attributes, attributes.new_zeros((1, attributes.shape[1]))])
+    feats = grid.tiled_batch_features(
+        torch.cat([query[:, :3], zero]), torch.cat([search[:, :3], zero]),
+        attr_pad, (query_index, neighbor_rows, centers), candidates,
+        tuple(float(r) for r in radii), kind, exclude_radius,
+        spec.entry_batch, n_out, metric=metric)
+    return (feats, built[4]) if with_stats else feats

@@ -1,23 +1,20 @@
 """
-Tiled neighbor search (port of the span-free tile-grid path of
-``nimrud_tpu/ops/grid.py``).
+Tiled neighbor search (port of ``nimrud_tpu/ops/grid.py``).
 
 The search cloud is binned into cubic tiles of edge >= the largest
 radius and the query cloud into tiles ``m`` times coarser; every query's
 neighborhood lies in the (m+2)^3 search tiles around its query tile.
 :func:`build_tiled_problem` builds the static tables on the host, its
 tile sorts and tables through the C++ host runtime (``ops.native``), as
-the reference's native branches do.  :func:`tiled_features` runs
-the moments on the device in entry batches through the
-``entry_moments`` kernel (the reference's ``backend="pallas"`` branch),
-then the feature layout, and scatters the rows back to caller order.
-
-Not ported (ROADMAP.md Queue A #6, the XLA fallback and
-reference-parity paths): the XLA moment path (``_entry_stats``,
-``backend="xla"``), ``tiled_moments``, attributes and the ``vector``
-layout, the chebyshev metric, reduced precisions in the sums and the
-sazo layout (the entry kernel has neither a sazo fold nor attribute
-rows; the reference takes the XLA path for them).
+the reference's native branches do.  :func:`tiled_features` runs the
+moments on the device in entry batches -- the XLA path
+(:func:`_entry_stats`: difference-form ``d2``, masked float32 matrix
+products, both metrics, attributes and the sazo layout; the default) or
+the ``entry_moments`` kernel (``backend="pallas"``, where the reference
+runs its Pallas kernel) -- then the feature layout, and scatters the
+rows back to caller order.  :func:`tiled_moments` returns the raw
+moments of the XLA path in query order (the attribute interp of
+``features.multiscale.voxel_downsample``).
 """
 
 from dataclasses import dataclass, field
@@ -25,7 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from nimrud_tpu_torch.ops import native
+from nimrud_tpu_torch.ops import moments, native
 from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 
 
@@ -206,10 +203,14 @@ def build_tiled_problem(query, search, tile_edge, *, query_tile_factor=2,
                "entries": n_entries, "fill": float(fill)})
 
 
-def _gather_batch(query_pad, search_pad, candidates, batch):
+def _gather_batch(query_pad, search_pad, candidates, batch, attr_pad=None,
+                  build_aug=False):
     """One entry batch's queries and flat candidate blocks, global and
-    entry-local.  ``query_pad`` / ``search_pad`` end in a zero row that
-    the -1 pads index."""
+    entry-local (``query_pad`` / ``search_pad`` end in a zero row that
+    the -1 pads index).  Returns ``(q_pts, q_local, s_local, s_valid,
+    aug)``: with ``build_aug`` the XLA path's augmented candidate rows
+    ``[1, s, s (x) s]`` of the entry-local coordinates, then the
+    candidates' rows of ``attr_pad``; else ``aug`` is None."""
     q_idx, rows, centers = batch
     n_query_pad = query_pad.shape[0] - 1
     n_search_pad = search_pad.shape[0] - 1
@@ -218,84 +219,218 @@ def _gather_batch(query_pad, search_pad, candidates, batch):
     c_idx = candidates[rows]                       # (B, n_off, S_CAP)
     c_idx = c_idx.reshape(c_idx.shape[0], -1)      # (B, flat)
     s_valid = c_idx >= 0
-    s_pts = search_pad[torch.where(s_valid, c_idx, n_search_pad)]
-    s_local = s_pts - centers[:, None, :]
-    return q_pts, q_local, s_local, s_valid
+    safe = torch.where(s_valid, c_idx, n_search_pad)
+    s_local = search_pad[safe] - centers[:, None, :]
+    aug = None
+    if build_aug:
+        aug = moments._augment(
+            s_local, None if attr_pad is None else attr_pad[safe])
+    return q_pts, q_local, s_local, s_valid, aug
 
 
-PRECISIONS = ("highest", "high", "default", "mixed")   # the reference's
+# the reference's precision names; on the card every one sums in f32
+# with TF32 off, as JAX does on the CPU (a bf16 emulation of the TPU's
+# HIGH / DEFAULT passes is not ported)
+PRECISIONS = ("highest", "high", "default", "mixed")
 
 
-def tiled_features(problem, query, search, radii, kind, *,
-                   exclude_radius=None, entry_batch=32, precision="highest",
-                   backend="pallas", device="cuda"):
-    """
-    Feature extraction through the tile grid on ``device`` (the card
-    unless the caller asks for the CPU): per entry batch the gather,
-    the ``entry_moments`` kernel and the feature layout, then one
-    scatter back to the caller's query order (queries without an entry
-    slot get zeros).  Returns an (n_query, width) float32 tensor.
-    ``kind`` is any geometry layout but ``sazo``, which raises (and
-    ``vector``, which needs attributes: it raises too).  ``precision``
-    takes the reference's names (``PRECISIONS``); as in its
-    ``backend="pallas"`` branch, the entry kernel's sums do not depend
-    on it (only the XLA path, not ported, reads it).  ``exclude_radius``
-    leaves out the pairs whose clamped expanded ``d2`` is below
-    ``f32(e*e)`` (the entry kernel's exclusion instance).
-    """
-    from nimrud_tpu_torch.features import layouts
-
+def _check_precision(precision):
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")
-    if layouts.needs_sazo(kind) or kind == "vector":
-        raise NotImplementedError(
-            f"kind={kind!r} on the tiled path (the reference's XLA "
-            "_entry_stats) is not ported (ROADMAP.md Queue A #6, the XLA "
-            "fallback and reference-parity paths)")
+
+
+def _entry_stats(q_local, s_local, s_valid, aug, radii, exclude_radius,
+                 metric="euclidean", with_sazo=False):
+    """Masked moments of one batch of entries, the XLA path: the
+    difference-form ``d2`` of the entry-local coordinates (``(q - c) -
+    (s - c)``, one operation at a time; chebyshev squares ``max |d|``),
+    the ball masks against ``f32(r*r)`` and the exclusion, and one
+    batched float32 matrix product ``mask @ aug`` a radius.  Returns a
+    list, per radius, of ``moments.ball_stats`` (``count``,
+    ``mean_local``, ``cov``, ``attr_mean``, with ``with_sazo`` also
+    ``sazo`` from the entry-local z offsets)."""
+    d2 = moments.distance2(q_local, s_local, metric)
+    base = s_valid[:, None, :]
+    if exclude_radius is not None:
+        base = base & (d2 >= mk.exclusion_threshold(exclude_radius))
+    dz = (s_local[:, None, :, 2] - q_local[:, :, None, 2]) \
+        if with_sazo else None
+    per_radius = []
+    for r2 in mk.squared_radii(radii):
+        in_ball = base & (d2 <= float(r2))
+        mom = torch.bmm(in_ball.to(torch.float32), aug)
+        per_radius.append(moments.ball_stats(mom, in_ball, dz))
+    return per_radius
+
+
+def _check_radii(problem, radii):
     radii = tuple(float(r) for r in radii)
     if max(radii) > problem.tile_edge + 1e-9:
         raise ValueError(
             f"radius {max(radii)} exceeds tile edge {problem.tile_edge}")
-    if backend == "xla":
-        raise NotImplementedError(
-            "tiled_features(backend='xla') (_entry_stats) is not ported "
-            "(ROADMAP.md Queue A #6, the XLA fallback and reference-parity "
-            "paths)")
-    if backend != "pallas":
-        raise ValueError(f"unknown backend {backend!r}")
+    return radii
 
+
+def _problem_tensors(problem, query, search, attributes, device):
+    """The tiled tables and the clouds on ``device``: padded query and
+    search rows (a trailing zero row), attribute rows or None, and the
+    (query_index, neighbor_rows, entry_centers) table triple."""
     def put(array, dtype):
         return torch.as_tensor(np.asarray(array), device=device).to(dtype)
 
     zero = torch.zeros((1, 3), dtype=torch.float32, device=device)
     query_pad = torch.cat([put(query, torch.float32)[:, :3], zero])
     search_pad = torch.cat([put(search, torch.float32)[:, :3], zero])
-    q_index = put(problem.query_index, torch.int64)
-    rows = put(problem.neighbor_rows, torch.int64)
-    candidates = put(problem.candidates, torch.int64)
-    centers = put(problem.entry_centers, torch.float32)
+    attr_pad = None
+    if attributes is not None:
+        attr = put(attributes, torch.float32)
+        attr_pad = torch.cat([attr, attr.new_zeros((1, attr.shape[1]))])
+    tables = (put(problem.query_index, torch.int64),
+              put(problem.neighbor_rows, torch.int64),
+              put(problem.entry_centers, torch.float32))
+    return (query_pad, search_pad, attr_pad, tables,
+            put(problem.candidates, torch.int64))
 
+
+def _entry_batches(tables, entry_batch):
+    """The (query_index, neighbor_rows, centers) slices of each entry
+    batch in turn (the reference's ``lax.map``; every entry is
+    independent, so the batch size moves no result)."""
+    n_entries = tables[0].shape[0]
+    for lo in range(0, n_entries, entry_batch):
+        yield tuple(t[lo:lo + entry_batch] for t in tables)
+
+
+def tiled_batch_features(query_pad, search_pad, attr_pad, tables,
+                         candidates, radii, kind, exclude_radius,
+                         entry_batch, n_query, metric="euclidean",
+                         use_kernel=False):
+    """Feature rows of every entry batch scattered to caller order,
+    (n_query, width): per batch the gather, the moments (the
+    ``entry_moments`` kernel with ``use_kernel``, else
+    :func:`_entry_stats`) and the layout (``vector``: the attribute
+    means, A columns a radius).  Query slots without a query (and query
+    indices past ``n_query``) land in a discarded sentinel row."""
+    from nimrud_tpu_torch.features import layouts
+
+    sazo = layouts.needs_sazo(kind)
     feats = []
-    for s in range(0, problem.n_entries, entry_batch):
-        sl = slice(s, s + entry_batch)
-        q_pts, q_local, s_local, s_valid = _gather_batch(
-            query_pad, search_pad, candidates,
-            (q_index[sl], rows[sl], centers[sl]))
-        slabs = mk.entry_moments(q_local.contiguous(), s_local.contiguous(),
-                                 s_valid.contiguous(), radii,
-                                 exclude_radius=exclude_radius)
-        feats.append(torch.cat(
-            [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
-                                 q_pts, radius)
-             for p, radius in zip(
-                 mk.moments_from_slabs(slabs, centers[sl], radii), radii)],
-            dim=-1))
-    width = layouts.LAYOUT_WIDTHS[kind] * len(radii)
-    feats = torch.cat(feats).reshape(-1, width)
-    n_query = int(problem.n_query)
-    flat_idx = q_index.reshape(-1)
-    out = torch.zeros((n_query + 1, width), dtype=torch.float32,
-                      device=device)
-    out[torch.where(flat_idx < 0, n_query, flat_idx)] = feats
+    for batch in _entry_batches(tables, entry_batch):
+        centers = batch[2]
+        q_pts, q_local, s_local, s_valid, aug = _gather_batch(
+            query_pad, search_pad, candidates, batch, attr_pad,
+            build_aug=not use_kernel)
+        if use_kernel:
+            slabs = mk.entry_moments(
+                q_local.contiguous(), s_local.contiguous(),
+                s_valid.contiguous(), radii, exclude_radius=exclude_radius)
+            per_radius = mk.moments_from_slabs(slabs, centers, radii)
+        else:
+            per_radius = _entry_stats(q_local, s_local, s_valid, aug, radii,
+                                      exclude_radius, metric, sazo)
+        blocks = []
+        for p, radius in zip(per_radius, radii):
+            if kind == "vector":
+                blocks.append(p["attr_mean"])
+            else:
+                blocks.append(layouts.build_block(
+                    kind, p["count"], p["mean_local"] + centers[:, None, :],
+                    p["cov"], q_pts, radius, sazo=p.get("sazo")))
+        feats.append(torch.cat(blocks, dim=-1))
+        del q_local, s_local, s_valid, aug, per_radius
+    feats = torch.cat(feats)
+    width = feats.shape[-1]
+    flat_idx = tables[0].reshape(-1)
+    out = feats.new_zeros((n_query + 1, width))
+    out[torch.where((flat_idx < 0) | (flat_idx >= n_query), n_query,
+                    flat_idx)] = feats.reshape(-1, width)
     return out[:n_query]
+
+
+def tiled_moments(problem, query, search, radii, *, attributes=None,
+                  exclude_radius=None, entry_batch=32,
+                  precision="highest", metric="euclidean",
+                  with_sazo=False, device="cuda"):
+    """
+    Neighborhood moments through the tile grid on ``device`` (the card
+    unless the caller asks for the CPU), the XLA path
+    (:func:`_entry_stats`) one entry batch at a time, aligned to the
+    query order.  Returns the dict of ``ops.moments.multiscale_moments``
+    as NumPy arrays (queries without an entry slot get zeros):
+    ``count``, ``mean``, ``cov``, with ``attributes`` (rows aligned with
+    ``search``) ``attr_mean``, with ``with_sazo`` ``sazo``.
+    ``precision``: the reference's names (``PRECISIONS``), all f32 sums
+    here.
+    """
+    _check_precision(precision)
+    radii = _check_radii(problem, radii)
+    query_pad, search_pad, attr_pad, tables, candidates = _problem_tensors(
+        problem, query, search, attributes, device)
+    parts = []
+    for batch in _entry_batches(tables, entry_batch):
+        _, q_local, s_local, s_valid, aug = _gather_batch(
+            query_pad, search_pad, candidates, batch, attr_pad,
+            build_aug=True)
+        per_radius = _entry_stats(q_local, s_local, s_valid, aug, radii,
+                                  exclude_radius, metric, with_sazo)
+        out = {"count": torch.stack([p["count"] for p in per_radius], 2),
+               "mean": torch.stack([p["mean_local"] + batch[2][:, None, :]
+                                    for p in per_radius], 2),
+               "cov": torch.stack([p["cov"] for p in per_radius], 2)}
+        if attributes is not None:
+            out["attr_mean"] = torch.stack(
+                [p["attr_mean"] for p in per_radius], 2)
+        if with_sazo:
+            out["sazo"] = torch.stack([p["sazo"] for p in per_radius], 2)
+        parts.append(out)
+    valid = tables[0] >= 0
+    rows = tables[0][valid]
+    result = {}
+    for key in parts[0]:
+        value = torch.cat([p[key] for p in parts])
+        shaped = value.new_zeros((int(problem.n_query),) + value.shape[2:])
+        shaped[rows] = value[valid]
+        result[key] = shaped.cpu().numpy()
+    return result
+
+
+def tiled_features(problem, query, search, radii, kind, *, attributes=None,
+                   exclude_radius=None, entry_batch=32, precision="highest",
+                   backend="xla", metric="euclidean", device="cuda"):
+    """
+    Feature extraction through the tile grid on ``device`` (the card
+    unless the caller asks for the CPU): per entry batch the gather, the
+    moments and the feature layout, then one scatter back to the
+    caller's query order (queries without an entry slot get zeros).
+    Returns an (n_query, width) float32 tensor.
+
+    ``backend="xla"`` (the default, as the reference's) sums with
+    :func:`_entry_stats`; ``"pallas"`` runs the ``entry_moments``
+    kernel (its expanded-form ``d2``, a contract of its own) where the
+    reference's ``backend="pallas"`` branch does -- euclidean, no
+    attributes, no sazo -- and the XLA sums elsewhere, as the reference
+    routes it.  ``kind``: a geometry layout, or ``"vector"`` with
+    ``attributes`` (rows aligned with ``search``): their masked means, A
+    columns a radius.  ``metric="chebyshev"``: the max-norm ball.
+    ``precision``: the reference's names (``PRECISIONS``); every one
+    sums in f32 here, and the entry kernel's sums do not read it.
+    ``exclude_radius`` leaves out the pairs whose ``d2`` (the entry
+    kernel's clamped expanded form on its branch) is below ``f32(e*e)``.
+    """
+    from nimrud_tpu_torch.features import layouts
+
+    _check_precision(precision)
+    if backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if kind == "vector" and attributes is None:
+        raise ValueError("kind='vector' requires attributes")
+    radii = _check_radii(problem, radii)
+    use_kernel = (backend == "pallas" and attributes is None
+                  and not layouts.needs_sazo(kind) and metric == "euclidean")
+    query_pad, search_pad, attr_pad, tables, candidates = _problem_tensors(
+        problem, query, search, attributes, device)
+    return tiled_batch_features(
+        query_pad, search_pad, attr_pad, tables, candidates, radii, kind,
+        exclude_radius, entry_batch, int(problem.n_query), metric=metric,
+        use_kernel=use_kernel)

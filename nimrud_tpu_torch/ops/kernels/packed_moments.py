@@ -285,7 +285,8 @@ def packed_moments(q_t, cand_t, centers, radii, exclude_radius=None,
     if chebyshev and len(radii) != 1:
         raise NotImplementedError(
             "the chebyshev kernel instances take one radius (the packed "
-            "attribute interp's ball); the plain version takes more")
+            "attribute interp's ball); the plain version takes more "
+            "(ROADMAP.md Queue B, the chebyshev instances' radii)")
     n_entries, q_cap, c_cap = _shapes(q_t, cand_t, centers, n_attr)
     check_tensors(q_t.device, q_t=q_t, cand_t=cand_t, centers=centers)
     n_r = len(radii)

@@ -40,11 +40,26 @@ class GridSpec:
     widths: tuple          # address bits per axis
 
     @property
+    def dim(self):
+        return len(self.widths)
+
+    @property
     def shifts(self):
         out = [0]
         for w in self.widths[:-1]:
             out.append(out[-1] + w)
         return tuple(out)
+
+    @property
+    def total_bits(self):
+        return sum(self.widths)
+
+    @classmethod
+    def fit(cls, points, edge_length):
+        """Build a spec enclosing ``points`` (float64 math, as the
+        reference's); raises past ``MAX_KEY_BITS``."""
+        points = np.asarray(points, dtype=np.float64)
+        return cls.fit_bounds(points.min(0), points.max(0), edge_length)
 
     @classmethod
     def fit_bounds(cls, lo, hi, edge_length):

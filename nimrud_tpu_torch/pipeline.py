@@ -18,10 +18,17 @@ The ``vector`` layout (packed only) replaces each band's voxel dedup by
 the packed attribute interp (the voxel centers' attribute means over
 the chebyshev ball of one edge, ``ops.interp.packed_interp``) and
 serves the means of those attributes over each radius.
-With the span backend (``backend="pallas"``) each band runs its own
-plan and the ``span_moments`` kernel, its features return to caller
-order, and the classifier runs on all bands' features.  Only labels
-(and the overflow counters) leave the device.
+The other backends run the reference's per-band loop: each band its own
+voxel set (or, for ``vector``, the gather interp up to 8 attribute
+columns and the matmul interp past that) and its own plan, its features
+back in caller order, then the classifier on all bands' features.  The
+span backend (``backend="pallas"``) runs a band through the
+``span_moments`` kernel; the XLA backend (``backend="xla"``), and the
+bands no kernel carries -- ``sazo`` and ``vector`` under ``"pallas"``,
+``vector`` past 6 columns under ``"packed"`` -- through the XLA
+candidate-table path (``device_grid.fused_extract``: masked float32
+matrix products, no kernel).  Only labels (and the overflow counters)
+leave the device.
 
 The search cloud is the query cloud itself, or a designated search map
 (``search=``): the query and the map then upload as float32 (the uint16
@@ -34,15 +41,21 @@ stages one cloud ahead in a worker thread on a CUDA stream of its own.
 The host work of staging (bounds, uint16 quantization, the sizing of
 uncached specs) runs on the C++ host runtime (``ops.native``).
 
-A model with ``exclude_radius`` (the reference's legacy self-exclusion)
-never takes the fused serving step, as in the reference: ``fit`` and
-``predict_device`` / ``predict`` extract through
-``multiscale.extract_scaleset_fused(exclude_radius=...)`` (the packed
-kernel's exclusion instances, one fused extraction per band), then the
-classifier's ``proba_device`` and an argmax; ``stage`` raises.
+``fit`` and ``extract_device`` take the reference's extraction method
+(``method=``, ``chunk_size=``; ``multiscale.extract_scaleset_device``):
+the fused path at 16384 or more search points with every band
+voxelized, the dense or tiled method below -- on the packed kernel for
+the packed and span backends, on the XLA path for ``backend="xla"``.
 
-The port has one path: configurations it does not carry raise
-(``NotImplementedError``), they never fall back to another method.
+A model with ``exclude_radius`` (the reference's legacy self-exclusion)
+or a band of voxel edge 0 never takes the staged serving step, as in
+the reference: ``predict_device`` / ``predict`` extract through
+``extract_device`` (the exclusion instances of the kernels, or the
+dense and tiled methods for an edge-0 band), then the classifier's
+``proba_device`` and an argmax; ``stage`` raises.
+
+The port never falls back silently: configurations it does not carry
+raise.
 """
 
 import warnings
@@ -56,6 +69,8 @@ from nimrud_tpu_torch.learning.classifiers import param_classifier
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
 from nimrud_tpu_torch.ops import (device_grid, interp, native, packing,
                                   span_host, unique)
+
+BACKENDS = ("auto", "packed", "pallas", "xla")
 
 _CHUNK_SLOTS = 2 * 1024 * 1024    # entry slots above which serving
                                   # runs its per-slot pipeline in entry
@@ -137,22 +152,33 @@ class _FusedReducer:
 
 
 def _band_search_prep(search, s_valid, band, kind="minimal",
-                      attributes=None, tile_sorted=True):
+                      attributes=None, tile_sorted=True, vector_s_cap=32):
     """One band's search-side prep, shared by the serving steps and
     :meth:`GeometryClassifier.stage_search` (so a staged map's tables are
     the ones the step would build).  The geometry layouts: voxel dedup
     (tile-sorted for the packed path's presorted tables), then the
     ``v_cap`` prefix trim (voxels past it are counted).  ``vector``: the
     packed attribute interp on the band's interp spec and capacity
-    (``band[3]``, ``band[4]``), its under-reads counted.  Returns
-    ``(centers, mask, center attributes or None, vox_dropped,
-    interp_dropped)``."""
+    (``band[3]``, ``band[4]``) on a packed band; on the other bands
+    (``band[4]`` None) the matmul interp on ``band[3]``'s spec past 8
+    attribute columns, else the gather interp at ``vector_s_cap``
+    points a voxel; the under-reads counted.  Returns ``(centers, mask,
+    center attributes or None, vox_dropped, interp_dropped)``."""
     vox_spec, dev_spec, _, interp_spec, cap, _ = band
     zero = torch.zeros((), dtype=torch.int64, device=search.device)
     if kind == "vector":
-        centers, mask, attrs, stats = interp.packed_interp(
-            search, s_valid, attributes, vox_spec, interp_spec, cap,
-            with_stats=True)
+        if cap is not None:
+            centers, mask, attrs, stats = interp.packed_interp(
+                search, s_valid, attributes, vox_spec, interp_spec, cap,
+                with_stats=True)
+        elif attributes.shape[1] > 8:
+            centers, mask, (attrs, stats) = interp.matmul_interp(
+                search, s_valid, attributes, vox_spec, interp_spec,
+                with_stats=True)
+        else:
+            centers, mask, attrs, stats = interp.interp_to_voxels(
+                search, s_valid, attributes, vox_spec, vector_s_cap,
+                with_stats=True)
         return centers, mask, attrs, zero, stats["dropped_search"]
     centers, _, mask = unique.unique_voxels(
         search, vox_spec, valid=s_valid,
@@ -176,26 +202,41 @@ def _step_inputs(query, search, dequant):
     return query, search, dict.fromkeys(COUNTERS, zero)
 
 
-def _span_predict_step(query, q_valid, search, s_valid, clf_params,
+def _band_predict_step(query, q_valid, search, s_valid, clf_params,
                        band_specs, kind, n_query, dequant=None,
                        with_proba=False, attributes=None,
-                       precision="highest"):
-    """The span backend's serving step (the reference's per-band loop):
-    per band the search's voxel set, its own plan through
-    ``span_moments``, features in caller order, then the classifier on
-    the concatenated bands.  The span kernel carries no attributes:
-    ``attributes`` must be None."""
-    if attributes is not None:
-        raise ValueError("the span serving step takes no attributes")
+                       precision="highest", backend="xla",
+                       vector_s_cap=32):
+    """The reference's per-band serving loop, for the bands the packed
+    step does not carry: per band the search side
+    (:func:`_band_search_prep`, untiled), its own plan, then the span
+    kernel (``backend="pallas"``, a geometry layout but ``sazo``) or the
+    XLA candidate-table path (``device_grid.fused_extract``), features
+    back in caller order; then the classifier on the concatenated
+    bands.  ``precision``: the model's name (the span kernel's by
+    ``multiscale.kernel_precision``; the XLA bands sum in f32).  Returns
+    labels, probabilities or None, and the five overflow counters."""
     query, search, diag = _step_inputs(query, search, dequant)
+    span_prec = multiscale.kernel_precision(precision)
+    xla_prec = "highest" if precision == "bf16x2" else precision
     bands = []
     for band in band_specs:
-        centers, mask, _, v_inc, _ = _band_search_prep(
-            search, s_valid, band, kind, tile_sorted=False)
+        centers, mask, cattrs, v_inc, i_inc = _band_search_prep(
+            search, s_valid, band, kind, attributes, tile_sorted=False,
+            vector_s_cap=vector_s_cap)
         diag["vox_dropped"] = diag["vox_dropped"] + v_inc
-        feats, stats = device_grid.fused_extract_spans(
-            query, q_valid, centers, mask, band[1], band[2], kind, n_query,
-            with_stats=True, precision=precision)
+        diag["interp_dropped"] = diag["interp_dropped"] + i_inc
+        if backend == "pallas" and kind != "vector" \
+                and not layouts.needs_sazo(kind):
+            feats, stats = device_grid.fused_extract_spans(
+                query, q_valid, centers, mask, band[1], band[2], kind,
+                n_query, with_stats=True, precision=span_prec)
+        else:
+            feats, stats = device_grid.fused_extract(
+                query, q_valid, centers, mask, band[1], band[2], kind, None,
+                xla_prec, n_query, with_stats=True, attributes=cattrs)
+            diag["dropped_search"] = diag["dropped_search"] \
+                + stats["dropped_search"]
         diag["dropped_query"] = diag["dropped_query"] \
             + stats["dropped_query"]
         bands.append(feats)
@@ -257,9 +298,8 @@ class GeometryClassifier:
     Args:
       scaleset:   sequence of (voxel_edge, radii) bands.
       kind:       feature layout: "minimal", "geometric", "oriented",
-                  "covariance", "eigen", "sazo" or "vector" ("sazo" and
-                  "vector" serve on the packed backend only; "vector"
-                  fits and serves with ``attributes=``, 1..6 columns).
+                  "covariance", "eigen", "sazo" or "vector" ("vector"
+                  fits and serves with ``attributes=``).
       classifier: "linear" (the softmax model), "rpte" (the
                   random-projection-tree ensemble), or an already
                   constructed classifier of either kind.
@@ -270,9 +310,19 @@ class GeometryClassifier:
       trim_entries: with ``bounds``, ``fit`` sizes and caches the
                   serving specs from the fit cloud's occupancy.
       backend:    "packed" (dense packed candidate blocks; "auto"
-                  resolves to it) or "pallas" (the span kernel reads
-                  candidate spans in place).  Both fit on the packed
-                  path.
+                  resolves to it), "pallas" (the span kernel reads
+                  candidate spans in place) or "xla" (the candidate-table
+                  path, masked float32 matrix products, no kernel).
+                  ``sazo`` and ``vector`` bands under "pallas", and
+                  ``vector`` past 6 attribute columns under "packed",
+                  serve on the XLA path, as in the reference.  "packed"
+                  and "pallas" models fit on the packed kernel (``vector``
+                  on its serving path), "xla" models on the XLA path.
+      method, chunk_size: the reference's extraction options for
+                  :meth:`extract_device` (``fit``, and serving without a
+                  staged step): ``multiscale.extract_scaleset_device``'s
+                  ``method`` ("auto", "dense", "tiled", "fused") and the
+                  dense method's query chunk.
       serving_chunk_slots: entry slots above which the packed
                   serving step runs its per-slot pipeline (candidate
                   pack, kernel, layout, classifier) in entry chunks;
@@ -281,15 +331,19 @@ class GeometryClassifier:
       precision:  the serving kernels' moment sums: "highest" or
                   "bf16x2" (also the reference's "mixed" / "high",
                   mapped onto it); "bf16x2" needs ``backend`` named
-                  "packed" or "pallas".  Fit extracts at "highest", as
-                  the reference does.
+                  "packed" or "pallas".  The XLA bands sum in f32 under
+                  every name.  Fit extracts at "highest", as the
+                  reference does.
       exclude_radius: leave out the search points closer than this to
                   each query (the reference's legacy self-exclusion).
-                  Such a model fits and predicts through the per-band
-                  packed extraction (:meth:`extract_device`), whatever
-                  its ``backend``: it has no staged serving step.
-      vector_s_cap: accepted for the reference's API; the packed
-                  interp sizes its capacities on the host instead.
+                  Such a model -- and one with a band of voxel edge 0 --
+                  fits and predicts through :meth:`extract_device`,
+                  whatever its ``backend``: it has no staged serving
+                  step.
+      vector_s_cap: points a voxel of the gather interp, and of a fine
+                  tile of the matmul interp (the ``vector`` bands off the
+                  packed kernel); the packed interp sizes its capacities
+                  on the host instead.
       device:     the torch device everything runs on.
     """
 
@@ -297,28 +351,19 @@ class GeometryClassifier:
                  classifier_kwargs=None, exclude_radius=None,
                  transfer_dtype="float32", vector_s_cap=32, bounds=None,
                  trim_entries=False, backend="auto", precision="highest",
-                 serving_chunk_slots=None, tile_m=3, device="cuda"):
+                 serving_chunk_slots=None, tile_m=3, method="auto",
+                 chunk_size=1024, device="cuda"):
         self.scaleset = [(float(e), tuple(float(r) for r in rs))
                          for e, rs in scaleset]
-        if any(edge <= 0 for edge, _ in self.scaleset):
-            raise NotImplementedError(
-                "bands without voxel downsampling are not ported")
         if kind not in layouts.LAYOUT_WIDTHS and kind != "vector":
             raise ValueError(f"unknown feature layout {kind!r}")
-        if (layouts.needs_sazo(kind) or kind == "vector") \
-                and backend == "pallas":
-            raise NotImplementedError(
-                f"kind={kind!r} with backend='pallas': the span kernel has "
-                "no sazo fold and no attribute rows, and the reference's "
-                "XLA fallback is not ported (ROADMAP.md Queue A #6, the XLA "
-                "fallback and reference-parity paths)")
-        if backend == "xla":
-            raise NotImplementedError(
-                "backend='xla' (the candidate-table path) is not ported "
-                "(ROADMAP.md Queue A #6, the XLA fallback and "
-                "reference-parity paths)")
-        if backend not in ("auto", "packed", "pallas"):
-            raise ValueError("backend must be packed, pallas or auto")
+        if backend not in BACKENDS:
+            raise ValueError("backend must be packed, pallas, xla or auto")
+        if method not in multiscale.METHODS:
+            raise ValueError(f"method must be one of {multiscale.METHODS}, "
+                             f"got {method!r}")
+        self.method = method
+        self.chunk_size = int(chunk_size)
         self.serving_chunk_slots = serving_chunk_slots
         multiscale.kernel_precision(precision)
         if precision == "bf16x2" and backend not in ("pallas", "packed"):
@@ -355,8 +400,15 @@ class GeometryClassifier:
 
     @property
     def backend(self):
-        """The serving backend: "packed" or "pallas"."""
+        """The serving backend: "packed", "pallas" or "xla"."""
         return self._backend
+
+    @property
+    def _extract_then_classify(self):
+        """Whether serving extracts and classifies (an ``exclude_radius``
+        model, or a band of voxel edge 0) instead of the staged step."""
+        return self.exclude_radius is not None \
+            or any(edge <= 0 for edge, _ in self.scaleset)
 
     # -- features -------------------------------------------------------------
 
@@ -374,18 +426,32 @@ class GeometryClassifier:
                        with_stats=False):
         """Multiscale features for every point of ``cloud`` against
         ``search`` (default the cloud itself), as a tensor on
-        ``self.device``, on the serving grids when ``bounds`` is fixed
-        (``vector``: ``attributes`` rows aligned with the search, through
-        the same packed attribute interp as serving, so the fit features
-        are the served features), without the pairs closer than
-        ``exclude_radius``.  ``with_stats`` adds the extraction's
-        overflow counters (``COUNTERS``, device scalars)."""
+        ``self.device``: ``multiscale.extract_scaleset_device`` with the
+        model's ``method`` and ``chunk_size``, on the serving grids when
+        ``bounds`` is fixed, without the pairs closer than
+        ``exclude_radius``.  The fused path runs the packed kernel, or
+        for ``backend="xla"`` the XLA path; ``vector`` (``attributes``
+        rows aligned with the search) takes the serving backend's
+        interp and extraction, and a packed ``vector`` model with 1..6
+        attribute columns the fused path under ``method="auto"``, so
+        its fit features are the served features.  ``with_stats`` adds
+        the extraction's overflow counters (``COUNTERS``, device
+        scalars)."""
         search = cloud if search is None else search
         attributes = self._check_attributes(attributes, len(search))
-        out = multiscale.extract_scaleset_fused(
+        method, tuning = self.method, {}
+        if self.kind == "vector":
+            tuning["vector_s_cap"] = self.vector_s_cap
+            if self.backend == "packed" and attributes.shape[1] <= 6 \
+                    and method == "auto":
+                method = "fused"
+        backend = self.backend \
+            if self.kind == "vector" or self.backend == "xla" else "packed"
+        out = multiscale.extract_scaleset_device(
             cloud, search, self.scaleset, self.kind, attributes=attributes,
-            exclude_radius=self.exclude_radius, bounds=self.bounds,
-            m=self.tile_m, with_stats=with_stats, device=self.device)
+            exclude_radius=self.exclude_radius, chunk_size=self.chunk_size,
+            method=method, tuning=tuning, bounds=self.bounds, m=self.tile_m,
+            backend=backend, with_stats=with_stats, device=self.device)
         if not with_stats:
             return out
         features, stats = out
@@ -421,7 +487,7 @@ class GeometryClassifier:
             labels = labels[rows]
         self.classifier.fit_device(features, labels.astype(np.int32),
                                    n_classes=n_classes)
-        if self.exclude_radius is None:     # no staged serving to size
+        if not self._extract_then_classify:   # a staged step to size
             self._size_serving(cloud, self._attr_width(attributes, search,
                                                        cloud))
         return self
@@ -437,7 +503,7 @@ class GeometryClassifier:
         self.classifier = classifier
         self._spec_cache = None
         self._stage_spec_cache = {}
-        if self.exclude_radius is None:
+        if not self._extract_then_classify:
             self._size_serving(fit_cloud, self._attr_width(
                 attributes, search, fit_cloud))
         return self
@@ -457,7 +523,8 @@ class GeometryClassifier:
         and a voxel capacity for every geometry band, also where
         ``_fused_band_specs`` left it unbounded (1.25x + 4096 voxels,
         rounded up to 16384); a ``vector`` band carries its interp's
-        spec and capacity in those places instead."""
+        spec and capacity (or, off the packed kernel, its matmul spec
+        and None) in those places instead."""
         if self.bounds is None or not self.trim_entries:
             return
         arr = np.asarray(cloud, dtype=np.float32)[:, :3]
@@ -465,7 +532,7 @@ class GeometryClassifier:
         for (edge, _), (vox, dev, rr, interp_spec, v_cap, c_cap) in zip(
                 self.scaleset, self._fused_band_specs(
                     arr, arr, attr_width=attr_width)):
-            if v_cap is None:
+            if v_cap is None and self.kind != "vector":
                 n_vox = len(multiscale._host_unique_voxels(
                     arr, edge, bounds=self.bounds))
                 v_cap = n_vox + n_vox // 4 + 4096
@@ -522,9 +589,9 @@ class GeometryClassifier:
         each entry chunk of ``_serving_entry_chunk`` under the model's
         ``serving_chunk_slots``) from the host mirror of the shared plan
         against the search's voxel set, and per-band voxel capacities
-        from its real voxel count (1.25x + 4096).  Span
-        (``backend="pallas"``): q_cap 256 and the grid's worst-case
-        entry capacity, no voxel or candidate capacity; with
+        from its real voxel count (1.25x + 4096).  The per-band loop's
+        bands (:meth:`_band_loop_specs`): the grid's worst-case entry
+        capacity, no voxel or candidate capacity; with
         ``trim_entries``, :meth:`_size_serving` then sizes the entry and
         voxel capacities from the fit cloud."""
         if self.kind == "vector" and attr_width is None:
@@ -548,8 +615,10 @@ class GeometryClassifier:
         s_lo = np.asarray(s_lo, np.float64)
         s_hi = np.asarray(s_hi, np.float64)
         q_bucket = multiscale._pow2_bucket(cloud.shape[0])
-        if self.backend == "pallas":
-            specs = self._span_band_specs(lo, hi, s_lo, s_hi, q_bucket)
+        if not self._packed_step(attr_width):
+            specs = self._band_loop_specs(
+                lo, hi, s_lo, s_hi, q_bucket,
+                multiscale._pow2_bucket(search.shape[0]))
         else:
             specs = self._packed_band_specs(cloud, search, lo, hi, s_lo,
                                             s_hi, q_bucket)
@@ -559,15 +628,36 @@ class GeometryClassifier:
             self._stage_spec_cache[key] = specs
         return specs
 
-    def _span_band_specs(self, lo, hi, s_lo, s_hi, q_bucket):
-        """Span backend: every band on its own grid, q_cap 256."""
-        return tuple(
-            (packing.GridSpec.fit_bounds(s_lo, s_hi, edge),
-             device_grid.make_spec(lo, hi, max(radii), n_query=q_bucket,
-                                   voxel_edge=edge, q_cap=256,
-                                   m=self.tile_m, x_seg=32),
-             radii, None, None, None)
-            for edge, radii in self.scaleset)
+    def _packed_step(self, attr_width):
+        """Whether serving takes the packed step (one shared plan, the
+        packed kernel): the packed backend, and for ``vector`` at most
+        6 attribute columns (the kernel's attribute rows)."""
+        return self.backend == "packed" and (
+            self.kind != "vector" or attr_width <= 6)
+
+    def _band_loop_specs(self, lo, hi, s_lo, s_hi, q_bucket, s_bucket):
+        """The per-band loop's specs (:func:`_band_predict_step`), each
+        band on its own grid: q_cap 256 and segments of 32 coarse tiles
+        on the span kernel's bands, q_cap 128 and one coarse tile an
+        entry on the XLA bands; ``vector`` bands also carry the matmul
+        interp's voxel-edge grid (``vector_s_cap`` points a fine tile,
+        the search bucket's queries)."""
+        specs = []
+        for edge, radii in self.scaleset:
+            kernel = self.backend == "pallas" and self.kind != "vector" \
+                and not layouts.needs_sazo(self.kind)
+            interp_spec = device_grid.make_spec(
+                lo, hi, edge, n_query=s_bucket, s_cap=self.vector_s_cap) \
+                if self.kind == "vector" else None
+            specs.append((
+                packing.GridSpec.fit_bounds(s_lo, s_hi, edge),
+                device_grid.make_spec(lo, hi, max(radii), n_query=q_bucket,
+                                      voxel_edge=edge,
+                                      q_cap=256 if kernel else 128,
+                                      m=self.tile_m,
+                                      x_seg=32 if kernel else 1),
+                radii, interp_spec, None, None))
+        return tuple(specs)
 
     def _packed_band_specs(self, cloud, search, lo, hi, s_lo, s_hi,
                            q_bucket):
@@ -611,11 +701,11 @@ class GeometryClassifier:
         return tuple(specs)
 
     def _no_staged_step(self):
-        if self.exclude_radius is not None:
+        if self._extract_then_classify:
             raise ValueError(
-                "a model with exclude_radius has no staged serving step: "
-                "serve it with predict_device or predict (per-band "
-                "extraction, then the classifier)")
+                "a model with exclude_radius or a band of voxel edge 0 has "
+                "no staged serving step: serve it with predict_device or "
+                "predict (extraction, then the classifier)")
 
     def stage_search(self, search, attributes=None):
         """The search side of serving for a designated search map,
@@ -790,11 +880,15 @@ class GeometryClassifier:
         with a staged search map's own counts added; nonzero means the
         cloud (or the map) is denser than the capacities were sized
         for."""
-        if self.backend == "pallas":
-            step, extra = _span_predict_step, {}
-        else:
+        if all(band[5] is not None for band in staged["specs"]):
             step = _fused_predict_step
-            extra = {"chunk_slots": self.serving_chunk_slots}
+            extra = {"chunk_slots": self.serving_chunk_slots,
+                     "precision": multiscale.kernel_precision(
+                         self.precision)}
+        else:
+            step = _band_predict_step
+            extra = {"backend": self.backend, "precision": self.precision,
+                     "vector_s_cap": self.vector_s_cap}
         if staged.get("search_tables") is not None:
             extra["search_tables"] = staged["search_tables"]
         s_valid = None
@@ -807,8 +901,7 @@ class GeometryClassifier:
             < staged["n_query"], staged["search"], s_valid,
             self._fused_classifier(), staged["specs"], self.kind,
             staged["n_query"], staged["dequant"], with_proba=with_proba,
-            attributes=staged["attributes"],
-            precision=multiscale.kernel_precision(self.precision), **extra)
+            attributes=staged["attributes"], **extra)
         if with_diag and "staged_vox_dropped" in staged:
             diag["vox_dropped"] = diag["vox_dropped"] \
                 + staged["staged_vox_dropped"]
@@ -833,12 +926,13 @@ class GeometryClassifier:
         read: check a designated map once with :meth:`search_overflow`.
 
         ``staged_search``: a :meth:`stage_search` handle every cloud is
-        served against.  An ``exclude_radius`` model has no staged step:
-        its clouds go through :meth:`predict_device` in turn, and with
-        ``staged_search`` it raises rather than serve another search."""
+        served against.  A model without a staged step (``exclude_radius``,
+        an edge-0 band): its clouds go through :meth:`predict_device` in
+        turn, and with ``staged_search`` it raises rather than serve
+        another search."""
         from concurrent.futures import ThreadPoolExecutor
 
-        if self.exclude_radius is not None:
+        if self._extract_then_classify:
             if staged_search is not None:
                 self._no_staged_step()
             for cloud in clouds:
@@ -895,9 +989,9 @@ class GeometryClassifier:
         """Per-point class labels of ``cloud`` against ``search``
         (default the cloud) as a device tensor (with ``with_diag`` also
         the overflow counters, as :meth:`predict_staged` gives them).  A
-        model with ``exclude_radius`` takes its own path: the per-band
-        extraction, the classifier, argmax."""
-        if self.exclude_radius is not None:
+        model with ``exclude_radius`` or an edge-0 band takes its own
+        path: :meth:`extract_device`, the classifier, argmax."""
+        if self._extract_then_classify:
             features, diag = self.extract_device(cloud, search, attributes,
                                                  with_stats=True)
             labels = torch.argmax(self.classifier.proba_device(features),
@@ -909,8 +1003,8 @@ class GeometryClassifier:
 
     def predict(self, cloud, search=None, attributes=None):
         """Per-point class labels as a NumPy array; warns when the
-        cloud overflowed the model's fixed capacities (or, with
-        ``exclude_radius``, the extraction's capacities)."""
+        cloud overflowed the model's fixed capacities (or, without a
+        staged step, the extraction's capacities)."""
         labels, diag = self.predict_device(cloud, search, attributes,
                                            with_diag=True)
         dropped = {k: int(v) for k, v in diag.items() if int(v) > 0}

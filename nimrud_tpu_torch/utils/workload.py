@@ -34,10 +34,11 @@ def make_bench_model(cloud, backend="packed", epochs=10, kind="minimal",
     """The serving configuration bench.py measures: three bands
     (edge, radius) (0.25, 0.5), (0.5, 1.0), (1.0, 2.0), linear
     classifier, uint16 uploads, fixed site bounds, trimmed entries, on
-    ``device``; ``backend`` "packed" or "pallas" (span serving).
-    ``kind`` is the feature layout, "minimal" for the headline workload;
-    the port serves "geometric", "oriented", "covariance", "eigen" and
-    (packed only) "sazo" and "vector" too, everything else identical.
+    ``device``; ``backend`` "packed", "pallas" (span serving) or "xla"
+    (the candidate-table path, no kernel).  ``kind`` is the feature
+    layout, "minimal" for the headline workload; the port serves
+    "geometric", "oriented", "covariance", "eigen", "sazo" and "vector"
+    too, everything else identical.
     ``classifier="rpte"`` is the reference's ``scripts/bench_rpte.py``
     model (the random-projection-tree ensemble, ``{"seed": 0}`` unless
     ``classifier_kwargs`` say otherwise).  ``kwargs`` go to
@@ -45,7 +46,7 @@ def make_bench_model(cloud, backend="packed", epochs=10, kind="minimal",
     self-exclusion model, which fits and predicts through the per-band
     extraction (``predict_device`` / ``predict``; its ``stage``
     raises); ``serving_chunk_slots`` bounds the serving step's entry
-    slots a chunk."""
+    slots a chunk; ``method`` / ``chunk_size`` are the extraction's."""
     from nimrud_tpu_torch.pipeline import GeometryClassifier
 
     if classifier_kwargs is None:

@@ -10,7 +10,8 @@ package, on the same NumPy inputs:
 * ``tiled_features(backend="pallas", exclude_radius=e)`` against the
   reference's (the entry kernel);
 * the public wrappers ``extract_scaleset_device`` / ``extract_scaleset``
-  on the fused path, and what they do not port.
+  on the fused path, and on the dense and tiled methods below
+  ``TILED_THRESHOLD``.
 
 Densities (the populations) equal the reference's within an ulp; the
 other columns within the cross-backend feature tolerance
@@ -65,7 +66,8 @@ def test_extract_scaleset_fused_matches_reference(kind, backend):
                                        backend=backend, device="cpu")
     _compare(kind, got.numpy(), ref, plain.numpy())
     assert {k: int(v) for k, v in stats.items()} == {
-        "dropped_query": 0, "dropped_candidates": 0, "interp_dropped": 0}
+        "dropped_query": 0, "dropped_candidates": 0, "dropped_search": 0,
+        "interp_dropped": 0}
 
 
 def test_vector_extraction_matches_reference():
@@ -106,9 +108,11 @@ def test_tiled_features_match_reference(exclude_radius):
         exclude_radius=exclude_radius, entry_batch=16, backend="pallas"))
     got = tgrid.tiled_features(problem, query, search, radii, "minimal",
                                exclude_radius=exclude_radius,
-                               entry_batch=16, device="cpu").numpy()
+                               entry_batch=16, backend="pallas",
+                               device="cpu").numpy()
     plain = tgrid.tiled_features(problem, query, search, radii, "minimal",
-                                 entry_batch=16, device="cpu").numpy()
+                                 entry_batch=16, backend="pallas",
+                                 device="cpu").numpy()
     if exclude_radius == 0.0:
         # the clamp passes every pair at 0: exactly the plain features
         np.testing.assert_array_equal(got, plain)
@@ -131,15 +135,24 @@ def test_extract_scaleset_wrappers_take_the_fused_path():
                                 device="cpu")
     assert isinstance(host, np.ndarray)
     np.testing.assert_array_equal(host, fused.numpy())
-    # below TILED_THRESHOLD "auto" is the reference's dense / tiled
-    # extraction, which is not ported; nor are edge-0 bands: they raise
+    # below TILED_THRESHOLD "auto" is the reference's dense method, and
+    # "dense" / "tiled" are its methods, each with the exclusion; the
+    # fused path refuses an edge-0 band (the other methods take it)
     small = search[:5000]
-    for kw in ({"method": "auto"}, {"method": "dense"},
-               {"method": "tiled"}):
-        with pytest.raises(NotImplementedError, match="Queue A #6"):
-            tms.extract_scaleset_device(query, small, scaleset,
-                                        device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="voxel edge 0"):
+    for method in ("dense", "tiled"):
+        got = tms.extract_scaleset_device(query, small, scaleset,
+                                          exclude_radius=E, method=method,
+                                          device="cpu").numpy()
+        if method == "dense":
+            np.testing.assert_array_equal(tms.extract_scaleset_device(
+                query, small, scaleset, exclude_radius=E, method="auto",
+                device="cpu").numpy(), got)
+        ref = np.asarray(jms.extract_scaleset_device(
+            query, small, scaleset, exclude_radius=E, method=method))
+        plain = tms.extract_scaleset_device(query, small, scaleset,
+                                            method=method, device="cpu")
+        _compare("geometric", got, ref, plain.numpy())
+    with pytest.raises(ValueError, match="voxel edges"):
         tms.extract_scaleset_device(query, search, [(0.0, (1.0,))],
                                     method="fused", device="cpu")
     with pytest.raises(ValueError, match="method"):

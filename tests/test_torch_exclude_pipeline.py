@@ -10,8 +10,11 @@ by the module's tests):
   ``extract_scaleset_fused(tuning={"backend": "packed"},
   exclude_radius=e)`` (interpret mode), its classifier's
   ``proba_device``, argmax (on the CPU its own ``extract_device`` takes
-  the XLA backend; ROADMAP.md, Decisions).  Probabilities within 1e-3,
-  as ``tests/test_torch_pipeline.py`` holds them.
+  the XLA backend; ROADMAP.md, Decisions).  Below ``TILED_THRESHOLD``
+  points ``method="auto"`` takes the dense method in both packages, so
+  the port's model names ``method="fused"`` to serve this path.
+  Probabilities within 1e-3, as ``tests/test_torch_pipeline.py`` holds
+  them.
 * ``vector`` (the reference model passes ``backend="packed"`` and so
   serves through that path itself): the port's labels equal the
   reference's ``predict`` except at reference near-ties (top-two gap <
@@ -77,7 +80,8 @@ def _predict(port, cloud, attributes=None):
 
 def test_served_labels_match_reference_packed_path(fitted, monkeypatch):
     cloud, _, ref = fitted
-    port = twl.make_bench_model(cloud, device="cpu", exclude_radius=E)
+    port = twl.make_bench_model(cloud, device="cpu", exclude_radius=E,
+                                method="fused")
     port.install_classifier(_carried(ref.classifier), cloud)
     assert port._spec_cache is None
     other, truth = twl.make_bench_cloud(N, seed=1)

@@ -8,8 +8,9 @@ twins on the card, and small serving runs of both backends (and of the
 the same model on the CPU; designated-search serving (a staged search
 map, the stream's side stream) and staging on the C++ host runtime
 against its NumPy twin; entry-chunked serving against the un-chunked
-step, and the random-projection-tree forest (its device fit, its walks
-and its serving step) on the card against the CPU.
+step, the random-projection-tree forest (its device fit, its walks
+and its serving step), the XLA tile path, the dense method and an
+``xla`` model's serving step on the card against the CPU.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -710,4 +711,85 @@ def test_rpte_serving_on_card_matches_cpu(cuda):
         cpu.classifier._tables, feats, cpu.classifier.max_depth_,
         rows).all())
     differ = got.cpu() != cpu.predict_staged(cpu.stage(cloud))
+    assert int(differ.sum()) <= 0.001 * len(cloud)
+
+
+# -- the XLA path and the dense method ----------------------------------------
+
+def _xla_clouds(seed=31):
+    rng = np.random.default_rng(seed)
+    search = (rng.random((6000, 3)) * (12, 12, 4)).astype(np.float32)
+    query = (rng.random((2000, 3)) * (12, 12, 4)).astype(np.float32)
+    return query, search, rng.random((6000, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,metric,attrs", [
+    ("minimal", "euclidean", False), ("sazo", "euclidean", False),
+    ("eigen", "chebyshev", False), ("vector", "chebyshev", True)])
+def test_xla_tile_path_on_card_matches_cpu(cuda, kind, metric, attrs):
+    from nimrud_tpu_torch.ops import grid
+    query, search, attributes = _xla_clouds()
+    problem = grid.build_tiled_problem(query, search, 1.0,
+                                       query_tile_factor=3, entry_batch=64)
+    kw = dict(attributes=attributes if attrs else None, metric=metric,
+              entry_batch=64, exclude_radius=0.05)
+    before = mk.entry_moments.launches + mk.entry_moments.excl_launches
+    got = grid.tiled_features(problem, query, search, (1.0, 0.6), kind,
+                              device=cuda, **kw).cpu()
+    assert mk.entry_moments.launches + mk.entry_moments.excl_launches \
+        == before
+    ref = grid.tiled_features(problem, query, search, (1.0, 0.6), kind,
+                              device="cpu", **kw)
+    if kind != "vector":
+        from nimrud_tpu_torch.features import layouts
+        width = got.shape[1] // 2
+        # the same d2 in the same order on both: populations equal
+        assert torch.allclose(got[:, 0::width], ref[:, 0::width],
+                              rtol=2.0 ** -22, atol=0)
+        # the columns the layout leaves to rounding, taken from the CPU
+        got = layouts.reconcile(kind, got, ref)[0]
+    assert torch.allclose(got, ref, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("metric,sazo", [("euclidean", True),
+                                         ("chebyshev", False)])
+def test_dense_method_on_card_matches_cpu(cuda, metric, sazo):
+    from nimrud_tpu_torch.ops import moments
+    query, search, attributes = _xla_clouds(seed=32)
+    valid = torch.arange(len(search)) < len(search) - 100
+    args = [torch.from_numpy(query[:1024]), torch.from_numpy(search), valid,
+            (1.0, 0.5)]
+    kw = dict(attributes=torch.from_numpy(attributes), chunk_size=256,
+              exclude_radius=0.1, metric=metric, with_sazo=sazo)
+    got = moments.multiscale_moments(*(a.to(cuda) if torch.is_tensor(a)
+                                       else a for a in args),
+                                     **{k: v.to(cuda) if torch.is_tensor(v)
+                                        else v for k, v in kw.items()})
+    ref = moments.multiscale_moments(*args, **kw)
+    assert torch.equal(got["count"].cpu(), ref["count"])
+    if sazo:
+        assert torch.equal(got["sazo"].cpu(), ref["sazo"])
+    for key, atol in (("mean", 5e-5), ("cov", 2e-4), ("attr_mean", 2e-5)):
+        assert torch.allclose(got[key].cpu(), ref[key], atol=atol), key
+
+
+def test_xla_serving_on_card_matches_cpu(cuda):
+    cloud, labels = workload.make_bench_cloud(12000, seed=0)
+    cloud = (cloud * np.float32([0.2, 0.2, 1.0])).astype(np.float32)
+    gpu = workload.make_bench_model(cloud, backend="xla", device=cuda)
+    counts = (pm.packed_moments.launches, gk.span_moments.launches,
+              mk.entry_moments.launches)
+    gpu.fit(cloud, labels, sample=6000)
+    cpu = workload.make_bench_model(cloud, backend="xla", device="cpu")
+    cpu.install_classifier(checks.on_cpu(gpu.classifier), cloud)
+    got, proba, diag = gpu.predict_staged(gpu.stage(cloud), with_proba=True,
+                                          with_diag=True)
+    assert (pm.packed_moments.launches, gk.span_moments.launches,
+            mk.entry_moments.launches) == counts
+    assert all(int(v) == 0 for v in diag.values()), diag
+    assert float((got.cpu().numpy() == labels).mean()) > 0.8
+    top2 = torch.sort(proba.cpu(), dim=1).values[:, -2:]
+    near_tie = (top2[:, 1] - top2[:, 0]) < 1e-4
+    differ = got.cpu() != cpu.predict_staged(cpu.stage(cloud))
+    assert not bool((differ & ~near_tie).any())
     assert int(differ.sum()) <= 0.001 * len(cloud)

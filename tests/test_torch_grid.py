@@ -200,7 +200,8 @@ def test_tiled_features_match_reference(radii, m, batch):
         jproblem, query, search, radii, "minimal", entry_batch=batch,
         backend="pallas"))
     got = tgrid.tiled_features(problem, query, search, radii, "minimal",
-                               entry_batch=batch, device="cpu").numpy()
+                               entry_batch=batch, backend="pallas",
+                               device="cpu").numpy()
     assert got.shape == ref.shape == (len(query), 4 * len(radii))
     np.testing.assert_array_equal(got[:, 0::4], ref[:, 0::4])
     assert got[:, 0].mean() > 1
@@ -215,37 +216,43 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_variants_raise():
+    # the variants this test once saw raise are ported: the XLA path
+    # (backend="xla", the default), attributes, chebyshev and sazo --
+    # each equal to the reference's (tests/test_torch_xla_grid.py holds
+    # them at length); what is left raises for its arguments
     query, search = _clouds(n_search=300, n_query=100)
     problem = tgrid.build_tiled_problem(query, search, 1.0)
-    with pytest.raises(NotImplementedError, match="Queue A #6, the XLA fallback"):
-        tgrid.tiled_features(problem, query, search, (1.0,), "minimal",
-                             backend="xla", device="cpu")
-    for kwargs in ({"attributes": np.ones((300, 2), np.float32)},
-                   {"metric": "chebyshev"}):
-        with pytest.raises(TypeError):
-            tgrid.tiled_features(problem, query, search, (1.0,), "minimal",
-                                 device="cpu", **kwargs)
+    jproblem = jgrid.build_tiled_problem(query, search, 1.0)
+    attrs = np.ones((300, 2), np.float32)
+    for kind, kwargs in (("minimal", {"backend": "xla"}),
+                         ("vector", {"attributes": attrs}),
+                         ("minimal", {"metric": "chebyshev"}),
+                         ("sazo", {"exclude_radius": 0.1})):
+        ref = np.asarray(jgrid.tiled_features(jproblem, query, search,
+                                              (1.0,), kind, **kwargs))
+        got = tgrid.tiled_features(problem, query, search, (1.0,), kind,
+                                   device="cpu", **kwargs).numpy()
+        np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-5)
+        if kind != "vector":      # populations or densities: an ulp
+            np.testing.assert_allclose(got[:, 0], ref[:, 0],
+                                       rtol=2.0 ** -22)
     # precision takes the reference's names; the entry kernel's sums do
     # not depend on it (the reference's pallas branch ignores it too)
     plain = tgrid.tiled_features(problem, query, search, (1.0,), "minimal",
-                                 device="cpu")
+                                 backend="pallas", device="cpu")
     for name in ("mixed", "high", "default"):
         assert torch.equal(tgrid.tiled_features(
             problem, query, search, (1.0,), "minimal", precision=name,
-            device="cpu"), plain)
+            backend="pallas", device="cpu"), plain)
     with pytest.raises(ValueError, match="precision"):
         tgrid.tiled_features(problem, query, search, (1.0,), "minimal",
-                             precision="bf16", device="cpu")
+                             precision="bf16", backend="pallas",
+                             device="cpu")
     with pytest.raises(ValueError, match="exceeds tile edge"):
         tgrid.tiled_features(problem, query, search, (2.0,), "minimal",
-                             device="cpu")
+                             backend="pallas", device="cpu")
     q, s, valid = (torch.from_numpy(a) for a in
                    _problem(1, 8, 16, (0.5,), seed=0))
-    # exclude_radius is ported (tests/test_torch_exclude_kernels.py); the
-    # sazo layout stays unported on this path, with it or without
-    with pytest.raises(NotImplementedError, match="Queue A #6"):
-        tgrid.tiled_features(problem, query, search, (1.0,), "sazo",
-                             exclude_radius=0.1, device="cpu")
     for fn in (tmk.entry_moments, tmk.entry_moments_plain):
         assert fn(q, s, valid, (0.5,), exclude_radius=0.1).shape == (1, 8, 16)
     with pytest.raises(TypeError, match="bool"):

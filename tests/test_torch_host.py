@@ -110,7 +110,8 @@ def test_import_loads_no_jax():
             "nimrud_tpu_torch.utils.workload, nimrud_tpu_torch.ops.grid, "
             "nimrud_tpu_torch.ops.kernels.gather_kernel, "
             "nimrud_tpu_torch.ops.kernels.cuda_build, "
-            "nimrud_tpu_torch.learning.persistence; "
+            "nimrud_tpu_torch.learning.persistence, "
+            "nimrud_tpu_torch.features.minimal; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nimrud_tpu.')) or m == 'nimrud_tpu');"
             " assert not bad, bad")

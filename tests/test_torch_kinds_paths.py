@@ -3,12 +3,12 @@ The geometry kinds on the port's span and tiled paths against the JAX
 package on the same NumPy inputs (``geometric``, ``oriented``,
 ``covariance``, ``eigen``): the span extraction of one band
 (``fused_extract_spans``, the ``span_moments`` kernel's twin) and the
-tiled features (``tiled_features``, the ``entry_moments`` kernel's
-twin).  Densities equal the reference's up to an ulp, the other columns
+tiled features (``tiled_features(backend="pallas")``, the
+``entry_moments`` kernel's twin).  Densities equal the reference's up to an ulp, the other columns
 lie within the cross-backend feature tolerance once the columns the
 layout leaves to signs and rounding are reconciled
-(``layouts.reconcile``).  ``sazo`` raises on both paths (the reference
-takes XLA code there, not ported), and ``vector`` raises everywhere.
+(``layouts.reconcile``).  ``sazo`` on both paths and ``vector`` off the
+packed kernel take the reference's XLA bands.
 """
 
 import numpy as np
@@ -85,50 +85,61 @@ def test_tiled_features_match_reference(kind):
         jproblem, query, search, radii, kind, entry_batch=16,
         backend="pallas"))
     got = tgrid.tiled_features(problem, query, search, radii, kind,
-                               entry_batch=16, device="cpu").numpy()
+                               entry_batch=16, backend="pallas",
+                               device="cpu").numpy()
     assert got.shape[1] == layouts.LAYOUT_WIDTHS[kind] * len(radii)
     _compare(kind, got, ref)
 
 
 def test_sazo_off_the_packed_path_and_vector_raise():
+    # sazo off the packed path and vector everywhere are ported: the
+    # reference's XLA bands serve them (tests/test_torch_xla_*.py hold
+    # them at length); the span kernel itself still refuses them
+    from nimrud_tpu.features import multiscale as jms
+
     query, search = _clouds(n_search=300, n_query=100)
     problem = tgrid.build_tiled_problem(query, search, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #6, the XLA fallback"):
-        tgrid.tiled_features(problem, query, search, (1.0,), "sazo",
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #6, the XLA fallback"):
-        tms.extract_scaleset_fused(query, search, [(0.5, (1.0,))], "sazo",
-                                   backend="pallas", device="cpu")
+    jproblem = jgrid.build_tiled_problem(query, search, 1.0)
+    _compare("sazo", tgrid.tiled_features(
+        problem, query, search, (1.0,), "sazo", device="cpu").numpy(),
+        np.asarray(jgrid.tiled_features(jproblem, query, search, (1.0,),
+                                        "sazo")))
+    tuning = {"entry_batch": 16}
+    _compare("sazo", tms.extract_scaleset_fused(
+        query, search, [(0.5, (1.0,))], "sazo", backend="pallas",
+        tuning=tuning, device="cpu").numpy(),
+        np.asarray(jms.extract_scaleset_fused(
+            query, search, [(0.5, (1.0,))], "sazo",
+            tuning={"backend": "pallas", **tuning})))
     q = torch.from_numpy(query)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #6, the XLA fallback"):
+    with pytest.raises(ValueError, match="XLA path"):
         tdg.fused_extract_spans(q, torch.ones(len(q), dtype=torch.bool), q,
                                 torch.ones(len(q), dtype=torch.bool), None,
                                 (1.0,), "sazo", len(q))
     cloud, _ = twl.make_bench_cloud(2000, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A #6, the XLA fallback"):
-        twl.make_bench_model(cloud, kind="sazo", backend="pallas",
-                             device="cpu")
+    assert twl.make_bench_model(cloud, kind="sazo", backend="pallas",
+                                device="cpu").backend == "pallas"
     # sazo serves on the packed backend ("auto" resolves to it)
     assert tpl.GeometryClassifier([(0.5, (1.0,))], kind="sazo",
                                   device="cpu").backend == "packed"
-    # vector serves on the packed backend only, with 1..6 attribute
-    # columns; the span and tiled kernels carry no attribute rows
     assert twl.make_bench_model(cloud, kind="vector",
                                 device="cpu").backend == "packed"
-    xla = "ROADMAP.md Queue A #6, the XLA fallback"
-    with pytest.raises(NotImplementedError, match=xla):
-        twl.make_bench_model(cloud, kind="vector", backend="pallas",
-                             device="cpu")
+    assert twl.make_bench_model(cloud, kind="vector", backend="pallas",
+                                device="cpu").backend == "pallas"
     with pytest.raises(ValueError, match="requires attributes"):
         tms.extract_scaleset_fused(query, search, [(0.5, (1.0,))], "vector",
                                    device="cpu")
     for width, backend in ((7, "packed"), (2, "pallas")):
-        with pytest.raises(NotImplementedError, match=xla):
-            tms.extract_scaleset_fused(
-                query, search, [(0.5, (1.0,))], "vector",
-                attributes=np.ones((len(search), width), np.float32),
-                backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match=xla):
+        attrs = np.random.default_rng(width).random(
+            (len(search), width)).astype(np.float32)
+        got = tms.extract_scaleset_fused(
+            query, search, [(0.5, (1.0,))], "vector", attributes=attrs,
+            backend=backend, tuning=tuning, device="cpu").numpy()
+        ref = np.asarray(jms.extract_scaleset_fused(
+            query, search, [(0.5, (1.0,))], "vector", attributes=attrs,
+            tuning={"backend": backend, **tuning}))
+        np.testing.assert_allclose(got, ref, atol=2e-5)   # attribute means
+    with pytest.raises(ValueError, match="requires attributes"):
         tgrid.tiled_features(problem, query, search, (1.0,), "vector",
                              device="cpu")
     with pytest.raises(ValueError, match="unknown feature layout"):

@@ -53,8 +53,8 @@ def test_make_bench_model_takes_the_backend():
     model = twl.make_bench_model(cloud, backend="pallas", device="cpu")
     assert model.backend == "pallas"
     assert model.transfer_dtype == "uint16" and model.trim_entries
-    with pytest.raises(NotImplementedError, match="Queue A #6, the XLA fallback"):
-        twl.make_bench_model(cloud, backend="xla", device="cpu")
+    xla = twl.make_bench_model(cloud, backend="xla", device="cpu")
+    assert xla.backend == "xla" and xla.transfer_dtype == "uint16"
     with pytest.raises(ValueError):
         twl.make_bench_model(cloud, backend="ragged", device="cpu")
 

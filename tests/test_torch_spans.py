@@ -308,9 +308,15 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError):
         tgk.span_moments(q, c, s, n, p, (0.1, 0.2, 0.3, 0.4, 0.5), 8)
     query, search = _scene(n_search=500, n_query=100)
-    with pytest.raises(NotImplementedError, match="Queue A #6, the XLA fallback"):
-        tms.extract_scaleset_fused(query, search, [(0.5, (1.0,))],
-                                   backend="xla", device="cpu")
+    # the XLA backend is ported: the reference's fused XLA features
+    tuning = {"entry_batch": 16}
+    got = tms.extract_scaleset_fused(query, search, [(0.5, (1.0,))],
+                                     backend="xla", tuning=tuning,
+                                     device="cpu").numpy()
+    ref = np.asarray(jms.extract_scaleset_fused(
+        query, search, [(0.5, (1.0,))], tuning={"backend": "xla", **tuning}))
+    np.testing.assert_array_equal(got[:, 0], ref[:, 0])
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-5)
     with pytest.raises(ValueError):
         tms.extract_scaleset_fused(query, search, [(0.5, (1.0,))],
                                    backend="ragged", device="cpu")

@@ -14,7 +14,9 @@ reference benchmark's two attribute columns (``scripts/bench_kinds.py``):
   uint16 uploads.
 * Fitted by the port itself: held-out accuracy within 0.03 of the JAX
   fit's on the same split.
-* What the port does not carry raises.
+* Past 6 attribute columns, and on the span backend, the model takes
+  the XLA bands (``tests/test_torch_xla_pipeline.py`` serves them);
+  bad arguments raise.
 """
 
 import numpy as np
@@ -126,16 +128,19 @@ def test_vector_raises_where_the_port_has_no_path():
     model = twl.make_bench_model(cloud, kind="vector", device="cpu")
     with pytest.raises(ValueError, match="attributes"):
         model.fit(cloud, labels)
-    with pytest.raises(NotImplementedError, match="Queue A #6"):
-        model.fit(cloud, labels, attributes=np.ones((2000, 7), np.float32))
+    # past the packed kernel's 6 attribute rows the model fits and sizes
+    # the reference's per-band XLA serving (no candidate capacity)
+    model.fit(cloud, labels, attributes=np.ones((2000, 7), np.float32))
+    assert all(band[5] is None and band[3] is not None
+               for band in model._spec_cache[1])
     with pytest.raises(ValueError, match="attributes must be"):
         model.fit(cloud, labels, attributes=attrs[:100])
     minimal = twl.make_bench_model(cloud, device="cpu")
     with pytest.raises(ValueError, match="attributes"):
         minimal.stage(cloud, attributes=attrs)
-    with pytest.raises(NotImplementedError, match="Queue A #6"):
-        twl.make_bench_model(cloud, kind="vector", backend="pallas",
-                             device="cpu")
+    # vector on the span backend serves on XLA bands (ported)
+    assert twl.make_bench_model(cloud, kind="vector", backend="pallas",
+                                device="cpu").backend == "pallas"
     with pytest.raises(ValueError, match="named explicitly"):
         tpl.GeometryClassifier([(0.5, (1.0,))], precision="bf16x2",
                                device="cpu")
