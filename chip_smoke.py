@@ -211,7 +211,37 @@ Phases, one or more lines each:
               rows bit-equal to the chunked step's, labels equal,
               probabilities within ``checks.CHUNK_PROBA_TOLERANCE``
               (bit-equality printed).
-Phases 10 and 11 print their wall time.
+12. knn    -- ``features.knn.knn_features`` (``minimal`` and ``eigen``,
+              k 16, horizon 0.5 m: the bench's band-0 radius) and the
+              kNN and radius searches (``ops.neighbors``, k_max 64) of
+              ``make_bench_cloud(1_000_000)`` against itself, counted
+              from zero (no moment kernel may launch): each timed to
+              synchronize, with its entries, entry batches, sub-batches,
+              compacted candidate width, pairs and peak memory; the
+              radius search's overflowed share.  Then 2,000 queries
+              against scipy's cKDTree in float64 (distances within 1e-4
+              or the stated f32 bound of d2, indices equal except at
+              distance ties, radius counts equal except at a candidate
+              within the bound of r^2, the nearest k_max kept where a
+              query overflows), and card against CPU at 100k points:
+              counts equal, every differing index witnessed (its
+              candidates' float64 d2 within twice the f32 bound).
+13. host   -- the host-classifier route: ``sklearn``'s version or
+              ``sklearn: not importable`` first; the bench model with a
+              NumPy nearest-class-mean classifier (and ``rf``,
+              ``n_estimators=10``, where sklearn imports), fit
+              (``sample=100_000``) and ``predict_device`` on the three
+              clouds of phase 4, counted from zero: only
+              ``packed_moments`` launched, counters 0, accuracy > 0.8,
+              ``stage`` raises, the labels the argmax of the float32
+              cast of ``predict_proba`` on the model's own ``extract``
+              rows; card against CPU at 100k, each differing label held
+              by the rounding witness.  Then
+              ``utils.memory.projected_fused_bytes`` beside the measured
+              peaks of the 1M packed fit and serving steps and of the
+              10M steps (chunked and un-chunked): the projection must
+              not fall below any of them.
+Phases 10-13 print their wall time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.  The sazo,
@@ -278,6 +308,11 @@ KIND_KERNELS = {"sazo": ("packed_moments_sazo",),
                 "vector": ("packed_moments_attr", "packed_moments_interp")}
 MAX_WITNESSED = 0.02       # share of oriented labels a sign or a
                            # rounding-bound vector may move
+KNN_K = 16                 # the knn phase: neighbors of knn_features,
+KNN_RADIUS = 0.5           # its horizon and the radius search's radius
+                           # (the bench's band-0 radius, m),
+KNN_K_MAX = 64             # the radius search's k_max,
+KNN_SAMPLE = 2000          # queries held against scipy's cKDTree
 
 
 def _check(ok, what):
@@ -2464,6 +2499,7 @@ def _large_phase(device):
            "probabilities differ")
     _check(bool(np.isfinite(probs_c.cpu().numpy()).all()),
            "non-finite probabilities")
+    return peak_gb * 2**30, peak_w * 2**30
 
 
 def _levels_needed(tables, feats, max_depth):
@@ -2554,6 +2590,368 @@ def _rpte_phase(cloud, labels, clouds, truths, device, profile_dir=None):
               classifier="rpte")
 
 
+def _knn_d2_bound(radius):
+    """Bound on |f32 d2 - float64 d2| of the neighbor search's expanded
+    form on the tiled problem of tile edge ``radius`` (query tiles of two
+    search tiles): entry-local coordinates within L = sqrt(3) * 2 *
+    radius of the entry center; each rounded local coordinate moves d2 by
+    at most 2 |d| u L a coordinate, the three fused chains and the two
+    sums by at most u (qq + ss + 2 |qs|) <= 4 u L^2 each -- 32 u L^2
+    covers them."""
+    span = math.sqrt(3.0) * 2.0 * radius
+    return 32.0 * EPS32 * span * span
+
+
+def _d2_64(cloud, rows, idx):
+    """float64 squared distances of ``cloud[rows]`` to ``cloud[idx]``
+    ((k, n) indices; -1 pads give inf)."""
+    import numpy as np
+    q = cloud[rows].astype(np.float64)[:, None, :]
+    s = cloud[np.where(idx < 0, 0, idx)].astype(np.float64)
+    return np.where(idx < 0, np.inf, ((q - s) ** 2).sum(-1))
+
+
+def _knn_vs_scipy(cloud, got_knn, got_radius, bound):
+    """The kNN and radius results of KNN_SAMPLE queries against scipy's
+    cKDTree in float64.  kNN: each slot whose float64 neighbor lies
+    within the horizon is the tree's (distance within 1e-4 or, for the
+    nearest few millimetres, within the f32 bound; indices equal except
+    at distance ties); beyond the horizon the search can only return a
+    farther candidate.  Radius: counts equal except where a candidate
+    lies within the bound of r^2; sets equal where counts agree and fit
+    k_max; an overflowed query keeps the k_max nearest."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    rows = np.random.default_rng(7).choice(len(cloud), KNN_SAMPLE,
+                                           replace=False)
+    tree = cKDTree(cloud.astype(np.float64))
+    dist, idx = tree.query(cloud[rows].astype(np.float64), k=KNN_K)
+    mine = got_knn["distances"][rows].astype(np.float64)
+    mine_idx = got_knn["indices"][rows]
+    inside = dist <= KNN_RADIUS
+    close = (np.abs(mine - dist) <= 1e-4) \
+        | (np.abs(mine ** 2 - dist ** 2) <= bound + 4 * EPS32 * dist ** 2)
+    _check(bool(close[inside].all()), "knn: a distance within the horizon "
+           "off the tree's")
+    _check(bool(got_knn["valid"][rows][inside].all()), "knn: a neighbor "
+           "within the horizon not found")
+    swapped = inside & (mine_idx != idx)
+    outside = ~inside & got_knn["valid"][rows]
+    _check(bool((mine[outside] >= dist[outside] - 1e-4).all()),
+           "knn: a neighbor beyond the horizon nearer than the tree's")
+    r2 = KNN_RADIUS * KNN_RADIUS
+    balls = tree.query_ball_point(cloud[rows].astype(np.float64),
+                                  KNN_RADIUS)
+    count = got_radius["count"][rows]
+    boundary = mismatched = overflowed = 0
+    for i, (row, ball) in enumerate(zip(rows, balls)):
+        if count[i] != len(ball):
+            # only candidates within the bound of r^2 may count otherwise
+            near = tree.query_ball_point(cloud[row].astype(np.float64),
+                                         math.sqrt(r2 + bound))
+            gap = np.abs(((cloud[near].astype(np.float64)
+                           - cloud[row].astype(np.float64)) ** 2).sum(1)
+                         - r2)
+            _check(abs(int(count[i]) - len(ball))
+                   <= int((gap <= bound).sum()),
+                   f"radius: query {row} counts {count[i]} against the "
+                   f"tree's {len(ball)} with no candidate at the boundary")
+            boundary += 1
+            continue
+        kept = got_radius["indices"][row][got_radius["valid"][row]]
+        if count[i] <= KNN_K_MAX:
+            mismatched += set(kept.tolist()) != set(ball)
+        else:
+            overflowed += 1
+            nearest = np.sort(((cloud[ball].astype(np.float64)
+                                - cloud[row].astype(np.float64)) ** 2
+                               ).sum(1))[:KNN_K_MAX]
+            ours = np.sort(got_radius["distances"][row].astype(
+                np.float64) ** 2)
+            _check(bool((np.abs(ours - nearest) <= bound
+                         + 4 * EPS32 * nearest).all()),
+                   f"radius: overflowed query {row} did not keep the "
+                   f"{KNN_K_MAX} nearest")
+    _check(mismatched == 0, f"radius: {mismatched} neighbor sets differ "
+           "from the tree's")
+    return {"knn slots in the horizon": int(inside.sum()),
+            "knn ties swapped": int(swapped.sum()),
+            "knn slots past the horizon": int(outside.sum()),
+            "radius counts at the boundary": boundary,
+            "radius overflowed": overflowed}
+
+
+def _knn_card_vs_cpu(small, device, bound):
+    """The kNN and radius searches of a 100k cloud on the card and on the
+    CPU: indices equal, each difference witnessed (the two candidates'
+    float64 d2 within twice the f32 bound of each other).  Returns the
+    differing slots and the CPU seconds."""
+    import numpy as np
+    from nimrud_tpu_torch.ops import neighbors
+
+    out = {}
+    for mode, k in (("knn", KNN_K), ("radius", KNN_K_MAX)):
+        card = neighbors.neighbor_search(small, small, k, KNN_RADIUS, mode,
+                                         device)
+        t0 = time.perf_counter()
+        cpu = neighbors.neighbor_search(small, small, k, KNN_RADIUS, mode,
+                                        "cpu")
+        cpu_s = time.perf_counter() - t0
+        a, b = card["indices"].cpu().numpy(), cpu["indices"].numpy()
+        _check(np.array_equal(card["count"].cpu().numpy(),
+                              cpu["count"].numpy()), f"{mode}: card and cpu "
+               "counts differ")
+        same = a == b
+        _check(np.array_equal(card["distances"].cpu().numpy()[same],
+                              cpu["distances"].numpy()[same]),
+               f"{mode}: card and cpu distances of the same neighbor "
+               "differ")
+        rows = np.nonzero((a != b).any(1))[0]
+        if len(rows):
+            with np.errstate(invalid="ignore"):
+                gap = np.abs(_d2_64(small, rows, a[rows])
+                             - _d2_64(small, rows, b[rows]))
+            gap = np.where(a[rows] == b[rows], 0.0, gap)
+            _check(bool((gap <= 2 * bound).all()), f"{mode}: card and cpu "
+                   "indices differ beyond the f32 bound")
+        out[mode] = (int((a != b).sum()), cpu_s)
+    return out
+
+
+def _knn_phase(device):
+    """Phase 12: ``knn_features`` (``minimal``, ``eigen``) and the kNN and
+    radius searches of the 1M bench cloud against itself on the card,
+    counted from zero (no moment kernel runs); each timed to synchronize
+    with its entry batches, sub-batches and peak memory; then held
+    against scipy's cKDTree on KNN_SAMPLE queries and against the CPU
+    at E2E_POINTS."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.features import knn as fknn
+    from nimrud_tpu_torch.ops import neighbors
+    from nimrud_tpu_torch.utils import workload
+
+    cloud, _ = workload.make_bench_cloud(N_POINTS, seed=0)
+    bound = _knn_d2_bound(KNN_RADIUS)
+    _reset_counts()
+    got = {}
+
+    def timed(name, fn):
+        """``fn()`` to synchronize, its time and peak memory printed with
+        the search's stats (``knn_features`` searches as ``knn`` does:
+        the same tiled problem)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"[knn] {name}: {time.perf_counter() - t0:.3f} s to "
+              f"synchronize; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+              flush=True)
+        return out
+
+    def search(mode, k):
+        res = neighbors.neighbor_search(cloud, cloud, k, KNN_RADIUS, mode,
+                                        device)
+        stats = res.pop("stats")
+        print(f"[knn] {mode} search: {stats['entries']} entries, "
+              f"{stats['entry_batches']} entry batches of "
+              f"{neighbors.ENTRY_BATCH}, {stats['sub_batches']} sub-batches, "
+              f"q_cap {stats['q_cap']}, {stats['lanes']} candidate lanes an "
+              f"entry compacted to at most {stats['max_width']}, "
+              f"{stats['pairs']} pairs", flush=True)
+        return {key: v.cpu().numpy() for key, v in res.items()}
+
+    for kind in ("minimal", "eigen"):
+        got[kind] = timed(f"knn_features {kind} (k {KNN_K}, horizon "
+                          f"{KNN_RADIUS})", lambda: fknn.knn_features(
+                              cloud, cloud, KNN_K, KNN_RADIUS, kind,
+                              device))
+        _check(np.isfinite(got[kind]).all() and got[kind].shape
+               == (N_POINTS, 4 if kind == "minimal" else 10),
+               f"knn_features {kind}: shape or non-finite values")
+    got["knn"] = timed(f"knn (k {KNN_K})", lambda: search("knn", KNN_K))
+    got["radius"] = timed(f"radius_neighbors (r {KNN_RADIUS}, k_max "
+                          f"{KNN_K_MAX})", lambda: search("radius",
+                                                          KNN_K_MAX))
+    _only(_counts(), (), "the knn path")
+    over = float((got["radius"]["count"] > KNN_K_MAX).mean())
+    short = float((got["knn"]["valid"].sum(1) < KNN_K).mean())
+    print(f"[knn] radius overflowed share {over:.4f}; kNN rows with fewer "
+          f"than {KNN_K} candidates in their tiles {short:.4f}; counts of "
+          f"knn_features minimal equal to the search's valid slots: "
+          f"{bool((got['minimal'][:, 0] == got['knn']['valid'].sum(1)).all())}",
+          flush=True)
+    _check(bool((got["minimal"][:, 0] == got["knn"]["valid"].sum(1)).all()),
+           "knn_features counts differ from the search's valid slots")
+    t0 = time.perf_counter()
+    found = _knn_vs_scipy(cloud, got["knn"], got["radius"], bound)
+    print(f"[knn] against scipy cKDTree on {KNN_SAMPLE} queries (f32 d2 "
+          f"bound {bound:.3g} m^2): {found} ({time.perf_counter() - t0:.1f}"
+          " s)", flush=True)
+    small, _ = workload.make_bench_cloud(E2E_POINTS, seed=0)
+    for mode, (differ, cpu_s) in _knn_card_vs_cpu(small, device,
+                                                  bound).items():
+        print(f"[knn] card vs cpu {mode} at {E2E_POINTS}: counts equal, "
+              f"{differ} index slots differ (each within twice the f32 "
+              f"bound), the distances of equal slots bit-equal; cpu "
+              f"{cpu_s:.2f} s", flush=True)
+
+
+def _host_classifiers():
+    """(name, factory) of the host classifiers phase 13 runs: the NumPy
+    nearest mean (``checks.NearestMean``) always, sklearn's ``rf``
+    where sklearn imports."""
+    from nimrud_tpu_torch.learning.classifiers import param_classifier
+    from nimrud_tpu_torch.utils.checks import NearestMean
+    runs = [("nearest-mean", NearestMean)]
+    try:
+        import sklearn
+    except ImportError:
+        print("[host] sklearn: not importable", flush=True)
+        return runs
+    print(f"[host] sklearn {sklearn.__version__}", flush=True)
+    return runs + [("rf", lambda: param_classifier("rf", n_estimators=10))]
+
+
+def _host_e2e(name, factory, device):
+    """A host-classifier model fit at E2E_POINTS on the card, the same
+    classifier on the CPU: each differing label held by
+    ``_rounding_witness`` (every feature of the row within its f32
+    bound of a float64 oracle)."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.utils import workload
+
+    small, small_labels = workload.make_bench_cloud(E2E_POINTS, seed=0)
+    other, _ = workload.make_bench_cloud(E2E_POINTS, seed=1)
+    gpu = workload.make_bench_model(small, classifier=factory(),
+                                    device=device)
+    gpu.fit(small, small_labels, sample=E2E_POINTS // 2)
+    cpu = workload.make_bench_model(small, device="cpu")
+    cpu.install_classifier(gpu.classifier, small)
+    g_lab = gpu.predict_device(other).cpu()
+    g_feats = gpu.extract_device(other).cpu()
+    t0 = time.perf_counter()
+    c_feats = cpu.extract_device(other)
+    c_lab = cpu._classify(c_feats).argmax(1).to(torch.int32)
+    cpu_s = time.perf_counter() - t0
+    _check(torch.equal(gpu._classify(g_feats).argmax(1).to(torch.int32)
+                       .cpu(), g_lab), f"host e2e {name}: card labels are "
+           "not its rows'")
+    differ = g_lab != c_lab
+    rows = differ.nonzero()[:, 0]
+    held, ratio = torch.ones(0, dtype=torch.bool), 0.0
+    if len(rows):
+        q_bucket = multiscale._pow2_bucket(len(other))
+        staged = {"query": torch.from_numpy(multiscale._pad_rows_f32(
+                      other, q_bucket)),
+                  "dequant": None, "n_query": len(other),
+                  "specs": tuple(_fit_specs(cpu, other)),
+                  "band_plans": True}
+        held, ratio = _rounding_witness("minimal", cpu, staged, rows,
+                                        g_feats, c_feats)
+    print(f"[host] {name} card vs cpu at {E2E_POINTS}: {int(differ.sum())} "
+          f"labels differ, {int(held.sum())} held by the rounding witness "
+          f"(largest feature difference {ratio:.4g} of its bound), "
+          f"{int((g_feats != c_feats).any(1).sum())} feature rows differ; "
+          f"cpu extract {cpu_s:.2f} s", flush=True)
+    _check(bool(held.all()), f"host e2e {name}: labels differ without the "
+           "rounding witness")
+    _check(int(differ.sum()) <= MAX_FLIPS * E2E_POINTS,
+           f"host e2e {name}: too many label flips")
+
+
+def _host_phase(fit_cloud, fit_labels, clouds, truths, device, peaks):
+    """Phase 13: the bench model with a host classifier (``_host_
+    classifiers``) fit on the bench fit cloud (``sample=100_000``) and
+    predicting the three 1M clouds through ``predict_device`` (counted
+    from zero: only ``packed_moments``), its ``stage`` raising, its labels
+    the argmax of the float32 cast of ``predict_proba`` on its own
+    ``extract`` rows; card against CPU at E2E_POINTS (``_host_e2e``).
+    Then ``utils.memory.projected_fused_bytes`` beside ``peaks``, the
+    measured peak bytes of the 1M packed fit and step and the 10M
+    step."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.pipeline import COUNTERS
+    from nimrud_tpu_torch.utils import memory, workload
+
+    for name, factory in _host_classifiers():
+        model = workload.make_bench_model(fit_cloud, classifier=factory(),
+                                          device=device)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        model.fit(fit_cloud, fit_labels, sample=FIT_SAMPLE)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_counts = _counts()
+        steps, served, diags = [], [], []
+        for cloud in clouds:
+            t0 = time.perf_counter()
+            labels, diag = model.predict_device(cloud, with_diag=True)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t0))
+            served.append(labels.cpu())
+            diags.append({k: int(v) for k, v in diag.items()})
+        counts = _counts()
+        accs = _check_served(f"host {name}", diags, served, truths)
+        _only(counts, ("packed_moments",), f"the host {name} path")
+        launches = counts["packed_moments"] - fit_counts["packed_moments"]
+        _check(fit_counts["packed_moments"] > 0 and launches > 0,
+               f"host {name}: the kernel did not run in fit and predict")
+        try:
+            model.stage(clouds[0])
+            raised = False
+        except ValueError:
+            raised = True
+        _check(raised, f"host {name}: stage did not raise")
+        # one call's parts: the extraction on the card, the host round trip
+        t0 = time.perf_counter()
+        feats = model.extract_device(clouds[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model._classify(feats)
+        torch.cuda.synchronize()
+        parts = (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))
+        want = np.asarray(model.classifier.predict_proba(
+            feats.cpu().numpy()), np.float32).argmax(1)
+        same = bool(np.array_equal(served[0].numpy(), want))
+        fit_launches = fit_counts["packed_moments"]
+        print(f"[host] {name}: fit {fit_s:.3f} s ({fit_launches} "
+              "packed_moments launches); predict_device ms "
+              + ", ".join(f"{t:.1f}" for t in steps)
+              + f" ({launches / len(clouds):g} launches a call; of a call "
+              f"{parts[0]:.1f} ms extract_device to synchronize, "
+              f"{parts[1]:.1f} ms the host round trip of _classify); "
+              "accuracy "
+              + ", ".join(f"{a:.4f}" for a in accs)
+              + f"; counters {diags[0]}; stage raises; labels equal to the "
+              f"argmax of f32 predict_proba of extract: {same}", flush=True)
+        _check(same, f"host {name}: served labels are not the classifier's "
+               "on the model's own rows")
+        _host_e2e(name, factory, device)
+        del model
+    scaleset = [(edge, radii) for edge, radii in workload.make_bench_model(
+        fit_cloud, device="cpu").scaleset]
+    span = fit_cloud.max(0) - fit_cloud.min(0)
+    for what, n, peak in peaks:
+        proj = memory.projected_fused_bytes(n, n, scaleset, bounds_span=span)
+        print(f"[host] memory: projected_fused_bytes({n}) {proj / 2**30:.3f}"
+              f" GiB against the measured peak of the {what} "
+              f"{peak / 2**30:.3f} GiB: "
+              f"{'an upper bound' if proj >= peak else 'BELOW the peak'}",
+              flush=True)
+        _check(proj >= peak, f"projected_fused_bytes is below the {what}'s "
+               "measured peak")
+    print(f"[host] device_hbm_budget {memory.device_hbm_budget(device) / 2**30:.3f}"
+          " GiB", flush=True)
+
+
 def _build_phase(cuda_build):
     """Build every kernel, all nvcc processes together; print ptxas's
     usage and the tensor-core instructions of each template instance.
@@ -2625,18 +3023,21 @@ def main():
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = _counts()
+    fit_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     steps, packed_labels, _, diags = _serve(model, clouds)
     counts = _counts()
     serve_launches = counts["packed_moments"] \
         - fit_counts["packed_moments"]
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    step_peak = torch.cuda.max_memory_allocated()
     accs = _check_served("packed", diags, packed_labels, truths)
     print(f"[main] fit {fit_s:.3f} s ({fit_counts['packed_moments']} "
           f"kernel launches); serve steps ms (total, stage, predict+sync): "
           f"{_steps_text(steps)}; {serve_launches} serve launches "
           f"({serve_launches / len(clouds):g} a step); "
           "accuracy " + ", ".join(f"{a:.4f}" for a in accs)
-          + f"; counters {diags}; launches {counts}; peak {peak_gb:.3f} GiB",
+          + f"; counters {diags}; launches {counts}; peak fit "
+          f"{fit_peak / 2**30:.3f} GiB, serving {step_peak / 2**30:.3f} GiB",
           flush=True)
     _check(fit_counts["packed_moments"] > 0, "the kernel did not run in fit")
     _check(serve_launches > 0, "the kernel did not run in serving")
@@ -2678,11 +3079,20 @@ def main():
                                                    truths, band0, device)
     launches.update(excl_launches)
     record.update(excl_records)
-    for phase, run in (("rpte", lambda: _rpte_phase(
-            cloud, labels, clouds, truths, device, args.profile)),
-                       ("large", lambda: _large_phase(device))):
+    walled = {}
+    for phase, run in (
+            ("rpte", lambda: _rpte_phase(cloud, labels, clouds, truths,
+                                         device, args.profile)),
+            ("large", lambda: _large_phase(device)),
+            ("knn", lambda: _knn_phase(device)),
+            ("host", lambda: _host_phase(
+                cloud, labels, clouds, truths, device,
+                [("1M packed fit", N_POINTS, fit_peak),
+                 ("1M packed serving steps", N_POINTS, step_peak),
+                 ("10M chunked steps", N_LARGE, walled["large"][0]),
+                 ("10M un-chunked step", N_LARGE, walled["large"][1])]))):
         t0 = time.perf_counter()
-        run()
+        walled[phase] = run()
         print(f"[{phase}] phase wall {time.perf_counter() - t0:.1f} s",
               flush=True)
 

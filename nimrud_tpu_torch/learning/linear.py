@@ -4,10 +4,15 @@ Linear softmax classifier trained with mini-batch Adam on the device
 
 The parameters live in an ``nn.Module`` (``LinearParams``); training uses
 ``torch.optim.Adam`` with optax's defaults (betas 0.9 / 0.999, eps 1e-8)
-and the L2 term added to the loss, as the reference does.  Random draws
-come from explicit ``torch.Generator``s, so a fit differs from the JAX
-fit in its bits; :meth:`SoftmaxClassifier.from_state` carries a fitted
-reference classifier across instead.
+and the L2 term added to the loss, as the reference does
+(:func:`train_step` is one such step).  Two fits: :meth:`~SoftmaxClassifier.fit_device`
+from device features (random batch draws on the device), and the host
+API :meth:`~SoftmaxClassifier.fit` from NumPy arrays, with the
+reference's batch order (one ``np.random.RandomState(seed).permutation``
+an epoch, full batches only) on the classifier's ``device``.  The
+initial weights come from an explicit ``torch.Generator``, so a fit
+differs from the JAX fit in its bits; :meth:`SoftmaxClassifier.from_state`
+carries a fitted reference classifier across instead.
 """
 
 import numpy as np
@@ -43,17 +48,40 @@ def loss_fn(params, data, labels, weight_decay=0.0):
     return nll
 
 
+def make_optimizer(params, learning_rate):
+    """``torch.optim.Adam`` with optax's ``adam`` defaults."""
+    return torch.optim.Adam(params.parameters(), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def train_step(params, optimizer, data, labels, weight_decay=0.0):
+    """One Adam step of ``params`` on a batch (``labels`` int64); returns
+    the batch's loss before the step (the reference's ``train_step``,
+    its optimizer state held by ``optimizer``)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(params, data, labels, weight_decay)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
 class SoftmaxClassifier:
-    """Linear softmax model: device fit, device probabilities."""
+    """Linear softmax model: a device or host fit, probabilities on the
+    device (``proba_device``) or as NumPy (``predict_proba``).
+    ``device`` is where the host :meth:`fit` trains (the card unless the
+    caller asks for the CPU); :meth:`fit_device` trains where its
+    features lie."""
 
     def __init__(self, learning_rate=0.05, epochs=40, batch_size=1024,
-                 weight_decay=1e-5, seed=0, standardize=True):
+                 weight_decay=1e-5, seed=0, standardize=True,
+                 device="cuda"):
         self.learning_rate = learning_rate
         self.epochs = epochs
         self.batch_size = batch_size
         self.weight_decay = weight_decay
         self.seed = seed
         self.standardize = standardize
+        self.device = torch.device(device)
         self.params = None
 
     @classmethod
@@ -62,7 +90,7 @@ class SoftmaxClassifier:
         arrays: ``params["w"]``, ``params["b"]``, ``mean_`` and
         ``scale_`` of a fitted ``nimrud_tpu.learning.linear
         .SoftmaxClassifier``."""
-        clf = cls()
+        clf = cls(device=device)
 
         def t(a):
             return torch.tensor(np.asarray(a, np.float32), device=device)
@@ -95,16 +123,50 @@ class SoftmaxClassifier:
         init_gen = torch.Generator(device=device).manual_seed(self.seed)
         draw_gen = torch.Generator(device=device).manual_seed(self.seed + 1)
         params = init_params(init_gen, width, self.n_classes_, device)
-        optimizer = torch.optim.Adam(params.parameters(),
-                                     lr=self.learning_rate,
-                                     betas=(0.9, 0.999), eps=1e-8)
+        optimizer = make_optimizer(params, self.learning_rate)
         for _ in range(steps):
             rows = torch.randint(0, n, (batch,), generator=draw_gen,
                                  device=device)
-            optimizer.zero_grad(set_to_none=True)
-            loss_fn(params, data[rows], labels[rows],
-                    self.weight_decay).backward()
-            optimizer.step()
+            train_step(params, optimizer, data[rows], labels[rows],
+                       self.weight_decay)
+        self.params = params.requires_grad_(False)
+        return self
+
+    def fit(self, data, labels):
+        """Fit from host arrays, the reference's host API: the
+        standardization in float32 NumPy, then ``epochs`` passes of full
+        batches in the order of one ``np.random.RandomState(seed)
+        .permutation`` an epoch (the tail of each pass is dropped), Adam
+        steps on ``self.device``."""
+        data = np.asarray(data, dtype=np.float32)
+        labels = np.asarray(labels).astype(np.int64)
+        self.n_classes_ = int(labels.max() + 1)
+        width = data.shape[1]
+        mean = data.mean(0) if self.standardize \
+            else np.zeros(width, np.float32)
+        scale = (data.std(0) + 1e-6) if self.standardize \
+            else np.ones(width, np.float32)
+        device = self.device
+        self.mean_ = torch.as_tensor(mean, dtype=torch.float32, device=device)
+        self.scale_ = torch.as_tensor(scale, dtype=torch.float32,
+                                      device=device)
+        if self.standardize:
+            data = (data - mean) / scale
+        data = torch.as_tensor(data, device=device)
+        labels = torch.as_tensor(labels, device=device)
+
+        init_gen = torch.Generator(device=device).manual_seed(self.seed)
+        params = init_params(init_gen, width, self.n_classes_, device)
+        optimizer = make_optimizer(params, self.learning_rate)
+        rng = np.random.RandomState(self.seed)
+        n = data.shape[0]
+        batch = min(self.batch_size, n)
+        for _ in range(self.epochs):
+            order = torch.as_tensor(rng.permutation(n), device=device)
+            for start in range(0, n - batch + 1, batch):
+                rows = order[start:start + batch]
+                train_step(params, optimizer, data[rows], labels[rows],
+                           self.weight_decay)
         self.params = params.requires_grad_(False)
         return self
 
@@ -113,3 +175,12 @@ class SoftmaxClassifier:
         return torch.softmax(
             predict_logits(self.params, (features - self.mean_)
                            / self.scale_), dim=1)
+
+    def predict_proba(self, data):
+        """Class probabilities of host rows, as float32 NumPy."""
+        data = torch.as_tensor(np.asarray(data, dtype=np.float32),
+                               device=self.params.w.device)
+        return self.proba_device(data).cpu().numpy()
+
+    def predict(self, data):
+        return self.predict_proba(data).argmax(axis=1)

@@ -721,6 +721,23 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
     return out, {"dropped_query": q_valid.sum() - prob["count"].sum()}
 
 
+def _max_candidates(query, q_valid, search, s_valid, spec):
+    """The largest per-entry candidate count of the band's plan (the sum
+    of an entry's span lengths), a device scalar."""
+    prob = _span_problem(query, q_valid, search, s_valid, spec)
+    return prob["span_lens"].sum(1).max()
+
+
+def packed_cap(query, q_valid, search, s_valid, spec, margin=1.25):
+    """Measured per-entry candidate maximum for this (cloud, spec),
+    with headroom, rounded up to a 128-lane multiple -- the ``c_cap``
+    at which :func:`fused_extract_packed` is exact on this cloud and
+    robust to moderate densification at serving time."""
+    m = int(_max_candidates(query, q_valid, search, s_valid, spec))
+    need = max(int(m * margin), 1)
+    return max(-(-need // 128) * 128, 128)
+
+
 def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
                          kind, n_out, c_cap, with_stats=False,
                          precision="highest", attributes=None,

@@ -47,12 +47,17 @@ the fused path at 16384 or more search points with every band
 voxelized, the dense or tiled method below -- on the packed kernel for
 the packed and span backends, on the XLA path for ``backend="xla"``.
 
-A model with ``exclude_radius`` (the reference's legacy self-exclusion)
-or a band of voxel edge 0 never takes the staged serving step, as in
+A model with ``exclude_radius`` (the reference's legacy self-exclusion),
+a band of voxel edge 0, or a host classifier (an sklearn estimator:
+``classifier="rf"`` and the other sklearn kinds, or any classifier
+without ``proba_device``) never takes the staged serving step, as in
 the reference: ``predict_device`` / ``predict`` extract through
 ``extract_device`` (the exclusion instances of the kernels, or the
-dense and tiled methods for an edge-0 band), then the classifier's
-``proba_device`` and an argmax; ``stage`` raises.
+dense and tiled methods for an edge-0 band), then the classifier --
+its ``proba_device``, or for a host classifier one round trip of the
+features through its ``predict_proba``, cast to float32 as the
+reference's ``jnp.asarray`` casts it -- and an argmax; ``stage``
+raises.  A host classifier fits on the host from ``extract``'s rows.
 
 The port never falls back silently: configurations it does not carry
 raise.
@@ -301,8 +306,11 @@ class GeometryClassifier:
                   "covariance", "eigen", "sazo" or "vector" ("vector"
                   fits and serves with ``attributes=``).
       classifier: "linear" (the softmax model), "rpte" (the
-                  random-projection-tree ensemble), or an already
-                  constructed classifier of either kind.
+                  random-projection-tree ensemble), an sklearn kind of
+                  ``param_classifier`` ("svm", "rf", "erf", "nb",
+                  "knn", "sgd": a host classifier), or an already
+                  constructed classifier (one without ``fit_device`` /
+                  ``proba_device`` fits / classifies on the host).
       classifier_kwargs: forwarded to ``param_classifier``.
       transfer_dtype: "float32" or "uint16" (uploads quantized to half
                   the bytes).
@@ -406,9 +414,11 @@ class GeometryClassifier:
     @property
     def _extract_then_classify(self):
         """Whether serving extracts and classifies (an ``exclude_radius``
-        model, or a band of voxel edge 0) instead of the staged step."""
+        model, a band of voxel edge 0, or a host classifier: one
+        without ``proba_device``) instead of the staged step."""
         return self.exclude_radius is not None \
-            or any(edge <= 0 for edge, _ in self.scaleset)
+            or any(edge <= 0 for edge, _ in self.scaleset) \
+            or not hasattr(self.classifier, "proba_device")
 
     # -- features -------------------------------------------------------------
 
@@ -469,24 +479,36 @@ class GeometryClassifier:
     def fit(self, cloud, labels, search=None, sample=None, seed=0,
             attributes=None):
         """Extract features of ``cloud`` against ``search`` (default the
-        cloud) and fit the classifier on the device (its ``fit_device``;
-        the labels stay on the host, as in the reference).  ``sample``
-        caps the training points (a seeded random subset);
+        cloud) and fit the classifier: on the device with its
+        ``fit_device`` (the labels stay on the host, as in the
+        reference), or a host classifier (no ``fit_device``) with its
+        ``fit`` on :meth:`extract`'s rows.  ``sample`` caps the training
+        points (a seeded random subset, the same rows either way);
         ``attributes`` (``vector`` only) are the search cloud's
         per-point attribute columns.  The serving specs are sized on the
-        fit cloud, as the reference sizes them."""
+        fit cloud, as the reference sizes them, where the model has a
+        staged step."""
         labels = np.asarray(labels)
         n_classes = int(labels.max() + 1)
         self._spec_cache = None
         self._stage_spec_cache = {}
-        features = self.extract_device(cloud, search, attributes)
+        rows = None
         if sample is not None and sample < len(labels):
             rows = np.random.RandomState(seed).permutation(
                 len(labels))[:sample]
-            features = features[torch.as_tensor(rows, device=self.device)]
-            labels = labels[rows]
-        self.classifier.fit_device(features, labels.astype(np.int32),
-                                   n_classes=n_classes)
+        if hasattr(self.classifier, "fit_device"):
+            features = self.extract_device(cloud, search, attributes)
+            if rows is not None:
+                features = features[torch.as_tensor(rows,
+                                                    device=self.device)]
+                labels = labels[rows]
+            self.classifier.fit_device(features, labels.astype(np.int32),
+                                       n_classes=n_classes)
+        else:
+            features = self.extract(cloud, search, attributes)
+            if rows is not None:
+                features, labels = features[rows], labels[rows]
+            self.classifier.fit(features, labels)
         if not self._extract_then_classify:   # a staged step to size
             self._size_serving(cloud, self._attr_width(attributes, search,
                                                        cloud))
@@ -703,8 +725,9 @@ class GeometryClassifier:
     def _no_staged_step(self):
         if self._extract_then_classify:
             raise ValueError(
-                "a model with exclude_radius or a band of voxel edge 0 has "
-                "no staged serving step: serve it with predict_device or "
+                "a model with exclude_radius, a band of voxel edge 0 or a "
+                "host classifier (no proba_device, e.g. sklearn) has no "
+                "staged serving step: serve it with predict_device or "
                 "predict (extraction, then the classifier)")
 
     def stage_search(self, search, attributes=None):
@@ -927,9 +950,9 @@ class GeometryClassifier:
 
         ``staged_search``: a :meth:`stage_search` handle every cloud is
         served against.  A model without a staged step (``exclude_radius``,
-        an edge-0 band): its clouds go through :meth:`predict_device` in
-        turn, and with ``staged_search`` it raises rather than serve
-        another search."""
+        an edge-0 band, a host classifier): its clouds go through
+        :meth:`predict_device` in turn, and with ``staged_search`` it
+        raises rather than serve another search."""
         from concurrent.futures import ThreadPoolExecutor
 
         if self._extract_then_classify:
@@ -973,11 +996,25 @@ class GeometryClassifier:
             if pending is not None:
                 yield serve(pending)
 
+    def _classify(self, features):
+        """Class probabilities of device feature rows: the classifier's
+        ``proba_device``, or for a host classifier its ``predict_proba``
+        of the rows on the host (one round trip), cast to float32 as the
+        reference's ``jnp.asarray`` casts it and put on ``self.device``.
+        A classifier without either raises ``AttributeError`` (sklearn's
+        ``LinearSVC`` and hinge-loss ``SGDClassifier``, as in the
+        reference)."""
+        if hasattr(self.classifier, "proba_device"):
+            return self.classifier.proba_device(features)
+        probs = self.classifier.predict_proba(features.cpu().numpy())
+        return torch.as_tensor(np.asarray(probs, dtype=np.float32),
+                               device=self.device)
+
     def predict_proba_device(self, cloud, search=None, attributes=None):
         """Class probabilities of every point through
-        :meth:`extract_device` and the classifier, as a device tensor."""
-        return self.classifier.proba_device(
-            self.extract_device(cloud, search, attributes))
+        :meth:`extract_device` and the classifier (:meth:`_classify`),
+        as a float32 device tensor."""
+        return self._classify(self.extract_device(cloud, search, attributes))
 
     def predict_proba(self, cloud, search=None, attributes=None):
         """:meth:`predict_proba_device` as a NumPy array."""
@@ -989,12 +1026,13 @@ class GeometryClassifier:
         """Per-point class labels of ``cloud`` against ``search``
         (default the cloud) as a device tensor (with ``with_diag`` also
         the overflow counters, as :meth:`predict_staged` gives them).  A
-        model with ``exclude_radius`` or an edge-0 band takes its own
-        path: :meth:`extract_device`, the classifier, argmax."""
+        model with ``exclude_radius``, an edge-0 band or a host classifier
+        takes its own path: :meth:`extract_device`, the classifier
+        (:meth:`_classify`), argmax."""
         if self._extract_then_classify:
             features, diag = self.extract_device(cloud, search, attributes,
                                                  with_stats=True)
-            labels = torch.argmax(self.classifier.proba_device(features),
+            labels = torch.argmax(self._classify(features),
                                   dim=1).to(torch.int32)
         else:
             labels, diag = self.predict_staged(

@@ -1,8 +1,9 @@
 """
 Correctness checks shared by the port's tests and ``chip_smoke.py``:
 the forest walk's rounding witness, the tolerance of chunked against
-un-chunked serving probabilities, a fitted classifier's CPU copy and
-the feature rows a serving step classifies.
+un-chunked serving probabilities, a fitted classifier's CPU copy, the
+feature rows a serving step classifies, and a host classifier that
+needs no sklearn (:class:`NearestMean`).
 """
 
 import numpy as np
@@ -73,3 +74,27 @@ def served_features(model, staged):
         return model.predict_staged(staged, with_proba=True)[1]
     finally:
         pipeline.classify_features = classify
+
+
+class NearestMean:
+    """Nearest class mean of standardized rows, with ``fit`` and
+    ``predict_proba`` only: a host classifier (no ``fit_device``, no
+    ``proba_device``) for the host-classifier route where sklearn does
+    not import.  Probabilities are the softmax of minus half the squared
+    distances, in float64 as sklearn's are."""
+
+    def fit(self, data, labels):
+        data = np.asarray(data, np.float64)
+        labels = np.asarray(labels)
+        self.mean_ = data.mean(0)
+        self.scale_ = data.std(0) + 1e-6
+        z = (data - self.mean_) / self.scale_
+        self.centers_ = np.stack([z[labels == c].mean(0)
+                                  for c in range(int(labels.max()) + 1)])
+        return self
+
+    def predict_proba(self, data):
+        z = (np.asarray(data, np.float64) - self.mean_) / self.scale_
+        d2 = ((z[:, None, :] - self.centers_[None]) ** 2).sum(-1)
+        e = np.exp(-0.5 * (d2 - d2.min(1, keepdims=True)))
+        return e / e.sum(1, keepdims=True)

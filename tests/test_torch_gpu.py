@@ -10,7 +10,10 @@ map, the stream's side stream) and staging on the C++ host runtime
 against its NumPy twin; entry-chunked serving against the un-chunked
 step, the random-projection-tree forest (its device fit, its walks
 and its serving step), the XLA tile path, the dense method and an
-``xla`` model's serving step on the card against the CPU.
+``xla`` model's serving step on the card against the CPU; the kNN and radius neighbor search
+(ties on a 1/8 m grid, a candidate at exactly ``f32(r*r)``) and the kNN
+features on the card against the CPU, and the host-classifier route
+(a NumPy classifier, no sklearn) on the card.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -793,3 +796,66 @@ def test_xla_serving_on_card_matches_cpu(cuda):
     differ = got.cpu() != cpu.predict_staged(cpu.stage(cloud))
     assert not bool((differ & ~near_tie).any())
     assert int(differ.sum()) <= 0.001 * len(cloud)
+
+
+def test_neighbor_ties_and_boundary_on_card(cuda):
+    from nimrud_tpu_torch.ops import neighbors
+    from torch_neighbor_cases import boundary_radius, tie_case
+    query, search = tie_case()
+    for fn, args in (("knn", (5, 0.5)), ("radius_neighbors", (0.125, 6))):
+        got = getattr(neighbors, fn)(query, search, *args, device=cuda)
+        ref = getattr(neighbors, fn)(query, search, *args, device="cpu")
+        for key in ref:
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    for below in (False, True):
+        query, search, target, radius, _ = boundary_radius(below)
+        got = neighbors.radius_neighbors(query, search, radius, device=cuda)
+        ref = neighbors.radius_neighbors(query, search, radius, device="cpu")
+        for key in ref:
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+        inside = set(got["indices"][0][got["valid"][0]].tolist())
+        assert (target in inside) != below
+
+
+def test_knn_features_on_card_match_cpu(cuda):
+    from nimrud_tpu_torch.features.knn import knn_features
+    from nimrud_tpu_torch.ops import neighbors
+    cloud, _ = workload.make_bench_cloud(20000, seed=3)
+    cloud = (cloud * np.float32([0.2, 0.2, 1.0])).astype(np.float32)
+    got = neighbors.knn(cloud[:4000], cloud, 16, 0.5, device=cuda)
+    ref = neighbors.knn(cloud[:4000], cloud, 16, 0.5, device="cpu")
+    for key in ref:
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+    for kind in ("minimal", "eigen"):
+        a = knn_features(cloud[:4000], cloud, 16, 0.5, kind=kind,
+                         device=cuda)
+        b = knn_features(cloud[:4000], cloud, 16, 0.5, kind=kind,
+                         device="cpu")
+        np.testing.assert_array_equal(a[:, 0], b[:, 0])
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_host_classifier_route_on_card(cuda):
+    # 20000 points: the fused method (the packed kernel) from 16384 up
+    cloud, labels = workload.make_bench_cloud(20000, seed=0)
+    counts = (pm.packed_moments.launches, gk.span_moments.launches,
+              mk.entry_moments.launches)
+    gpu = workload.make_bench_model(cloud, classifier=checks.NearestMean(),
+                                    device=cuda)
+    gpu.fit(cloud, labels, sample=6000)
+    got = gpu.predict_device(cloud)
+    assert pm.packed_moments.launches > counts[0]
+    assert (gk.span_moments.launches, mk.entry_moments.launches) \
+        == counts[1:]
+    with pytest.raises(ValueError, match="host classifier"):
+        gpu.stage(cloud)
+    proba = gpu.predict_proba_device(cloud)
+    assert proba.dtype == torch.float32 and proba.device.type == "cuda"
+    want = np.asarray(gpu.classifier.predict_proba(gpu.extract(cloud)),
+                      np.float32).argmax(1)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert float((got.cpu().numpy() == labels).mean()) > 0.8
+    cpu = workload.make_bench_model(cloud, device="cpu")
+    cpu.install_classifier(gpu.classifier, cloud)
+    agree = float((cpu.predict(cloud) == got.cpu().numpy()).mean())
+    assert agree >= 0.999, agree

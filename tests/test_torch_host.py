@@ -111,7 +111,13 @@ def test_import_loads_no_jax():
             "nimrud_tpu_torch.ops.kernels.gather_kernel, "
             "nimrud_tpu_torch.ops.kernels.cuda_build, "
             "nimrud_tpu_torch.learning.persistence, "
-            "nimrud_tpu_torch.features.minimal; "
+            "nimrud_tpu_torch.features.minimal, "
+            "nimrud_tpu_torch.features.knn, nimrud_tpu_torch.ops.neighbors, "
+            "nimrud_tpu_torch.learning.classifiers, "
+            "nimrud_tpu_torch.learning.metrics, nimrud_tpu_torch.archive, "
+            "nimrud_tpu_torch.utils.memory, nimrud_tpu_torch.utils.generic, "
+            "nimrud_tpu_torch.utils.geometry, "
+            "nimrud_tpu_torch.utils.point_clouds; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nimrud_tpu.')) or m == 'nimrud_tpu');"
             " assert not bad, bad")

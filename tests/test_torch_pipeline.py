@@ -119,7 +119,7 @@ def test_unbounded_float32_serving_matches_reference(fitted):
     assert not any(int(t_diag[key]) for key in COUNTERS)
 
 
-def test_unported_serving_raises(fitted, monkeypatch):
+def test_self_search_and_entry_chunks_serve(fitted, monkeypatch):
     cloud, labels, ref = fitted
     port = twl.make_bench_model(cloud, device="cpu")
     port.install_classifier(_carried(ref.classifier), cloud)
