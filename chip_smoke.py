@@ -241,7 +241,33 @@ Phases, one or more lines each:
               peaks of the 1M packed fit and serving steps and of the
               10M steps (chunked and un-chunked): the projection must
               not fall below any of them.
-Phases 10-13 print their wall time.
+14. workflows -- the archive-to-labels path of the command line
+              (``nimrud_tpu_torch.cli.main`` in process, ``--device
+              cuda``, in a directory under the gitignored ``_build``):
+              ``ingest`` of ``make_bench_cloud(1_000_000)`` and its
+              labels as ``.npy``, ``info``; ``features --scales
+              0.25:0.5 0.5:1.0 1.0:2.0 --kind minimal`` counted from
+              zero (only ``packed_moments``, its launches printed), the
+              stored rows bit-equal to a direct ``extract_scaleset`` of
+              the archive's cloud with its counters 0;
+              ``auto_partition_population``'s decision at 1M (None: one
+              piece); the same with ``--partition-max 65536`` (no moment
+              kernel: edge-0 bands on XLA sums; the partitions a band;
+              populations equal to the fused run's for >= 99.9%);
+              ``train`` with ``rpte`` and ``linear`` (seed 0, 50,000
+              rows a class; validation accuracy > 0.8, fit and apply
+              seconds), ``evaluate`` (accuracy > 0.8), ``export`` to
+              csv, ply and las with probabilities, read back (1M rows,
+              the las classification the labels); matplotlib's version
+              or ``matplotlib: not importable``, and ``confusion_plot``
+              where it imports.  Then ``sweep_extraction`` on 200k
+              points (tiled and fused, m 2 and 3): no error row, the
+              fused rows' ``packed_moments`` launches, each row's entry
+              fill equal to ``plan_report``'s, the best run's trace
+              through ``utils.profiling`` (busy within its window, the
+              top kernels; ``packed_moments`` among them where a fused
+              row is best).
+Phases 10-14 print their wall time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.  The sazo,
@@ -259,7 +285,8 @@ the kernels launched inside its ``record_function`` range, as a share
 of busy time): ``torch.profiler`` over three steady serving steps of
 that backend or layout (clouds staged before the window) or three
 ``tiled_features`` runs of band 0, printing device
-busy time (the union of kernel, memcpy and memset intervals), the
+busy time (the union of kernel, memcpy and memset intervals, from
+``nimrud_tpu_torch.utils.profiling``), the
 traced wall time of each step to synchronize, the device's idle share
 and the largest kernels by device time (per step and per call); the
 chrome traces and the full kernel tables go to ``DIR``.
@@ -273,6 +300,7 @@ code 2 and prints no result.
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -313,6 +341,10 @@ KNN_RADIUS = 0.5           # its horizon and the radius search's radius
                            # (the bench's band-0 radius, m),
 KNN_K_MAX = 64             # the radius search's k_max,
 KNN_SAMPLE = 2000          # queries held against scipy's cKDTree
+PARTITION_MAX = 65_536     # the workflows phase: search points a partition
+                           # (at 262,144 every bench band fits one),
+WORKFLOW_SAMPLES = 50_000  # training rows a class (2 x: FIT_SAMPLE),
+SWEEP_POINTS = 200_000     # the sweep's synthetic scan
 
 
 def _check(ok, what):
@@ -2016,6 +2048,7 @@ def _profile_phase(tag, stem, steps, out_dir, annotation=None):
     inside it is printed as a share of busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from nimrud_tpu_torch.utils import profiling
 
     os.makedirs(out_dir, exist_ok=True)
     steps[0]()                                         # warm-up
@@ -2030,29 +2063,14 @@ def _profile_phase(tag, stem, steps, out_dir, annotation=None):
             walls.append(1e3 * (time.perf_counter() - t0))
     trace = os.path.join(out_dir, f"{stem}_trace.json")
     prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)
-    events = events["traceEvents"] if isinstance(events, dict) else events
-    device = [e for e in events if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    _check(len(device) > 0, "the profiler traced no device work")
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                   for e in device)
-    busy_us, cur_lo, cur_hi = 0.0, spans[0][0], spans[0][1]
-    for lo, hi in spans[1:]:
-        if lo > cur_hi:
-            busy_us += cur_hi - cur_lo
-            cur_lo = lo
-        cur_hi = max(cur_hi, hi)
-    busy_us += cur_hi - cur_lo
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in device:
-        by_name[e["name"]][0] += float(e["dur"]) / 1e3
-        by_name[e["name"]][1] += 1
-    table = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # raises where the profiler traced no device work
+    events = profiling.trace_events(trace)
+    device = profiling.device_events(events)
+    busy_us, _ = profiling.device_track_stats(events)
+    table = profiling.device_op_table(events, top=None)
     n_steps = len(steps)
     with open(os.path.join(out_dir, f"{stem}_kernels.txt"), "w") as f:
-        for name, (ms, n) in table:
+        for ms, n, name in table:
             f.write(f"{ms / n_steps:.4f} ms/step\t{n / n_steps:g} "
                     f"calls/step\t{name}\n")
     wall = sum(walls)
@@ -2078,7 +2096,7 @@ def _profile_phase(tag, stem, steps, out_dir, annotation=None):
           + f"; device busy {busy_us / 1e3 / n_steps:.3f} ms/step; idle "
           f"share {1 - busy_us / 1e3 / wall:.4f}; "
           f"{len(device) / n_steps:g} device events/step", flush=True)
-    for name, (ms, n) in table[:8]:
+    for ms, n, name in table[:8]:
         print(f"{tag} {ms / n_steps:.4f} ms/step "
               f"({100 * ms / (busy_us / 1e3):.1f}% of busy), "
               f"{n / n_steps:g} calls/step, {ms / n:.4f} ms/call: "
@@ -2952,6 +2970,291 @@ def _host_phase(fit_cloud, fit_labels, clouds, truths, device, peaks):
           " GiB", flush=True)
 
 
+def _cli(args, device):
+    """``nimrud_tpu_torch.cli.main(args)`` in process on ``device``: its
+    printed JSON and its seconds."""
+    import contextlib
+    import io
+    import torch
+    from nimrud_tpu_torch import cli
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--device", str(device)] + list(args))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return json.loads(out.getvalue()), seconds
+
+
+@contextlib.contextmanager
+def _timed(owner, names, seconds):
+    """Wrap methods ``names`` of class ``owner`` for the block: the
+    seconds of their outermost calls add up in ``seconds[name]``."""
+    import torch
+    depth = [0]
+    saved = {name: getattr(owner, name) for name in names}
+
+    def wrap(name, method):
+        def timed(*args, **kwargs):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return method(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    torch.cuda.synchronize()
+                    seconds[name] = seconds.get(name, 0.0) \
+                        + time.perf_counter() - t0
+        return timed
+
+    for name, method in saved.items():
+        setattr(owner, name, wrap(name, method))
+    try:
+        yield seconds
+    finally:
+        for name, method in saved.items():
+            setattr(owner, name, method)
+
+
+def _workflow_features(arc, device):
+    """Phase 14's ``features`` runs: the fused extraction (only
+    ``packed_moments``, rows bit-equal to a direct extraction) and the
+    partition loop (no moment kernel, populations against it).  Returns
+    the fused run's launches."""
+    import numpy as np
+    from nimrud_tpu_torch.archive.store import CloudArchive
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.utils import memory, workload
+    from nimrud_tpu_torch.workflows import features as wf_features
+
+    scaleset = [(edge, (radius,)) for edge, radius in
+                zip(workload.BENCH_EDGES, workload.BENCH_RADII)]
+    scales = [f"{edge:g}:{radius:g}" for edge, (radius,) in scaleset]
+    _reset_counts()
+    out, feat_s = _cli(["features", arc, "--scales", *scales, "--kind",
+                        "minimal", "--name", "mso"], device)
+    counts = _counts()
+    _check(out == {"feature_asset": "mso"}, f"features printed {out}")
+    _only(counts, ("packed_moments",), "the features workflow")
+    launches = counts["packed_moments"]
+    _check(launches > 0, "features: packed_moments did not run")
+    archive = CloudArchive.open(arc)
+    stored, index, meta = archive.get_asset("mso")
+    points = archive.take(original_coordinates=False).astype(np.float32)
+    t0 = time.perf_counter()
+    direct, stats = multiscale.extract_scaleset_device(
+        points, points, scaleset, "minimal", with_stats=True, device=device)
+    direct = direct.cpu().numpy()
+    direct_s = time.perf_counter() - t0
+    stats = {k: int(v) for k, v in stats.items()}
+    same = bool(np.array_equal(stored, direct))
+    print(f"[workflows] features --kind minimal (3 bands) at {len(points)}: "
+          f"{feat_s:.3f} s, {launches} packed_moments launches, no other "
+          f"kernel; stored {stored.shape} rows bit-equal to a direct "
+          f"extract_scaleset ({direct_s:.3f} s, counters {stats}): {same}",
+          flush=True)
+    _check(np.array_equal(index, np.arange(len(points))) and same,
+           "features: stored rows differ from the direct extraction")
+    _check(all(v == 0 for v in stats.values()), f"features counters {stats}")
+    _check(meta["kind"] == "minimal", f"features meta {meta}")
+
+    span = points.max(0) - points.min(0)
+    decision = memory.auto_partition_population(
+        len(points), len(points), scaleset, bounds_span=span, device=device)
+    print(f"[workflows] auto_partition_population at {len(points)} on this "
+          f"card ({memory.device_hbm_budget(device) / 2**30:.3f} GiB "
+          f"budget): {decision}", flush=True)
+    _check(decision is None, "the 1M bench does not fit the card in one "
+           "piece")
+    calls = collections.Counter()
+    extract = wf_features.extract_scaleset
+
+    def counted(query, search, bands, *args, **kwargs):
+        calls[bands[0][1]] += 1
+        return extract(query, search, bands, *args, **kwargs)
+
+    wf_features.extract_scaleset = counted
+    _reset_counts()
+    try:
+        out, part_s = _cli(["features", arc, "--scales", *scales, "--kind",
+                            "minimal", "--name", "parts", "--partition-max",
+                            str(PARTITION_MAX)], device)
+    finally:
+        wf_features.extract_scaleset = extract
+    counts = _counts()
+    _only(counts, (), "the partitioned features workflow")
+    parts, _, _ = archive.get_asset("parts")
+    pops = slice(0, None, 4)
+    agree = float((parts[:, pops] == stored[:, pops]).all(1).mean())
+    print(f"[workflows] features --partition-max {PARTITION_MAX}: "
+          f"{part_s:.3f} s, partitions a band "
+          + ", ".join(f"r {r[0]:g}: {calls[r]}" for _, r in scaleset)
+          + f"; no moment kernel; populations equal to the fused run's at "
+          f"{agree:.6f} of points", flush=True)
+    _check(agree >= MIN_POP_AGREE, "partitioned features: populations "
+           f"agree at {agree}")
+    return launches
+
+
+def _workflow_train(arc, truth, device):
+    """Phase 14's ``train`` (rpte, linear), ``evaluate`` and ``export``
+    runs, with the fit and apply seconds of each classifier."""
+    import numpy as np
+    from nimrud_tpu_torch.archive import io as cloud_io
+    from nimrud_tpu_torch.archive.store import CloudArchive
+    from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
+    from nimrud_tpu_torch.learning.rpt import RPTEnsemble
+    from nimrud_tpu_torch.workflows import viz
+
+    for classifier, owner, name in (("rpte", RPTEnsemble, "pred"),
+                                    ("linear", SoftmaxClassifier,
+                                     "pred_lin")):
+        seconds = {}
+        with _timed(owner, ("fit", "predict", "predict_proba"), seconds):
+            out, train_s = _cli([
+                "train", arc, "--features", "mso", "--classifier",
+                classifier, "--classifier-kwargs", '{"seed": 0}',
+                "--samples-per-class", str(WORKFLOW_SAMPLES), "--name",
+                name], device)
+        apply_s = seconds.get("predict", 0.0) \
+            + seconds.get("predict_proba", 0.0)
+        print(f"[workflows] train --classifier {classifier} "
+              f"--samples-per-class {WORKFLOW_SAMPLES}: {train_s:.3f} s (fit "
+              f"{seconds['fit']:.3f} s on the host rows, apply "
+              f"{apply_s:.3f} s: validation and the {len(truth)} rows, "
+              f"labels and probabilities); validation accuracy "
+              f"{out['validation_accuracy']:.4f}, confusion "
+              f"{out['confusion']}", flush=True)
+        _check(out["validation_accuracy"] > 0.8,
+               f"train {classifier}: validation accuracy "
+               f"{out['validation_accuracy']}")
+    out, eval_s = _cli(["evaluate", arc, "--predicted", "pred", "--truth",
+                        "labels"], device)
+    print(f"[workflows] evaluate: {eval_s:.3f} s, accuracy "
+          f"{out['accuracy']:.4f} over {out['points']} points", flush=True)
+    _check(out["points"] == len(truth) and out["accuracy"] > 0.8,
+           f"evaluate printed {out}")
+    archive = CloudArchive.open(arc)
+    pred, _, _ = archive.get_asset("pred")
+    readers = {".csv": cloud_io.load_ascii,
+               ".ply": cloud_io.load_ply,
+               ".las": lambda p: cloud_io.load_las(
+                   p, with_classification=True)}
+    for suffix, read in readers.items():
+        path = os.path.join(arc, f"colored{suffix}")
+        out, export_s = _cli(["export", arc, "--labels", "pred", "-o", path,
+                              "--proba", "pred_proba"], device)
+        back = read(path)
+        rows, cls = (back[0], back[1]) if suffix == ".las" else (back, None)
+        print(f"[workflows] export {suffix}: {export_s:.3f} s, "
+              f"{os.path.getsize(path) / 2**20:.1f} MiB, read back "
+              f"{rows.shape}", flush=True)
+        _check(out == {"written": path} and rows.shape[0] == len(truth),
+               f"export {suffix}: {out}, {rows.shape}")
+        _check(cls is None or np.array_equal(cls, pred),
+               "export .las: classification is not the labels")
+    try:
+        import matplotlib
+    except ImportError:
+        print("[workflows] matplotlib: not importable", flush=True)
+        return
+    print(f"[workflows] matplotlib: {matplotlib.__version__}", flush=True)
+    conf = np.asarray(archive.get_asset("pred")[2]["confusion"])
+    path = viz.confusion_plot(conf, os.path.join(arc, "confusion.png"))
+    _check(os.path.getsize(path) > 0, "confusion_plot wrote nothing")
+
+
+def _workflow_sweep(out_dir, device):
+    """Phase 14's sweep: every row applicable, the fused rows' kernel,
+    each row's entry fill its plan's, the best run's trace parsed by
+    ``utils.profiling``.  Returns the sweep's packed_moments
+    launches."""
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.utils import profiling
+    from nimrud_tpu_torch.workflows import sweep
+
+    trace_dir = os.path.join(out_dir, "trace")
+    _reset_counts()
+    t0 = time.perf_counter()
+    ranked = sweep.sweep_extraction(
+        n_points=SWEEP_POINTS, methods=("tiled", "fused"),
+        tile_factors=(2, 3), capacities=(None,), entry_batches=(256,),
+        trace_dir=trace_dir, verbose=False, device=device)
+    sweep_s = time.perf_counter() - t0
+    counts = _counts()
+    _only(counts, ("packed_moments",), "the sweep")
+    _check(len(ranked) == 4 and not any("error" in r for r in ranked),
+           f"sweep rows {ranked}")
+    cloud = sweep.synthetic_scan(SWEEP_POINTS)
+    scaleset = [(0.25, (0.5,)), (0.5, (1.0,)), (1.0, (2.0,))]
+    for row in ranked:
+        tuning = {k: row[k] for k in ("query_tile_factor", "query_capacity",
+                                      "entry_batch", "precision")}
+        plan = multiscale.plan_report(cloud, cloud, scaleset,
+                                      method=row["method"], tuning=tuning,
+                                      device=device)
+        print(f"[workflows] sweep {row['method']} m {row['query_tile_factor']}"
+              f": {row['seconds']} s, {row['point_scales_per_sec']} "
+              f"point-scales/s, entry fill {row['entry_fill']}", flush=True)
+        _check(row["entry_fill"] == [b["entry_fill"] for b in plan],
+               f"sweep row {row}: entry fill differs from plan_report")
+    # two fused rows, each run once before its timed repeat(s), and the
+    # traced run where a fused row is best
+    fused_runs = 2 * 3 + (ranked[0]["method"] == "fused")
+    _check(counts["packed_moments"] > 0, "sweep: the fused rows launched no "
+           "packed_moments")
+    events = profiling.trace_events(trace_dir)
+    busy, window = profiling.device_track_stats(events)
+    table = profiling.device_op_table(events, top=5)
+    print(f"[workflows] sweep of {SWEEP_POINTS} points: {sweep_s:.3f} s, "
+          f"{counts['packed_moments']} packed_moments launches in "
+          f"{fused_runs} fused runs; best {ranked[0]['method']} m "
+          f"{ranked[0]['query_tile_factor']}, its traced run: device busy "
+          f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window; top "
+          "kernels " + "; ".join(f"{ms} ms x{n} {name[:60]}"
+                                 for ms, n, name in table), flush=True)
+    _check(0 < busy <= window, f"trace busy {busy} window {window}")
+    _check(ranked[0]["method"] != "fused"
+           or any("packed" in name for _, _, name in table),
+           "the fused run's trace holds no packed_moments kernel")
+    return counts["packed_moments"]
+
+
+def _workflow_phase(device):
+    """Phase 14: the archive-to-labels path of the command line at the
+    bench's width, in a directory under the gitignored ``_build``, then
+    the sweep.  Returns the ``packed_moments`` launches of the
+    ``features`` run and of the sweep."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from nimrud_tpu_torch.ops.kernels import cuda_build
+    from nimrud_tpu_torch.utils import workload
+
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="workflows-", dir=cuda_build.BUILD_DIR)
+    try:
+        cloud, labels = workload.make_bench_cloud(N_POINTS, seed=0)
+        np.save(os.path.join(work, "cloud.npy"), cloud)
+        np.save(os.path.join(work, "labels.npy"), labels)
+        arc = os.path.join(work, "arc")
+        out, ingest_s = _cli(["ingest", arc, os.path.join(work, "cloud.npy"),
+                              "--labels", os.path.join(work, "labels.npy")],
+                             device)
+        info, _ = _cli(["info", arc], device)
+        print(f"[workflows] ingest {ingest_s:.3f} s: {out['points']} points; "
+              f"info: assets {sorted(info['assets'])}", flush=True)
+        _check(out["points"] == N_POINTS and "labels" in info["assets"],
+               f"ingest printed {out}")
+        features = _workflow_features(arc, device)
+        _workflow_train(arc, labels, device)
+        swept = _workflow_sweep(work, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return features, swept
+
+
 def _build_phase(cuda_build):
     """Build every kernel, all nvcc processes together; print ptxas's
     usage and the tensor-core instructions of each template instance.
@@ -3090,11 +3393,16 @@ def main():
                 [("1M packed fit", N_POINTS, fit_peak),
                  ("1M packed serving steps", N_POINTS, step_peak),
                  ("10M chunked steps", N_LARGE, walled["large"][0]),
-                 ("10M un-chunked step", N_LARGE, walled["large"][1])]))):
+                 ("10M un-chunked step", N_LARGE, walled["large"][1])])),
+            ("workflows", lambda: _workflow_phase(device))):
         t0 = time.perf_counter()
         walled[phase] = run()
         print(f"[{phase}] phase wall {time.perf_counter() - t0:.1f} s",
               flush=True)
+    features, swept = walled["workflows"]
+    launches["packed_moments"] += features + swept
+    print(f"[launches] packed_moments: {features} in the features workflow, "
+          f"{swept} in the sweep", flush=True)
 
     sources = {
         "packed_moments": ("packed_moments",

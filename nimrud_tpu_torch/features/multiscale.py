@@ -66,6 +66,17 @@ def kernel_precision(precision):
     return KERNEL_PRECISION[precision]
 
 
+def resolve_backend(tuning, backend="packed"):
+    """The fused path's backend: ``tuning["backend"]`` where given, as in
+    the reference, else ``backend`` (the packed kernel on every device,
+    where the reference took XLA bands off a TPU)."""
+    backend = (tuning or {}).get("backend") or backend
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: must be one of "
+                         f"{BACKENDS}")
+    return backend
+
+
 def check_attributes(attributes, n_search):
     """``attributes`` as a (n_search, A) float32 array, A >= 1."""
     attributes = np.asarray(attributes, dtype=np.float32)
@@ -307,8 +318,8 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     ``tuning``: the reference's dict -- ``query_capacity``,
     ``query_tile_factor`` (else ``m``), ``entry_batch``,
     ``vector_s_cap``, ``interp_backend``, ``candidate_cap``,
-    ``estimate_entries`` (default True) and ``precision`` (else the
-    argument).
+    ``estimate_entries`` (default True), and ``backend`` and
+    ``precision``, each of which takes precedence over the argument.
     ``bounds``: fixed site (lo, hi) governing every grid; default the
     clouds' own bounds, with voxel grids anchored at the search bounds.
     Returns an (n_query, width) float32 tensor; with ``with_stats`` also
@@ -321,9 +332,7 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     tuning = tuning or {}
     precision = tuning.get("precision", precision)
     m = tuning.get("query_tile_factor", m)
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}: must be one of "
-                         f"{BACKENDS}")
+    backend = resolve_backend(tuning, backend)
     prec = kernel_precision(precision)
     xla_prec = "highest" if precision == "bf16x2" else precision
     interp_backend = tuning.get("interp_backend", "auto")
@@ -340,7 +349,7 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     scaleset = [(float(edge), tuple(float(r) for r in radii))
                 for edge, radii in scaleset]
     if any(edge <= 0 for edge, _ in scaleset):
-        raise ValueError("the fused path requires voxel edges > 0")
+        raise ValueError("fused path requires voxel edges > 0")
 
     n_query = query.shape[0]
     if bounds is not None:
@@ -436,6 +445,77 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
         bands.append(feats)
     features = torch.cat(bands, dim=1)
     return (features, stats) if with_stats else features
+
+
+def plan_report(query, search, scaleset, *, method="tiled", tuning=None,
+                device="cuda"):
+    """
+    Per-band static-plan occupancy, no kernel run (port of the
+    reference's ``plan_report``).  For each ``(edge, radii)`` band:
+
+      entry_fill:  live entries / entry capacity (dead entries still
+                   cost kernel batches);
+      q_slot_fill: valid queries / (live entries x q_cap);
+      q_cap / s_cap / e_cap: the static capacities themselves.
+
+    ``method`` "tiled" (the host-built plan; ``device`` runs the voxel
+    downsample of its search side) or "fused" (the fused path's spec,
+    fill from the host entry estimate, with ``e_cap_worst_case``).  The
+    fused plan's backend resolves as :func:`extract_scaleset_fused`
+    resolves it (``tuning["backend"]``, else the packed kernel), so the
+    report describes the plan the extraction runs.
+    """
+    tuning = tuning or {}
+    query = np.asarray(query, dtype=np.float32)[:, :3]
+    search = np.asarray(search, dtype=np.float32)[:, :3]
+    scaleset = [(float(edge), tuple(float(r) for r in radii))
+                for edge, radii in scaleset]
+    report = []
+    if method == "fused":
+        lo = np.minimum(query.min(0), search.min(0)).astype(np.float64)
+        hi = np.maximum(query.max(0), search.max(0)).astype(np.float64)
+        q_bucket = _pow2_bucket(query.shape[0])
+        backend = resolve_backend(tuning)
+        for edge, radii in scaleset:
+            if edge <= 0:
+                raise ValueError("fused plan needs voxel edges > 0")
+            use_kernel = backend in ("pallas", "packed")
+            spec = device_grid.make_spec(
+                lo, hi, max(radii), n_query=q_bucket,
+                m=tuning.get("query_tile_factor", 3),
+                q_cap=tuning.get("query_capacity")
+                or (256 if use_kernel else 128),
+                voxel_edge=edge, entry_batch=tuning.get("entry_batch", 256),
+                x_seg=32 if use_kernel else 1)
+            worst = spec.e_cap
+            if tuning.get("estimate_entries", True):
+                spec = device_grid.with_entry_estimate(spec, query)
+            live = device_grid.estimate_entries(query, spec)
+            report.append({
+                "edge": edge, "e_cap": spec.e_cap,
+                "e_cap_worst_case": worst, "entries_live": live,
+                "entry_fill": round(live / max(spec.e_cap, 1), 4),
+                "q_slot_fill": round(
+                    query.shape[0] / max(live * spec.q_cap, 1), 4),
+                "q_cap": spec.q_cap, "s_cap": spec.s_cap})
+        return report
+    for edge, radii in scaleset:
+        centers = voxel_downsample(search, edge, device=device)[0] \
+            if edge > 0 else search
+        problem = grid.build_tiled_problem(
+            query, centers, tile_edge=max(radii),
+            query_tile_factor=tuning.get("query_tile_factor", 3),
+            query_capacity=tuning.get("query_capacity"),
+            entry_batch=tuning.get("entry_batch", 256))
+        stats = problem.stats
+        report.append({
+            "edge": edge, "e_cap": problem.n_entries,
+            "entries_live": stats["entries"],
+            "entry_fill": round(
+                stats["entries"] / max(problem.n_entries, 1), 4),
+            "q_slot_fill": round(stats["fill"], 4),
+            "q_cap": stats["q_cap"], "s_cap": stats["s_cap"]})
+    return report
 
 
 def extract_scaleset_device(query, search, scaleset, kind="geometric", *,

@@ -117,7 +117,13 @@ def test_import_loads_no_jax():
             "nimrud_tpu_torch.learning.metrics, nimrud_tpu_torch.archive, "
             "nimrud_tpu_torch.utils.memory, nimrud_tpu_torch.utils.generic, "
             "nimrud_tpu_torch.utils.geometry, "
-            "nimrud_tpu_torch.utils.point_clouds; "
+            "nimrud_tpu_torch.utils.point_clouds, "
+            "nimrud_tpu_torch.utils.profiling, nimrud_tpu_torch.cli, "
+            "nimrud_tpu_torch.workflows.datasets, "
+            "nimrud_tpu_torch.workflows.features, "
+            "nimrud_tpu_torch.workflows.train, "
+            "nimrud_tpu_torch.workflows.sweep, "
+            "nimrud_tpu_torch.workflows.viz; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nimrud_tpu.')) or m == 'nimrud_tpu');"
             " assert not bad, bad")
