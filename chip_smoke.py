@@ -267,7 +267,38 @@ Phases, one or more lines each:
               through ``utils.profiling`` (busy within its window, the
               top kernels; ``packed_moments`` among them where a fused
               row is best).
-Phases 10-14 print their wall time.
+15. multichip -- the multi-device layer (``nimrud_tpu_torch.parallel``)
+              on a (2, 2) mesh whose four entries are the one card, and
+              the default mesh ``make_mesh_2d((n, 1))`` over the visible
+              cards: ``shard_cloud_2d`` of the 1M bench cloud (rows a
+              shard, halo_x, halo_y, host seconds); ``predict_multichip``
+              of phase 4's fitted packed bench model on its three clouds,
+              each counted from zero (only ``packed_moments``, its
+              launches a step; no overflow warning; accuracy > 0.8;
+              labels equal to the single-device labels of the same
+              classifier behind float32 uploads -- the mesh takes the
+              raw cloud -- for >= 0.999, the reference's bar; beside
+              them phase 4's uint16 labels), the step times (the first
+              with the host sizing, then cached) and the peak memory;
+              once on the default mesh; ``packed_moments`` against its
+              twin at shard 0's band-0 buckets.  Then on one cloud the
+              span program (only ``span_moments``), and the rpte model
+              whose forest ``fit_device`` grew from a 100k sample of the
+              bench features -- ``fit_device_mesh`` on the same rows
+              over the four shards, tables bit-equal; ``vector`` at 100k
+              through the segment-wide interp plans; the packed mesh
+              program card against a CPU mesh at 100k points of the
+              reference pipeline tests' compact scene (each differing
+              label a near-tie); ``backend="xla"`` there (no moment
+              kernel); ``extract_multichip_2d`` at 100k against a
+              (1, 1) mesh (populations equal but where the y-face
+              witness holds a row: the reference's halo_y plan, ROADMAP
+              Queue C; the rest within 5e-2 where both balls hold 10+
+              points) and ``make_train_step_2d`` there for 5 Adam steps
+              (the loss falls; step 0's loss and gradient within rtol
+              1e-5 of one loss over the mesh's own rows, the (1, 1)
+              program's beside them).
+Phases 10-15 print their wall time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.  The sazo,
@@ -345,6 +376,17 @@ PARTITION_MAX = 65_536     # the workflows phase: search points a partition
                            # (at 262,144 every bench band fits one),
 WORKFLOW_SAMPLES = 50_000  # training rows a class (2 x: FIT_SAMPLE),
 SWEEP_POINTS = 200_000     # the sweep's synthetic scan
+MESH_SHAPE = (2, 2)        # the multichip phase: one card's four entries,
+MC_POINTS = 100_000        # the size of its smaller runs,
+MC_TRAIN_STEPS = 5         # Adam steps of its training run (at a rate
+MC_TRAIN_LR = 1e-3         # for the raw, unstandardized features),
+MC_FEATURE_TOL = 5e-2      # mesh against (1, 1) features (the reference
+MC_STURDY = 10             # tests' bound for every row, tests/
+                           # test_parallel.py) where both radii hold 10+
+                           # points
+MIN_MC_AGREE = 0.999       # and the reference's bar for mesh labels
+                           # against single-device labels
+                           # (tests/test_pipeline.py:223-225)
 
 
 def _check(ok, what):
@@ -3255,6 +3297,435 @@ def _workflow_phase(device):
     return features, swept
 
 
+def _mc_scene(n, seed):
+    """The reference pipeline tests' compact scene (a sheet, a vertical
+    line and a blob, labels 0 / 1 / 2) at ``n`` points: its tile grids
+    are small, so the mesh program runs on the CPU too."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    per = n // 3
+    cloud = np.vstack([rng.random((per, 3)) * [8, 8, 0.02],
+                       rng.random((per, 3)) * [0.02, 0.02, 8] + [10, 4, 0],
+                       rng.normal([16, 4, 4], 1.0, (n - 2 * per, 3))]
+                      ).astype(np.float32)
+    labels = np.concatenate([np.zeros(per), np.ones(per),
+                             np.full(n - 2 * per, 2)]).astype(np.int32)
+    return cloud, labels
+
+
+def _mc_serve(model, cloud, mesh, attributes=None, shape=MESH_SHAPE):
+    """One ``predict_multichip`` to synchronize, counted from zero; any
+    overflow warning fails.  Returns (labels, ms, launch counts)."""
+    import warnings
+    import torch
+    _reset_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        labels = model.predict_multichip(cloud, shape, mesh=mesh,
+                                         attributes=attributes)
+    torch.cuda.synchronize()
+    return labels, 1e3 * (time.perf_counter() - t0), _counts()
+
+
+def _agree(a, b):
+    import numpy as np
+    return float((np.asarray(a) == np.asarray(b)).mean())
+
+
+def _mc_shard_kernel(model, cloud, mesh, device):
+    """packed_moments against its twin at one shard's band-0 buckets, as
+    the packed mesh program forms them (shard 0 of the (2, 2) mesh: its
+    two-phase halo bands, the tile-sorted voxel centers, the shared plan
+    at q_cap 256, the segment-wide capacity)."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.ops import device_grid, unique
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+    from nimrud_tpu_torch.parallel import mesh as pmesh
+    from nimrud_tpu_torch.parallel import tiles
+
+    buffer = max(max(r) for _, r in model.scaleset) \
+        + max(e for e, _ in model.scaleset)
+    shards = tiles.shard_cloud_2d(cloud, MESH_SHAPE, buffer)
+    rows = shards["blocks"].shape[1]
+    lo, hi = (np.asarray(b, np.float64) for b in model.bounds)
+    caps = model._multichip_caps_cache[(MESH_SHAPE, rows)]
+    specs = pmesh._fused_specs(model.scaleset, lo, hi, rows, "serving",
+                               q_cap=256, x_seg=32)
+    blocks = pmesh.shards_on(mesh, shards["blocks"], torch.float32)
+    valids = pmesh.shards_on(mesh, shards["valid"], torch.bool)
+    halo_pts, halo_valid = pmesh._halo_bands_2d(
+        blocks, valids, shards["halo_x"], shards["halo_y"], mesh)[0]
+    vox, spec, radii = specs[0]
+    centers, _, mask = unique.unique_voxels(
+        torch.cat([blocks[0], halo_pts]), vox,
+        valid=torch.cat([valids[0], halo_valid]), tile_spec=spec)
+    plan = device_grid._pack_plan(blocks[0], valids[0], spec)
+    spans = device_grid._band_spans(plan, centers, mask, spec,
+                                    presorted=True)
+    buckets, _ = device_grid._bucket_problems(
+        plan["q_t"], plan["centers"], spans["span_starts"],
+        spans["span_lens"], device_grid._far_extended(spans["sorted_pts"]),
+        caps[0])
+    q_t, cand_t, cen = buckets[0][:3]
+    shape = (f"E={q_t.shape[0]} q_cap={q_t.shape[2]} c_cap={caps[0]} "
+             f"radii={len(radii)}")
+    work = pm.packed_moments_work(q_t, cand_t, cen, radii)
+    rec = _hold(f"packed_moments shard 0 {shape}",
+                lambda p: pm.packed_moments(q_t, cand_t, cen, radii,
+                                            precision=p),
+                lambda p: pm.packed_moments_plain(q_t, cand_t, cen, radii,
+                                                  precision=p),
+                lambda ref: pm.moment_tolerance(ref, cand_t, cen))
+    live = work["pairs"] / (q_t.shape[0] * caps[0] * q_t.shape[2])
+    print(f"[multichip] packed_moments at shard 0's band-0 shapes {shape} "
+          f"(live share of lanes {live:.4f}; rows a shard {rows}, halo_x "
+          f"{shards['halo_x']}, halo_y {shards['halo_y']}): "
+          f"{_work_text(rec, work)}", flush=True)
+
+
+def _y_face_witness(points, shape, buffer, rows):
+    """Whether each of ``rows`` (caller rows of ``points``) lies within
+    ``buffer`` of a y face between two blocks of its column of the
+    ``shape`` tiling: where the reference's halo plan undersizes the
+    y band (ROADMAP Queue C), so a mesh extraction misses neighbors
+    across that face."""
+    import numpy as np
+    from nimrud_tpu_torch.parallel import tiles
+
+    shards = tiles.shard_cloud_2d(points, shape, buffer)
+    n_dev, per = shards["valid"].shape
+    owner = tiles.unshard(np.repeat(np.arange(n_dev), per).reshape(
+        n_dev, per), shards["valid"], shards["order"], len(points))
+    my = shape[1]
+    faces = {}
+    for d in range(n_dev):
+        i, j = divmod(d, my)
+        ys = shards["blocks"][d][shards["valid"][d], 1]
+        if j > 0 and len(ys):
+            faces.setdefault(i, []).append(ys.min())
+        if j < my - 1 and len(ys):
+            faces.setdefault(i, []).append(ys.max())
+    near = np.zeros(len(rows), bool)
+    for k, r in enumerate(rows):
+        col = owner[r] // my
+        ys = np.asarray(faces.get(col, []))
+        near[k] = bool(len(ys)) and np.abs(ys - points[r, 1]).min() <= buffer
+    return near
+
+
+def _mc_train_extract(mesh, device):
+    """``extract_multichip_2d`` at MC_POINTS against a (1, 1) mesh
+    (populations equal, and the rest within MC_FEATURE_TOL where both
+    radii hold MC_STURDY or more points, except at the rows the y-face
+    witness holds: fewer neighbors, within the buffer of a y face),
+    then
+    ``make_train_step_2d`` for MC_TRAIN_STEPS Adam steps (the loss
+    falls; step 0's loss and gradient within rtol 1e-5 of one loss over
+    the mesh's own feature rows of all shards -- the mean of the
+    per-shard means, as the reference's ``pmean`` -- and beside them
+    the (1, 1) program's)."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.parallel import mesh as pmesh
+    from nimrud_tpu_torch.parallel import tiles
+    from nimrud_tpu_torch.utils import workload
+
+    small, labels = workload.make_bench_cloud(MC_POINTS, seed=0)
+    radii = (1.0, 0.5)
+    one = pmesh.make_mesh_2d((1, 1), devices=[device])
+    t0 = time.perf_counter()
+    got = pmesh.extract_multichip_2d(small, radii, mesh_shape=MESH_SHAPE,
+                                     mesh=mesh)
+    t1 = time.perf_counter()
+    want = pmesh.extract_multichip_2d(small, radii, mesh_shape=(1, 1),
+                                      mesh=one)
+    t2 = time.perf_counter()
+    pops = [0, 4]
+    off = np.nonzero(np.any(got[:, pops] != want[:, pops], axis=1))[0]
+    held = _y_face_witness(small, MESH_SHAPE, max(radii), off) \
+        & np.all(got[off][:, pops] <= want[off][:, pops], axis=1)
+    # the eigenvalues of small, near-degenerate neighborhoods move with
+    # the chunk's frame (two points: rank-1 f32 noise, as the reference
+    # tests note); the rest is held where both balls hold MC_STURDY
+    rest = np.all(got[:, pops] >= MC_STURDY, axis=1)
+    rest[off] = False
+    err = float(np.abs(got[rest] - want[rest]).max())
+    small_nb = np.all(got[:, pops] >= 3, axis=1)
+    small_nb[off] = False
+    err3 = float(np.abs(got[small_nb] - want[small_nb]).max())
+    print(f"[multichip] extract_multichip_2d at {MC_POINTS} points, radii "
+          f"{radii}: (2, 2) {t1 - t0:.3f} s, (1, 1) {t2 - t1:.3f} s; "
+          f"populations differ at {len(off)} points, {int(held.sum())} held "
+          f"by the y-face witness (fewer neighbors within {max(radii)} m of "
+          f"a y face: the reference's halo_y plan); largest difference "
+          f"elsewhere where both radii hold {MC_STURDY}+ points {err:.3g}, "
+          f"3+ points {err3:.3g} (the chunks' frames differ)", flush=True)
+    _check(bool(held.all()), "mesh populations differ from the (1, 1) "
+           f"program's without the witness at rows {off[~held][:8]}")
+    _check(err <= MC_FEATURE_TOL, "mesh features off the (1, 1) program's")
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    init = {"w": torch.randn((4 * len(radii), 3), generator=gen,
+                             device=device) / np.sqrt(4 * len(radii)),
+            "b": torch.zeros(3, device=device)}
+    steps = {}
+    for shape, m in ((MESH_SHAPE, mesh), ((1, 1), one)):
+        shards = tiles.shard_cloud_2d(small, shape, max(radii),
+                                      extras=[labels])
+        params = {k: v.clone().requires_grad_(True) for k, v in init.items()}
+        opt = torch.optim.Adam(list(params.values()), lr=MC_TRAIN_LR)
+        step = pmesh.make_train_step_2d(m, shards["halo_x"], shards["halo_y"],
+                                        radii, "minimal", 3, opt)
+        losses, grads, times = [], None, []
+        for i in range(MC_TRAIN_STEPS if shape == MESH_SHAPE else 1):
+            t0 = time.perf_counter()
+            losses.append(float(step(params, shards["blocks"],
+                                     shards["valid"], shards["extras"][0])))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                grads = {k: p.grad.clone() for k, p in params.items()}
+        steps[shape] = (losses, grads, times, shards)
+    (losses, grads, times, shards), (l11, g11, t11, _) = \
+        steps[MESH_SHAPE], steps[(1, 1)]
+    # one loss over all shards' rows of the mesh's own features
+    feats = pmesh.sharded_extract_2d(mesh, shards["blocks"], shards["valid"],
+                                     shards["halo_x"], shards["halo_y"],
+                                     radii, "minimal")
+    params = {k: v.clone().requires_grad_(True) for k, v in init.items()}
+    labs = torch.as_tensor(shards["extras"][0], device=device).long()
+    valid = torch.as_tensor(shards["valid"], device=device).float()
+    logits = torch.stack(feats) @ params["w"] + params["b"]
+    nll = -torch.log_softmax(logits, dim=2).gather(2, labs[..., None])[..., 0]
+    ref = ((nll * valid).sum(1) / valid.sum(1).clamp(min=1.0)).mean()
+    ref.backward()
+    print(f"[multichip] make_train_step_2d at {MC_POINTS} points, radii "
+          f"{radii}, Adam {MC_TRAIN_LR}: losses "
+          f"{['%.6f' % v for v in losses]}, step ms "
+          f"{['%.1f' % t for t in times]}; step 0 against one loss over the "
+          f"mesh's own rows {float(ref.detach()):.6f}; the (1, 1) program's step 0 "
+          f"loss {l11[0]:.6f} ({t11[0]:.1f} ms), gradient within "
+          + ", ".join(f"{k} {float(((grads[k] - g11[k]).abs() / g11[k].abs().clamp(min=1e-6)).max()):.3g}"
+                      for k in grads) + " relative", flush=True)
+    _check(losses[-1] < losses[0], f"the mesh loss did not fall {losses}")
+    ref = float(ref.detach())
+    _check(abs(losses[0] - ref) <= 1e-5 * abs(ref),
+           f"step 0 loss {losses[0]} against {ref}")
+    for key in grads:
+        _check(torch.allclose(grads[key], params[key].grad, rtol=1e-5,
+                              atol=1e-7),
+               f"step 0 gradient {key} against one loss over the rows")
+
+
+def _mc_forest(model, cloud, labels, clouds, truths, mesh, device):
+    """The rpte model's training rows (a FIT_SAMPLE sample of the packed
+    model's features of the bench cloud) fit with ``fit_device`` and with
+    ``fit_device_mesh`` over the (2, 2) mesh's four logical shards: the
+    tables bit-equal; then that forest served by ``predict_multichip``
+    on one cloud.  Returns its launch counts."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.learning.rpt import RPTEnsemble
+    from nimrud_tpu_torch.utils import workload
+
+    feats = model.extract_device(cloud)
+    rows = np.random.RandomState(0).permutation(len(cloud))[:FIT_SAMPLE]
+    x = feats[torch.as_tensor(rows, device=device)]
+    y = labels[rows]
+    del feats
+    t0 = time.perf_counter()
+    forest = RPTEnsemble(seed=0).fit_device(x, y)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dist = RPTEnsemble(seed=0).fit_device_mesh(
+        x.reshape(4, -1, x.shape[1]), np.ones((4, FIT_SAMPLE // 4), bool),
+        y.reshape(4, -1), mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = all(torch.equal(dist._tables[k], v)
+               for k, v in forest._tables.items())
+    print(f"[multichip] fit_device_mesh on {FIT_SAMPLE} training rows over "
+          f"4 logical shards ({forest.n_estimators} trees, 3 a shard, 2 pad "
+          f"trees): {t2 - t1:.3f} s against fit_device {t1 - t0:.3f} s; "
+          f"tables bit-equal {same}", flush=True)
+    _check(same, "fit_device_mesh tables differ from fit_device's")
+    rpte = workload.make_bench_model(cloud, classifier="rpte", device=device)
+    rpte.install_classifier(forest, cloud)
+    got, ms, counts = _mc_serve(rpte, clouds[0], mesh)
+    acc = _agree(got, truths[0])
+    agree = _agree(got, rpte.predict(clouds[0]))
+    print(f"[multichip] rpte predict_multichip: {ms:.1f} ms (first call, "
+          f"host sizing); launches {counts}; accuracy {acc:.4f}; agreement "
+          f"with its single-device labels {agree:.6f}", flush=True)
+    _only(counts, ("packed_moments",), "the rpte mesh program")
+    _check(counts["packed_moments"] > 0 and acc > 0.8 and agree >= 0.99,
+           "rpte mesh serving")
+    return counts
+
+
+def _mc_card_vs_cpu(mesh, device):
+    """The packed mesh program on the card and on a CPU mesh, the card
+    fit's classifier carried over, on MC_POINTS of the compact scene
+    with the bench bands: each differing label a near-tie (top-two gap
+    < TIE_GAP) of the card's or the CPU's single-device step."""
+    import torch
+    from nimrud_tpu_torch.parallel import mesh as pmesh
+    from nimrud_tpu_torch.utils import checks, workload
+
+    scene, labels = _mc_scene(MC_POINTS, 0)
+    gpu = workload.make_bench_model(scene, device=device)
+    gpu.fit(scene, labels, sample=FIT_SAMPLE // 2)
+    cpu = workload.make_bench_model(scene, device="cpu")
+    cpu.install_classifier(checks.on_cpu(gpu.classifier), scene)
+    got, ms, counts = _mc_serve(gpu, scene, mesh)
+    t0 = time.perf_counter()
+    want = cpu.predict_multichip(
+        scene, MESH_SHAPE,
+        mesh=pmesh.make_mesh_2d(MESH_SHAPE, devices=[torch.device("cpu")] * 4))
+    cpu_s = time.perf_counter() - t0
+    differ = torch.from_numpy(got != want)
+    g_prob = gpu.predict_staged(gpu.stage(scene), with_proba=True)[1].cpu()
+    c_prob = cpu.predict_staged(cpu.stage(scene), with_proba=True)[1]
+    gaps = torch.minimum(_top2_gap(g_prob), _top2_gap(c_prob))
+    left = differ & (gaps >= TIE_GAP)
+    print(f"[multichip] card against cpu, packed mesh program, {MC_POINTS} "
+          f"points of the compact scene: card {ms:.1f} ms, cpu {cpu_s:.2f} "
+          f"s; {int(differ.sum())} labels differ, "
+          f"{int((differ & ~left).sum())} at near-ties; accuracy "
+          f"{_agree(got, labels):.4f}; launches {counts}", flush=True)
+    _check(not bool(left.any()), "card and cpu mesh labels differ without "
+           f"a near-tie at rows {left.nonzero()[:8, 0].tolist()}")
+    _check(int(differ.sum()) <= MAX_FLIPS * MC_POINTS,
+           "too many card / cpu mesh label flips")
+    return scene, labels, counts
+
+
+def _multichip_phase(model, cloud, labels, clouds, truths, packed_labels,
+                     device):
+    """Phase 15: the multi-device layer on a (2, 2) mesh of one card's
+    four entries.  Returns the launches of its counted runs by kernel
+    name."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.parallel import mesh as pmesh
+    from nimrud_tpu_torch.parallel import tiles
+    from nimrud_tpu_torch.utils import workload
+
+    n_dev = torch.cuda.device_count()
+    mesh = pmesh.make_mesh_2d(MESH_SHAPE, devices=[device] * 4)
+    default = pmesh.make_mesh_2d((n_dev, 1))
+    print(f"[multichip] {_smi('name,power.limit')}; {n_dev} CUDA device(s); "
+          f"the {MESH_SHAPE} mesh over {[str(d) for d in mesh.flat]}; the "
+          f"default mesh make_mesh_2d(({n_dev}, 1)) over "
+          f"{[str(d) for d in default.flat]}", flush=True)
+    buffer = max(max(r) for _, r in model.scaleset) \
+        + max(e for e, _ in model.scaleset)
+    t0 = time.perf_counter()
+    shards = tiles.shard_cloud_2d(cloud, MESH_SHAPE, buffer)
+    print(f"[multichip] shard_cloud_2d of the {len(cloud)}-point bench "
+          f"cloud, buffer {buffer} m: {shards['blocks'].shape[1]} rows a "
+          f"shard, halo_x {shards['halo_x']}, halo_y {shards['halo_y']}; "
+          f"host {time.perf_counter() - t0:.3f} s", flush=True)
+    launches = collections.Counter()
+
+    # the 1M packed bench model at full width, on the three clouds
+    torch.cuda.reset_peak_memory_stats()
+    served, times, per_step = [], [], []
+    for c in clouds:
+        got, ms, counts = _mc_serve(model, c, mesh)
+        _only(counts, ("packed_moments",), "the packed mesh program")
+        served.append(got)
+        times.append(ms)
+        per_step.append(counts["packed_moments"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches["packed_moments"] += sum(per_step)
+    accs = [_agree(s, t) for s, t in zip(served, truths)]
+    # the mesh program takes the raw float32 cloud: its single-device
+    # twin is the same classifier behind float32 uploads (phase 4's
+    # model uploads uint16 grid steps, up to half a step off)
+    f32 = workload.make_bench_model(cloud, device=device)
+    f32.transfer_dtype = "float32"
+    f32.install_classifier(model.classifier, cloud)
+    single = [f32.predict(c) for c in clouds]
+    agree = [_agree(s, p) for s, p in zip(served, single)]
+    agree_u16 = [_agree(s, p.numpy()) for s, p in zip(served, packed_labels)]
+    print(f"[multichip] predict_multichip {MESH_SHAPE}, packed bench model: "
+          f"step ms {', '.join('%.1f' % t for t in times)} (the first with "
+          f"the host sizing of the capacities, then cached); packed_moments "
+          f"launches a step {per_step}; overflow 0; accuracy "
+          + ", ".join(f"{a:.4f}" for a in accs) + "; agreement with the "
+          "single-device labels (float32 uploads) "
+          + ", ".join(f"{a:.6f}" for a in agree) + ", (phase 4's uint16 "
+          "uploads) " + ", ".join(f"{a:.6f}" for a in agree_u16)
+          + f"; peak {peak:.3f} GiB", flush=True)
+    _check(all(n > 0 for n in per_step), "packed_moments did not launch")
+    _check(all(a > 0.8 for a in accs), f"multichip accuracy {accs}")
+    _check(all(a >= MIN_MC_AGREE for a in agree),
+           f"multichip agreement with single-device serving {agree}")
+    got, ms, counts = _mc_serve(model, clouds[0], None, shape=(n_dev, 1))
+    launches["packed_moments"] += counts["packed_moments"]
+    print(f"[multichip] the default mesh ({n_dev}, 1): {ms:.1f} ms (host "
+          f"sizing of its shard rows), agreement with the single-device "
+          f"labels {_agree(got, single[0]):.6f}", flush=True)
+    _check(_agree(got, single[0]) >= MIN_MC_AGREE, "default-mesh agreement")
+    del f32
+    _mc_shard_kernel(model, cloud, mesh, device)
+
+    # the span program (backend="pallas") on one cloud
+    span = workload.make_bench_model(cloud, backend="pallas", device=device)
+    span.install_classifier(model.classifier, cloud)
+    got, ms, counts = _mc_serve(span, clouds[0], mesh)
+    launches["span_moments"] += counts["span_moments"]
+    print(f"[multichip] span predict_multichip: {ms:.1f} ms; launches "
+          f"{counts}; accuracy {_agree(got, truths[0]):.4f}; agreement with "
+          f"the packed mesh labels {_agree(got, served[0]):.6f}", flush=True)
+    _only(counts, ("span_moments",), "the span mesh program")
+    _check(counts["span_moments"] > 0 and _agree(got, truths[0]) > 0.8
+           and _agree(got, served[0]) >= MIN_MC_AGREE, "span mesh serving")
+    del span
+    launches.update(_mc_forest(model, cloud, labels, clouds, truths, mesh,
+                               device))
+
+    # vector at MC_POINTS through the segment-wide interp plans
+    small, small_labels = workload.make_bench_cloud(MC_POINTS, seed=0)
+    attrs = workload.make_bench_attributes(small_labels)
+    vec = workload.make_bench_model(small, kind="vector", device=device)
+    vec.fit(small, small_labels, sample=MC_POINTS // 2, attributes=attrs)
+    got, ms, counts = _mc_serve(vec, small, mesh, attributes=attrs)
+    launches.update(counts)
+    agree = _agree(got, vec.predict(small, attributes=attrs))
+    print(f"[multichip] vector predict_multichip at {MC_POINTS} points: "
+          f"{ms:.1f} ms; launches {counts}; accuracy "
+          f"{_agree(got, small_labels):.4f}; agreement with its "
+          f"single-device labels {agree:.6f}", flush=True)
+    _only(counts, KIND_KERNELS["vector"], "the vector mesh program")
+    _check(all(counts[k] > 0 for k in KIND_KERNELS["vector"])
+           and _agree(got, small_labels) > 0.8 and agree >= 0.99,
+           "vector mesh serving")
+    del vec
+
+    # card against cpu, then backend="xla" (no moment kernel) on the
+    # compact scene
+    scene, scene_labels, counts = _mc_card_vs_cpu(mesh, device)
+    launches.update(counts)
+    xla = workload.make_bench_model(scene, backend="xla", device=device)
+    xla.fit(scene, scene_labels, sample=FIT_SAMPLE // 2)
+    got, ms, counts = _mc_serve(xla, scene, mesh)
+    agree = _agree(got, xla.predict(scene))
+    print(f"[multichip] xla predict_multichip at {MC_POINTS} points of the "
+          f"compact scene: {ms:.1f} ms; launches {counts}; accuracy "
+          f"{_agree(got, scene_labels):.4f}; agreement with its "
+          f"single-device labels {agree:.6f}", flush=True)
+    _only(counts, (), "the xla mesh program")
+    _check(_agree(got, scene_labels) > 0.8 and agree >= 0.99,
+           "xla mesh serving")
+    del xla
+    _mc_train_extract(mesh, device)
+    return dict(launches)
+
+
 def _build_phase(cuda_build):
     """Build every kernel, all nvcc processes together; print ptxas's
     usage and the tensor-core instructions of each template instance.
@@ -3363,7 +3834,6 @@ def main():
           "bands)", flush=True)
     _xla_phase(model, packed_labels, clouds, truths, cloud, labels, band0,
                device, args.profile)
-    del model
     kind_launches, per_kind, vector = _kinds_phase(cloud, labels, clouds,
                                                    truths, device,
                                                    args.profile)
@@ -3394,15 +3864,25 @@ def main():
                  ("1M packed serving steps", N_POINTS, step_peak),
                  ("10M chunked steps", N_LARGE, walled["large"][0]),
                  ("10M un-chunked step", N_LARGE, walled["large"][1])])),
-            ("workflows", lambda: _workflow_phase(device))):
+            ("workflows", lambda: _workflow_phase(device)),
+            ("multichip", lambda: _multichip_phase(
+                model, cloud, labels, clouds, truths, packed_labels,
+                device))):
         t0 = time.perf_counter()
         walled[phase] = run()
         print(f"[{phase}] phase wall {time.perf_counter() - t0:.1f} s",
               flush=True)
+    del model
     features, swept = walled["workflows"]
     launches["packed_moments"] += features + swept
     print(f"[launches] packed_moments: {features} in the features workflow, "
           f"{swept} in the sweep", flush=True)
+    for kernel, n in walled["multichip"].items():
+        if n:
+            launches[kernel] = launches.get(kernel, 0) + n
+    print(f"[launches] the multichip phase: "
+          f"{ {k: n for k, n in walled['multichip'].items() if n} }",
+          flush=True)
 
     sources = {
         "packed_moments": ("packed_moments",

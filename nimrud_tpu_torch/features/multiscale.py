@@ -259,7 +259,7 @@ def _voxel_occupancy_cap(search, spec):
 
 
 def _interp_packed_plan(search, vox_spec, lo, hi, s_bounds, m,
-                        host_centers=None):
+                        host_centers=None, segment_wide=False):
     """Host spec and candidate capacity of the packed attribute interp
     (``ops.interp.packed_interp``): a voxel-edge tile grid whose queries
     are the band's voxel centers and whose search side is the raw cloud,
@@ -271,7 +271,14 @@ def _interp_packed_plan(search, vox_spec, lo, hi, s_bounds, m,
     occupancy bounds the sizing cloud.  The capacity is the split
     ``(caps, bounds)`` of ``span_host.candidate_caps_split`` (or one
     int), sized on the centers against the raw cloud; denser clouds
-    overflow into the counted ``interp_dropped``."""
+    overflow into the counted ``interp_dropped``.
+
+    ``segment_wide`` (the multi-device sizing): one bounding capacity,
+    ``span_host.candidate_cap(segment_wide=True)``.  Each shard packs
+    its own subset of the centers into entries this host mirror cannot
+    reproduce, but any packing's candidate set lies within its
+    segment's whole x-range, and split buckets' rank cuts mean nothing
+    across shard packings."""
     edge = float(vox_spec.edge_length)
     search = np.asarray(search, np.float32)[:, :3]
     if host_centers is None:
@@ -281,6 +288,9 @@ def _interp_packed_plan(search, vox_spec, lo, hi, s_bounds, m,
         lo, hi, edge, n_query=_pow2_bucket(search.shape[0]), q_cap=128,
         m=m, x_seg=1, s_cap=_pow2_bucket(8 * occ, minimum=8))
     ispec = device_grid.with_entry_estimate(ispec, host_centers)
+    if segment_wide:
+        return ispec, int(span_host.candidate_cap(host_centers, search,
+                                                  ispec, segment_wide=True))
     icap = span_host.candidate_caps_split(host_centers, search, ispec)
     return ispec, icap if isinstance(icap, tuple) else int(icap)
 

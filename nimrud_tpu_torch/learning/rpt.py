@@ -25,12 +25,16 @@ deepest split (``walk_depth_``, found once when the tables are set),
 where every pair stands at a leaf, so the results are the reference's
 (a pair at a leaf stays where it is).
 
+:meth:`RPTEnsemble.fit_device_mesh` grows the same forest from features
+sharded over a device mesh (``parallel.mesh``), bit-identical to
+:meth:`~RPTEnsemble.fit_device` on the device-major flattening of the
+valid rows.
+
 Not ported: the reference's blocked and one-hot matmul walk tables
 (``_blocked_table``, ``add_blocked_tables``, ``_walk_forest_blocked``),
-a TPU-only layout of the same dense walk, and ``fit_device_mesh``
-(multi-device).  The device fit draws from ``torch.Generator``s seeded
-from ``seed``: it is reproducible against itself, not against the JAX
-fit's ``jax.random`` draws.
+a TPU-only layout of the same dense walk.  The device fit draws from
+``torch.Generator``s seeded from ``seed``: it is reproducible against
+itself, not against the JAX fit's ``jax.random`` draws.
 """
 
 import numpy as np
@@ -258,22 +262,23 @@ class RPTEnsemble:
 
     # -- fitting (device) -----------------------------------------------------
 
-    def fit_device(self, features, labels, n_classes=None):
+    def fit_device(self, features, labels, n_classes=None, depth=FIT_DEPTH):
         """Grow the whole forest on ``features.device``: projections,
         per-node medians, the Dasgupta-Freund jitter, gini stopping and
         the dense tables, level by level.  ``labels`` may be a host
         array (the class-balanced subsets are host bookkeeping, as in
         the reference).  The reference's two deviations from :meth:`fit`
         hold: the jitter's anchor is the cell's lowest-projection sample,
-        and the depth caps at ``FIT_DEPTH``; a split that leaves one
-        side empty is drawn again at the next level."""
+        and the depth caps at ``depth`` (at most 15, the dense table's
+        budget); a split that leaves one side empty is drawn again at
+        the next level."""
         labels = np.asarray(labels).astype(np.int64)
         features = torch.as_tensor(features).to(torch.float32)
         device = features.device
         self.numlabs = int(labels.max() + 1) if n_classes is None \
             else int(n_classes)
         self.dim = int(features.shape[1])
-        depth = FIT_DEPTH
+        depth = int(min(depth, 15))
         rng = np.random.RandomState(self.seed)
 
         row_sets, imps = self._plan_subsets(labels, rng)
@@ -285,6 +290,85 @@ class RPTEnsemble:
             torch.from_numpy(row_sets).to(device), imps, seed,
             self.numlabs, depth, float(self.min_obs)))
         self.device = device
+        self.trees_ = None
+        return self
+
+    def fit_device_mesh(self, feats, valid, labels, mesh, n_classes=None,
+                        depth=FIT_DEPTH):
+        """
+        Grow the forest across a device mesh (``parallel.mesh.Mesh``):
+        the per-shard features never gather whole.  Each shard scatters
+        its rows of every tree's class-balanced subset on its own device
+        (zeros elsewhere); the contributions are disjoint, so their sum
+        over the mesh is exact.  Each device then grows its slice of the
+        trees, tree ``t`` with the generator seed ``fit_device`` gives
+        tree ``t`` (the forest padded to a multiple of the shard count,
+        as in the reference: pad trees recompute tree 0 and are
+        dropped).  BIT-IDENTICAL to :meth:`fit_device` on the
+        device-major flattening of the valid rows (``feats[valid]``),
+        given the same seed.
+
+        Args:
+          feats:  (n_shards, rows, dim) float32 per-shard features (an
+                  array or tensor, or one tensor a shard, e.g. from
+                  ``parallel.mesh.sharded_extract``).
+          valid:  (n_shards, rows) bool host array.
+          labels: (n_shards, rows) int host array (the subset plan is
+                  host bookkeeping, as for ``fit_device``).
+          mesh:   the mesh the shards live on (its device-major order).
+        """
+        from nimrud_tpu_torch.parallel import mesh as pmesh
+
+        n_dev = mesh.size
+        valid = np.asarray(valid, bool)
+        labels_flat = np.asarray(labels).astype(np.int64)[valid]
+        self.numlabs = int(labels_flat.max() + 1) if n_classes is None \
+            else int(n_classes)
+        shards = pmesh.shards_on(mesh, feats, torch.float32)
+        self.dim = int(shards[0].shape[-1])
+        depth = int(min(depth, 15))
+        rng = np.random.RandomState(self.seed)
+
+        row_sets, imps = self._plan_subsets(labels_flat, rng)
+        n_trees, s_t = row_sets.shape
+        seed = rng.randint(0, 2 ** 31 - 1) if self.seed is None \
+            else self.seed
+        seeds = _tree_seeds(seed, n_trees)
+
+        # flat valid index -> (shard, row); np.nonzero is device-major,
+        # as labels[valid]'s flattening
+        dev_idx, row_idx = np.nonzero(valid)
+        sel = row_sets.reshape(-1)
+        sel_dev, sel_row = dev_idx[sel], row_idx[sel]
+        labs_sub = labels_flat[sel].reshape(n_trees, s_t)
+
+        contribs = []
+        for d, f in enumerate(shards):
+            mine = torch.from_numpy(sel_dev == d).to(f.device)
+            rows = torch.from_numpy(sel_row).to(f.device)
+            contribs.append(torch.where(
+                mine[:, None], f[torch.clamp(rows, 0, f.shape[0] - 1)], 0.0))
+        # the sum over the mesh, replicated on each distinct device
+        subsets = {dev: sum(c.to(dev) for c in contribs).reshape(
+            n_trees, s_t, -1) for dev in mesh.distinct}
+
+        t_per = -(-n_trees // n_dev)
+        order = [t if t < n_trees else 0 for t in range(t_per * n_dev)]
+        grown = [None] * n_trees
+        for d, dev in enumerate(mesh.flat):
+            labs_dev = torch.from_numpy(labs_sub).to(dev)
+            for t in order[d * t_per:(d + 1) * t_per]:
+                generator = torch.Generator(device=dev).manual_seed(seeds[t])
+                tree = _grow_tree_device(
+                    subsets[dev][t], labs_dev[t], float(imps[t]), generator,
+                    self.numlabs, depth, float(self.min_obs))
+                if grown[t] is None:
+                    grown[t] = tree
+        home = mesh.flat[0]
+        self.max_depth_ = depth
+        self._set_tables({key: torch.stack([p.to(home) for p in parts])
+                          for key, parts in zip(DENSE_KEYS, zip(*grown))})
+        self.device = home
         self.trees_ = None
         return self
 

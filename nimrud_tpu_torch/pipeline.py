@@ -59,6 +59,12 @@ features through its ``predict_proba``, cast to float32 as the
 reference's ``jnp.asarray`` casts it -- and an argmax; ``stage``
 raises.  A host classifier fits on the host from ``extract``'s rows.
 
+``predict_multichip`` serves a cloud across a 2-D device mesh
+(``parallel.mesh``): the cloud sharded into rectangular columns, each
+shard's whole fused step on its mesh device (the packed, span or XLA
+program of the reference's ``make_fused_predict_2d``), the labels back
+in caller order.
+
 The port never falls back silently: configurations it does not carry
 raise.
 """
@@ -399,6 +405,7 @@ class GeometryClassifier:
         self.device = torch.device(device)
         self._spec_cache = None
         self._stage_spec_cache = {}
+        self._multichip_caps_cache = {}
         self._stage_stream = None       # predict_stream's staging stream
         if isinstance(classifier, str):
             self.classifier = param_classifier(
@@ -492,6 +499,7 @@ class GeometryClassifier:
         n_classes = int(labels.max() + 1)
         self._spec_cache = None
         self._stage_spec_cache = {}
+        self._multichip_caps_cache = {}
         rows = None
         if sample is not None and sample < len(labels):
             rows = np.random.RandomState(seed).permutation(
@@ -525,6 +533,7 @@ class GeometryClassifier:
         self.classifier = classifier
         self._spec_cache = None
         self._stage_spec_cache = {}
+        self._multichip_caps_cache = {}
         if not self._extract_then_classify:
             self._size_serving(fit_cloud, self._attr_width(
                 attributes, search, fit_cloud))
@@ -1054,3 +1063,159 @@ class GeometryClassifier:
                 "trim_entries sized on a denser cloud.",
                 RuntimeWarning, stacklevel=2)
         return labels.cpu().numpy()
+
+    # -- multi-device serving -------------------------------------------------
+
+    def _size_multichip_caps(self, cloud, lo, hi, rows):
+        """Segment-wide per-band candidate capacities of the packed
+        multi-device program (host; see :meth:`predict_multichip`).
+
+        The sizing plan enumerates EVERY populated segment of the whole
+        cloud: the per-shard tile specs budget ``e_cap`` for ``rows``
+        queries only, and ``pack_plan_np`` drops entries past that
+        budget, which would leave later segments unmeasured.  The grid
+        geometry (qdims, x_seg, segments) depends only on the bounds and
+        the edge, so a full-cloud twin of the pack spec aligns
+        exactly."""
+        dev_specs = [device_grid.make_spec(
+            lo, hi, max(radii), n_query=rows, voxel_edge=edge,
+            q_cap=256, x_seg=32) for edge, radii in self.scaleset]
+        pack_idx = min(range(len(dev_specs)),
+                       key=lambda i: dev_specs[i].tile_edge)
+        pack_edge, pack_radii = self.scaleset[pack_idx]
+        size_pack = device_grid.make_spec(
+            lo, hi, max(pack_radii), n_query=len(cloud),
+            voxel_edge=pack_edge, q_cap=256, x_seg=32)
+        size_plan = span_host.pack_plan_np(
+            cloud, np.ones(len(cloud), bool), size_pack)
+        return tuple(span_host.candidate_cap(
+            cloud,
+            multiscale._host_unique_voxels(cloud, edge, bounds=(lo, hi)),
+            dev_spec, pack_spec=size_pack, segment_wide=True,
+            plan=size_plan)
+            for (edge, _), dev_spec in zip(self.scaleset, dev_specs))
+
+    def predict_multichip(self, cloud, mesh_shape, mesh=None,
+                          attributes=None):
+        """
+        Per-point class labels computed across a 2-D device mesh
+        (``parallel.mesh``): the cloud is sharded into rectangular
+        columns, each shard runs the whole fused pipeline (halo
+        exchange, device voxelize, tile build, moments, classifier) on
+        its mesh device, and the int32 labels come back in caller order
+        (a NumPy array).
+
+        ``mesh`` defaults to ``make_mesh_2d(mesh_shape)`` over the
+        visible devices of the model's device type (CUDA); a CPU model
+        needs an explicit mesh (e.g. ``make_mesh_2d((2, 2),
+        devices=[torch.device("cpu")] * 4)``).  Requires a fitted device
+        classifier (linear or rpte), voxelized bands and no
+        ``exclude_radius``.  ``kind="vector"`` also needs per-point
+        ``attributes`` (N, A): they shard and halo-exchange with their
+        points, and each shard interpolates them onto its voxel centers.
+        With fixed ``bounds`` the packed backend's candidate capacities
+        (and ``vector``'s interp plans) are sized once per (mesh shape,
+        shard rows) and reused; denser clouds overflow into the counted
+        per-shard diagnostic, and a warning.
+        """
+        from nimrud_tpu_torch.parallel import mesh as pmesh
+        from nimrud_tpu_torch.parallel import tiles
+
+        try:
+            clf_params = self._fused_classifier()
+        except ValueError:
+            raise ValueError(
+                "predict_multichip needs a fitted device classifier "
+                "(linear or rpte)") from None
+        if self.exclude_radius is not None \
+                or any(edge <= 0 for edge, _ in self.scaleset):
+            raise ValueError(
+                "predict_multichip supports the fused path only "
+                "(voxelized bands, no exclude_radius)")
+        n_attr = 0
+        if self.kind == "vector":
+            if attributes is None:
+                raise ValueError(
+                    "kind='vector' multichip serving needs attributes")
+            attributes = np.asarray(attributes, np.float32)
+            n_attr = attributes.shape[1]
+
+        cloud = np.asarray(cloud, dtype=np.float32)[:, :3]
+        if self.bounds is not None:
+            lo, hi = (np.asarray(b, np.float64) for b in self.bounds)
+        else:
+            c_lo, c_hi = _cloud_bounds(cloud)
+            lo = np.asarray(c_lo, np.float64)
+            hi = np.asarray(c_hi, np.float64)
+        if mesh is None:
+            if self.device.type != "cuda":
+                raise ValueError(
+                    "a model off CUDA needs an explicit mesh= (e.g. "
+                    "parallel.mesh.make_mesh_2d(shape, devices=[cpu] * n))")
+            mesh = pmesh.make_mesh_2d(mesh_shape)
+        if mesh.devices.shape != tuple(int(v) for v in mesh_shape):
+            raise ValueError(f"mesh of shape {mesh.devices.shape} for "
+                             f"mesh_shape {tuple(mesh_shape)}")
+        # the halo covers the largest radius PLUS a voxel edge: a voxel
+        # center within the radius can be induced by points up to a cell
+        # away across the shard boundary
+        buffer = max(max(r) for _, r in self.scaleset) \
+            + max(e for e, _ in self.scaleset)
+        shards = tiles.shard_cloud_2d(
+            cloud, mesh_shape, buffer,
+            extras=None if n_attr == 0 else [attributes])
+        blocks = shards["blocks"]
+        if n_attr:
+            # attributes ride as extra block columns, so the halo
+            # exchange carries them with their points
+            blocks = np.concatenate([blocks, shards["extras"][0]], axis=2)
+        rows = blocks.shape[1]
+
+        c_caps = interp_plans = None
+        if self.backend == "packed" \
+                and (self.kind != "vector" or n_attr <= 6):
+            # per-band capacities sized against the WHOLE cloud with
+            # segment-wide entry extents (every shard packing's candidate
+            # sets are subsets of those rows); with fixed site bounds,
+            # once per (mesh shape, shard rows)
+            caps_key = None
+            if self.bounds is not None:
+                caps_key = (tuple(int(v) for v in mesh_shape), rows)
+                c_caps = self._multichip_caps_cache.get(caps_key)
+            if c_caps is None:
+                c_caps = self._size_multichip_caps(cloud, lo, hi, rows)
+                if caps_key is not None:
+                    self._multichip_caps_cache[caps_key] = c_caps
+            if self.kind == "vector":
+                # per-band packed-interp plans, one segment-wide cap each
+                plans_key = None if caps_key is None \
+                    else caps_key + ("interp",)
+                if plans_key is not None:
+                    interp_plans = self._multichip_caps_cache.get(plans_key)
+                if interp_plans is None:
+                    interp_plans = tuple(
+                        multiscale._interp_packed_plan(
+                            cloud, packing.GridSpec.fit_bounds(lo, hi, edge),
+                            lo, hi, (lo, hi), self.tile_m,
+                            segment_wide=True)
+                        for edge, _ in self.scaleset)
+                    if plans_key is not None:
+                        self._multichip_caps_cache[plans_key] = interp_plans
+            if len(self._multichip_caps_cache) > 16:
+                self._multichip_caps_cache.clear()
+        run = pmesh.make_fused_predict_2d(
+            mesh, shards["halo_x"], shards["halo_y"], self.scaleset,
+            self.kind, lo, hi, rows, clf_params, precision=self.precision,
+            backend=self.backend, c_caps=c_caps, n_attr=n_attr,
+            vector_s_cap=self.vector_s_cap, interp_plans=interp_plans)
+        labels, dropped = run(blocks, shards["valid"])
+        n_dropped = int(sum(int(d) for d in dropped))
+        if n_dropped:
+            warnings.warn(
+                f"multichip serving truncated {n_dropped} candidates "
+                "or interpolation rows (per-shard packing denser than "
+                "the host sizing bound); refit or raise the capacity "
+                "margin.", RuntimeWarning, stacklevel=2)
+        return tiles.unshard(
+            pmesh.gather_host(labels), shards["valid"], shards["order"],
+            len(cloud)).astype(np.int32)

@@ -12,8 +12,11 @@ step, the random-projection-tree forest (its device fit, its walks
 and its serving step), the XLA tile path, the dense method and an
 ``xla`` model's serving step on the card against the CPU; the kNN and radius neighbor search
 (ties on a 1/8 m grid, a candidate at exactly ``f32(r*r)``) and the kNN
-features on the card against the CPU, and the host-classifier route
-(a NumPy classifier, no sklearn) on the card.
+features on the card against the CPU, the host-classifier route
+(a NumPy classifier, no sklearn) on the card, and the multi-device
+layer on a (2, 2) mesh of one card's four entries against a CPU mesh
+(``predict_multichip`` on the packed and span backends, the 2-D sharded
+extraction, the forest's mesh fit bit-equal to its single-device fit).
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -859,3 +862,61 @@ def test_host_classifier_route_on_card(cuda):
     cpu.install_classifier(gpu.classifier, cloud)
     agree = float((cpu.predict(cloud) == got.cpu().numpy()).mean())
     assert agree >= 0.999, agree
+
+
+# -- the multi-device layer ---------------------------------------------------
+
+def _mesh_of(device, shape=(2, 2)):
+    """A (2, 2) mesh whose four entries are one device."""
+    from nimrud_tpu_torch.parallel import mesh as pmesh
+    return pmesh.make_mesh_2d(shape, devices=[device] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("backend,kernel", [("packed", pm.packed_moments),
+                                            ("pallas", gk.span_moments)])
+def test_multichip_serving_on_card_matches_cpu_mesh(cuda, backend, kernel):
+    from nimrud_tpu_torch.pipeline import GeometryClassifier
+    cloud, labels, _ = _drive_scene(per=500)
+    kw = {"backend": backend, "bounds": (cloud.min(0), cloud.max(0))}
+    gpu = GeometryClassifier([(0.2, (0.8, 0.4))], device=cuda,
+                             classifier_kwargs={"epochs": 25, "seed": 0},
+                             **kw)
+    gpu.fit(cloud, labels)
+    clf = gpu.classifier
+    cpu = GeometryClassifier([(0.2, (0.8, 0.4))], device="cpu", **kw)
+    cpu.install_classifier(SoftmaxClassifier.from_state(
+        clf.params.w.cpu(), clf.params.b.cpu(), clf.mean_.cpu(),
+        clf.scale_.cpu(), device="cpu"), cloud)
+    before = kernel.launches
+    got = gpu.predict_multichip(cloud, (2, 2), mesh=_mesh_of(cuda))
+    assert kernel.launches > before
+    want = cpu.predict_multichip(cloud, (2, 2),
+                                 mesh=_mesh_of(torch.device("cpu")))
+    assert float((got == want).mean()) >= 0.999
+    assert float((got == labels).mean()) > 0.9
+
+
+def test_sharded_extract_2d_on_card_matches_cpu_mesh(cuda):
+    from nimrud_tpu_torch.parallel import mesh as pmesh
+    rng = np.random.default_rng(41)
+    points = (rng.random((4000, 3)) * [12, 6, 3]).astype(np.float32)
+    got, want = (pmesh.extract_multichip_2d(
+        points, (0.5, 0.25), mesh_shape=(2, 2), mesh=_mesh_of(device))
+        for device in (cuda, torch.device("cpu")))
+    np.testing.assert_array_equal(got[:, [0, 4]], want[:, [0, 4]])
+    sturdy = np.all(got[:, [0, 4]] >= 3, axis=1)
+    np.testing.assert_allclose(got[sturdy], want[sturdy], atol=2e-3)
+
+
+def test_fit_device_mesh_on_card_bit_equal_to_fit_device(cuda):
+    from nimrud_tpu_torch.parallel import mesh as pmesh
+    rng = np.random.default_rng(4)
+    feats = rng.random((4, 300, 6)).astype(np.float32)
+    valid = rng.random((4, 300)) > 0.2
+    labels = rng.integers(0, 3, (4, 300)).astype(np.int32)
+    single = RPTEnsemble(n_estimators=5, seed=11).fit_device(
+        torch.from_numpy(feats[valid]).to(cuda), labels[valid])
+    dist = RPTEnsemble(n_estimators=5, seed=11).fit_device_mesh(
+        feats, valid, labels, pmesh.make_mesh(4, devices=[cuda] * 4))
+    for key, value in single._tables.items():
+        assert torch.equal(dist._tables[key], value), key

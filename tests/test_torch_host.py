@@ -123,7 +123,9 @@ def test_import_loads_no_jax():
             "nimrud_tpu_torch.workflows.features, "
             "nimrud_tpu_torch.workflows.train, "
             "nimrud_tpu_torch.workflows.sweep, "
-            "nimrud_tpu_torch.workflows.viz; "
+            "nimrud_tpu_torch.workflows.viz, "
+            "nimrud_tpu_torch.parallel.mesh, "
+            "nimrud_tpu_torch.parallel.tiles; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nimrud_tpu.')) or m == 'nimrud_tpu');"
             " assert not bad, bad")
