@@ -298,7 +298,19 @@ Phases, one or more lines each:
               (the loss falls; step 0's loss and gradient within rtol
               1e-5 of one loss over the mesh's own rows, the (1, 1)
               program's beside them).
-Phases 10-15 print their wall time.
+16. bench  -- the benchmark (``python -m nimrud_tpu_torch.bench``, the
+              port of the reference's ``bench.py``) at full size in its
+              own process group, its deadline
+              (``NIMRUD_BENCH_DEADLINE_SEC``) what is left of the
+              script's 900 s budget less 30 s: the headline, designated,
+              10M and rpte stages, each in its own process.  Its JSON
+              line is printed as ``[bench] {...}``, with each stage's
+              numbers on a line of its own; it must exit 0, every stage
+              must have run without error, ``value`` > 0, every stage's
+              overflow counters 0, and every stage must have launched
+              ``packed_moments`` (and no other kernel); its launches join
+              the kernels line.
+Phases 10-16 print their wall time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.  The sazo,
@@ -385,6 +397,8 @@ MC_STURDY = 10             # tests' bound for every row, tests/
                            # test_parallel.py) where both radii hold 10+
                            # points
 MIN_MC_AGREE = 0.999       # and the reference's bar for mesh labels
+BENCH_BUDGET = 900         # the bench phase: the script's budget (s),
+BENCH_TAIL = 30            # of which the rest of the script keeps this
                            # against single-device labels
                            # (tests/test_pipeline.py:223-225)
 
@@ -3726,6 +3740,77 @@ def _multichip_phase(model, cloud, labels, clouds, truths, packed_labels,
     return dict(launches)
 
 
+def _bench_stage_text(key, rec):
+    """One stage of the benchmark's line, as text."""
+    trace = rec["trace"]
+    text = (f"{key}: predict_staged {rec['predict_ms']['median_ms']:.3f} ms "
+            f"median (spread {rec['predict_ms']['spread_ms']:.3f}, "
+            f"{rec['predict_ms']['runs']} steps), with stage "
+            f"{rec['step_with_stage_ms']['median_ms']:.3f} ms; trace window "
+            f"{trace['window_ms_per_step']:.3f} ms a step, busy "
+            f"{trace['busy_ms_per_step']:.3f}, idle share "
+            f"{trace['idle_share']:.4f}; launches a step "
+            f"{rec['launches_per_step']}; peak {rec['peak_gib']:.3f} GiB; "
+            f"counters {rec['overflow_counters']}; stage wall "
+            f"{rec['stage_wall_s']:.1f} s")
+    if "walk_ms" in rec:
+        text += f"; the walk alone {rec['walk_ms']:.3f} ms"
+    if "roofline" in rec:
+        roof = rec["roofline"]
+        text += (f"; payload {roof['bytes_total']} B, "
+                 f"{roof['achieved_payload_gbps']:.1f} GB/s, "
+                 f"{roof.get('pct_of_peak', float('nan')):.2f}% of peak")
+    return text
+
+
+def _bench_phase(started):
+    """Phase 16: ``python -m nimrud_tpu_torch.bench`` in its own process
+    group under what is left of ``BENCH_BUDGET``; the group is killed if
+    it outlives that.  Returns the stages' ``packed_moments`` launches."""
+    import signal
+    deadline = BENCH_BUDGET - (time.monotonic() - started) - BENCH_TAIL
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, NIMRUD_BENCH_DEADLINE_SEC=f"{deadline:.0f}",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    print(f"[bench] deadline {deadline:.0f} s", flush=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nimrud_tpu_torch.bench"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=deadline + 15)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    for line in err.strip().splitlines()[-40:]:
+        print(f"[bench] {line}", flush=True)
+    line = out.strip().splitlines()[-1] if out.strip() else ""
+    print(f"[bench] {line}", flush=True)
+    _check(proc.returncode == 0, f"the benchmark exited {proc.returncode}")
+    result = json.loads(line)
+    _check(result["value"] is not None and result["value"] > 0,
+           f"the benchmark's value {result['value']}")
+    stages = {k: v for k, v in result["detail"].items() if k != "budget"}
+    _check(len(stages) == 4, f"the benchmark ran {sorted(stages)}")
+    for key, rec in stages.items():
+        _check("error" not in rec and "skipped" not in rec,
+               f"bench stage {key}: {rec}")
+        _check(rec["counters_all_zero"], f"bench stage {key} overflowed: "
+               f"{rec['overflow_counters']}")
+        _check(rec["launches_per_step"].get("packed_moments", 0) > 0
+               and set(rec["launches_total"]) == {"packed_moments"},
+               f"bench stage {key} launches {rec['launches_total']}")
+        print(f"[bench] {_bench_stage_text(key, rec)}", flush=True)
+    print(f"[bench] value {result['value']:.1f} points/s "
+          f"({result['vs_baseline']:.1f}x the reference CPU pipeline); "
+          f"stage walls {result['detail']['budget']['stage_walls_sec']}",
+          flush=True)
+    return sum(rec["launches_total"]["packed_moments"]
+               for rec in stages.values())
+
+
 def _build_phase(cuda_build):
     """Build every kernel, all nvcc processes together; print ptxas's
     usage and the tensor-core instructions of each template instance.
@@ -3762,6 +3847,7 @@ def main():
                              "tiled runs of band 0; write the traces and "
                              "kernel tables to DIR")
     args = parser.parse_args()
+    started = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3882,6 +3968,13 @@ def main():
             launches[kernel] = launches.get(kernel, 0) + n
     print(f"[launches] the multichip phase: "
           f"{ {k: n for k, n in walled['multichip'].items() if n} }",
+          flush=True)
+    torch.cuda.empty_cache()           # the benchmark's processes allocate
+    t0 = time.perf_counter()
+    benched = _bench_phase(started)
+    launches["packed_moments"] += benched
+    print(f"[bench] phase wall {time.perf_counter() - t0:.1f} s; "
+          f"packed_moments: {benched} in the benchmark's four stages",
           flush=True)
 
     sources = {

@@ -10,13 +10,15 @@ Replaces the reference's interactive input()-driven workflows
   nimrud-torch train     <archive> --features A [A ...] [--classifier C] ...
   nimrud-torch evaluate  <archive> --predicted A --truth A
   nimrud-torch export    <archive> --labels A -o out.csv [--proba A]
+  nimrud-torch bench     [--points N]
   nimrud-torch sweep     [--points N] [--methods M ...] ...
 
 ``--device`` (default ``cuda``) takes the place of the reference's
 ``--platform``: the extraction and the device classifiers run there.
-The reference's ``bench`` subcommand runs its JAX benchmark and has no
-counterpart here.  Also ``python -m nimrud_tpu_torch.cli``.  Run any
-subcommand with -h for its options.
+``bench`` runs the benchmark (``nimrud_tpu_torch.bench``) on that
+device; unlike the reference's, its ``--points`` reaches the 1M
+stages.  Also ``python -m
+nimrud_tpu_torch.cli``.  Run any subcommand with -h for its options.
 """
 
 import argparse
@@ -138,6 +140,16 @@ def cmd_export(args):
     print(json.dumps({"written": path}))
 
 
+def cmd_bench(args):
+    from nimrud_tpu_torch import bench
+    argv = ["--device", args.device]
+    if args.points:
+        argv += ["--points", str(args.points)]
+    rc = bench.main(argv)
+    if rc:
+        raise SystemExit(rc)
+
+
 def cmd_sweep(args):
     from nimrud_tpu_torch.workflows.sweep import sweep_extraction
     ranked = sweep_extraction(
@@ -221,6 +233,10 @@ def build_parser():
     p.add_argument("--proba", default=None)
     p.add_argument("-o", "--output", required=True)
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("bench", help="run the throughput benchmark")
+    p.add_argument("--points", type=int, default=None)
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser(
         "sweep", help="sweep extraction tuning knobs for throughput")

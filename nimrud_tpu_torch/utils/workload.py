@@ -1,7 +1,12 @@
 """
 The headline workload (copy of ``nimrud_tpu/utils/workload.py``
 ``make_bench_cloud`` and ``make_bench_model``): a 1M-point outdoor
-LiDAR-style scene and the production serving configuration on it.
+LiDAR-style scene and the production serving configuration on it; and
+the benchmark's byte model of a serving step (``roofline_payload``,
+``roofline_rates``, the reference's formula).
+
+Not ported: the reference's ``project_v5p`` and its v5e attribution
+table (a TPU projection) and ``lower_predict`` (an XLA lowering).
 """
 
 import numpy as np
@@ -71,3 +76,106 @@ def make_bench_attributes(labels, seed=3):
     return np.stack(
         [labels + 0.05 * rng.standard_normal(len(labels)),
          rng.random(len(labels))], axis=1).astype(np.float32)
+
+
+# The card whose peak HBM rate ``pct_of_peak`` is reckoned against: the
+# H100 SXM 80GB HBM3 of the kernels' bounds (``HBM_BYTES``).
+PEAK_CARD = "H100 80GB HBM3"
+
+
+def _packed_lane_total(c_cap, e_cap, entry_chunk):
+    """Candidate lanes one band's packed gather moves a step: every entry
+    slot (live or dead -- dead slots fetch the FAR sentinel row) costs
+    its rank bucket's capacity.  ``c_cap`` is an int or (caps, bounds)
+    as ``span_host.candidate_caps_split`` gives it; the bucket edges
+    restart in each chunk of ``entry_chunk`` entries (None: one chunk)."""
+    if isinstance(c_cap, tuple):
+        caps, bounds = c_cap
+    else:
+        caps, bounds = (int(c_cap),), ()
+    chunk = e_cap if entry_chunk is None else int(entry_chunk)
+    edges = (0,) + tuple(bounds) + (chunk,)
+    total = 0
+    for start in range(0, e_cap, chunk):
+        length = min(chunk, e_cap - start)
+        for cap, a, b in zip(caps, edges[:-1], edges[1:]):
+            total += max(min(b, length) - min(a, length), 0) * cap
+    return total
+
+
+def roofline_payload(model, staged):
+    """Single-touch payload model of a packed serving step's data
+    movement (the reference's formula, so both packages give the same
+    bytes for the same specs): every major buffer counted once a read
+    and once a write at its static (padded) device shape, each sort one
+    read + write pass.  A lower bound on the bytes the step moves.
+    The port's step moves others too, not counted: the uploads, the
+    (q_bucket,) query plan's int64 keys and scans, the moment slabs, a
+    ragged last entry chunk's buckets sized for that chunk alone.
+
+    ``staged`` is :meth:`GeometryClassifier.stage`'s dict (``specs``,
+    ``q_bucket``, ``s_bucket``, ``n_query``).  Returns the byte counts
+    by movement, the candidate and query lanes, the total and the bytes
+    a point."""
+    from nimrud_tpu_torch import pipeline
+
+    specs = staged["specs"]
+    n_q = int(staged["q_bucket"])
+    n_s = int(staged["s_bucket"])
+    rows = {}
+    # shared query plan: qid sort carrying 3 coord payloads, the two
+    # rank-compaction sorts (key+payload), the caller-order label sort
+    rows["plan_sort"] = 2 * n_q * (4 + 12)
+    rows["rank_sorts"] = 2 * 2 * n_q * (4 + 4)
+    rows["label_unsort"] = 2 * n_q * (4 + 4)
+    rows["unique_sorts"] = 0
+    rows["span_tables"] = 0
+    cand_lanes = 0
+    qt_lanes = 0
+    # every band's candidate gather runs over the shared pack plan (the
+    # finest band's grid), the basis its capacities were sized on
+    pack = min((s[1] for s in specs), key=lambda d: d.tile_edge)
+    chunk = pipeline._serving_entry_chunk(
+        pack.e_cap, pack.q_cap, model.serving_chunk_slots)
+    for _, _, _, _, v_cap, c_cap in specs:
+        # per-band voxel dedup: key sort + (tile-id, key) compaction sort
+        rows["unique_sorts"] += 2 * n_s * 4 + 2 * n_s * (4 + 4)
+        sv = int(v_cap) if v_cap else n_s
+        # span starts/lens scans + counts scatter over the band's search
+        rows["span_tables"] += 2 * sv * 4 * 2
+        if c_cap is not None:
+            cand_lanes += _packed_lane_total(c_cap, pack.e_cap, chunk)
+            qt_lanes = max(qt_lanes, pack.e_cap * pack.q_cap)
+    # candidate pack gather: 4 B index read + 12 B row read + 12 B write
+    rows["candidate_gather"] = cand_lanes * (4 + 12 + 12)
+    # the kernel reads the packed block and the query block again
+    rows["kernel_reads"] = cand_lanes * 12 + qt_lanes * 12
+    # shared (E, q_cap) query gather (once for all bands)
+    rows["qt_gather"] = qt_lanes * (4 + 12 + 12)
+    total = int(sum(rows.values()))
+    return {
+        "model": ("single-touch payload bytes at static device shapes "
+                  "(lower bound; sorts counted one read+write pass)"),
+        "movements_bytes": {k: int(v) for k, v in rows.items()},
+        "candidate_lanes": int(cand_lanes),
+        "qt_lanes": int(qt_lanes),
+        "bytes_total": total,
+        "bytes_per_point": round(total / max(int(staged["n_query"]), 1),
+                                 1),
+    }
+
+
+def roofline_rates(payload, window_ms, device_name):
+    """``payload`` with its achieved rate over ``window_ms`` (GB/s) and,
+    on the ``PEAK_CARD`` (the H100 SXM 80GB HBM3), the peak HBM rate and
+    the achieved share of it; any other card gets neither."""
+    out = dict(payload)
+    gbps = payload["bytes_total"] / (window_ms * 1e-3) / 1e9
+    out["window_ms"] = window_ms
+    out["achieved_payload_gbps"] = gbps
+    out["device"] = device_name
+    if PEAK_CARD in device_name:
+        from nimrud_tpu_torch.ops.kernels.multiscale_kernel import HBM_BYTES
+        out["peak_hbm_gbps"] = HBM_BYTES / 1e9
+        out["pct_of_peak"] = 100.0 * gbps / out["peak_hbm_gbps"]
+    return out

@@ -3,10 +3,9 @@ The port's command line (``nimrud_tpu_torch.cli``) against the JAX
 package's, on the CPU.
 
 * The parsers: the same subcommands and, for each, the same options with
-  the same defaults, types, ``nargs``, choices and ``required``.  Two
-  differences, named here: ``--device`` (default ``cuda``) takes the
-  place of ``--platform``, and ``bench`` (the reference's JAX benchmark)
-  is not registered.
+  the same defaults, types, ``nargs``, choices and ``required``.  One
+  difference, named here: ``--device`` (default ``cuda``) takes the
+  place of ``--platform``.
 * The reference's end-to-end sequence (ingest, features, train,
   evaluate, export, info) through both ``main``s on the same files, the
   port with ``--device cpu``: the printed JSON equal, except the numbers
@@ -37,7 +36,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: the only differences of the parsers
 REPLACED_OPTION = ("--platform", "--device")
-UNPORTED_SUBCOMMANDS = {"bench"}
 
 
 class _Parsed(Exception):
@@ -86,11 +84,9 @@ def test_parsers_equal_reference_but_the_device(monkeypatch):
     assert got.pop(REPLACED_OPTION[1]) == ("cuda", None, None, None, False)
     assert got == want
     ref_sub, port_sub = _subparsers(ref), _subparsers(port)
-    assert set(ref_sub) - set(port_sub) == UNPORTED_SUBCOMMANDS
-    assert set(port_sub) == {"ingest", "info", "features", "train",
-                             "evaluate", "export", "sweep"}
-    assert list(port_sub) == [n for n in ref_sub
-                              if n not in UNPORTED_SUBCOMMANDS]
+    assert list(port_sub) == list(ref_sub) == [
+        "ingest", "info", "features", "train", "evaluate", "export",
+        "bench", "sweep"]
     for name, sub in port_sub.items():
         assert _describe(sub) == _describe(ref_sub[name]), name
         assert sub.get_default("fn").__name__ \
@@ -201,5 +197,5 @@ def test_cli_runs_as_a_module():
                            "-h"], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "{ingest,info,features,train,evaluate,export,sweep}" \
+    assert "{ingest,info,features,train,evaluate,export,bench,sweep}" \
         in proc.stdout and "--device" in proc.stdout

@@ -16,7 +16,8 @@ features on the card against the CPU, the host-classifier route
 (a NumPy classifier, no sklearn) on the card, and the multi-device
 layer on a (2, 2) mesh of one card's four entries against a CPU mesh
 (``predict_multichip`` on the packed and span backends, the 2-D sharded
-extraction, the forest's mesh fit bit-equal to its single-device fit).
+extraction, the forest's mesh fit bit-equal to its single-device fit),
+and the benchmark's headline stage at 100k points.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -24,6 +25,8 @@ They skip without a card.  On a machine with one:
 (``tests/conftest.py`` imports jax; ``--noconftest`` lets these tests run
 where jax is not installed.)
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -920,3 +923,19 @@ def test_fit_device_mesh_on_card_bit_equal_to_fit_device(cuda):
         feats, valid, labels, pmesh.make_mesh(4, devices=[cuda] * 4))
     for key, value in single._tables.items():
         assert torch.equal(dist._tables[key], value), key
+
+
+def test_bench_headline_on_card(cuda, capsys):
+    from nimrud_tpu_torch.bench import headline
+    line = headline.main(["--points", "100000"])
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1])["value"] == line["value"] > 0
+    assert line["device"] == torch.cuda.get_device_name(0)
+    # launches_total counts from the process's start: earlier tests' too
+    assert set(line["launches_per_step"]) == {"packed_moments"}
+    assert line["launches_per_step"]["packed_moments"] > 0
+    assert line["counters_all_zero"]
+    trace = line["trace"]
+    assert 0 < trace["busy_ms_per_step"] <= trace["window_ms_per_step"]
+    assert line["roofline"]["window_ms"] == trace["window_ms_per_step"]
+    assert line["train_accuracy"] > 0.8

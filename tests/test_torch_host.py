@@ -125,7 +125,10 @@ def test_import_loads_no_jax():
             "nimrud_tpu_torch.workflows.sweep, "
             "nimrud_tpu_torch.workflows.viz, "
             "nimrud_tpu_torch.parallel.mesh, "
-            "nimrud_tpu_torch.parallel.tiles; "
+            "nimrud_tpu_torch.parallel.tiles, nimrud_tpu_torch.bench, "
+            "nimrud_tpu_torch.bench._stage, nimrud_tpu_torch.bench.headline, "
+            "nimrud_tpu_torch.bench.designated, "
+            "nimrud_tpu_torch.bench.large, nimrud_tpu_torch.bench.rpte; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nimrud_tpu.')) or m == 'nimrud_tpu');"
             " assert not bad, bad")
