@@ -302,7 +302,9 @@ Phases, one or more lines each:
               port of the reference's ``bench.py``) at full size in its
               own process group, its deadline
               (``NIMRUD_BENCH_DEADLINE_SEC``) what is left of the
-              script's 900 s budget less 30 s: the headline, designated,
+              script's 900 s budget less 30 s (it runs last, after
+              phase 17, so that it gets what phase 17 leaves): the
+              headline, designated,
               10M and rpte stages, each in its own process.  Its JSON
               line is printed as ``[bench] {...}``, with each stage's
               numbers on a line of its own; it must exit 0, every stage
@@ -310,7 +312,36 @@ Phases, one or more lines each:
               overflow counters 0, and every stage must have launched
               ``packed_moments`` (and no other kernel); its launches join
               the kernels line.
-Phases 10-16 print their wall time.
+17. variants -- (runs before phase 16) the benchmark's variant stages
+              at full size, each
+              ``python -m nimrud_tpu_torch.bench.<stage>`` in its own
+              process group under ``VARIANT_TIMEOUT``: ``kinds vector``,
+              ``kinds oriented``, ``backends``, ``density urban`` and
+              ``density veg``.  Each line is printed as ``[variants]
+              {...}``, then a summary line; every process must exit 0,
+              every overflow counter be 0 and accuracy > 0.8 on the four
+              serving stages; ``vector`` may launch only the attribute
+              and chebyshev instances, ``oriented`` and both regimes
+              only ``packed_moments``; in ``backends`` the XLA variants
+              launch no kernel, ``pallas_spans`` only ``span_moments``
+              (three an extraction), and its feature sum lies within
+              ``SPAN_REL_TOLERANCE`` of ``xla_highest``'s.  Their
+              launches join the kernels line.  Then the backends
+              stage's three bands are rebuilt in process and
+              ``span_moments`` is held against its twin at each band's
+              span problem as ``fused_extract_spans`` forms it (q_cap
+              128, entry batches of 256); the three bands' feature sum
+              from the kernel's slabs must lie within
+              ``SPAN_REL_TOLERANCE`` of the stage's ``xla_highest`` sum
+              and that of a bf16 control (the same slabs rounded to
+              bf16) past it.  Then for each regime the
+              bench model is fit in process on
+              ``bench.density.make_regime_cloud`` and ``packed_moments``
+              held against its twin at the largest-capacity bucket of
+              every band of its serving step (``_served_problems``):
+              counts equal, moments within ``moment_tolerance``; time,
+              bound, share and error as in phase 3.
+Phases 10-17 print their wall time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.  The sazo,
@@ -397,10 +428,23 @@ MC_STURDY = 10             # tests' bound for every row, tests/
                            # test_parallel.py) where both radii hold 10+
                            # points
 MIN_MC_AGREE = 0.999       # and the reference's bar for mesh labels
-BENCH_BUDGET = 900         # the bench phase: the script's budget (s),
-BENCH_TAIL = 30            # of which the rest of the script keeps this
                            # against single-device labels
                            # (tests/test_pipeline.py:223-225)
+BENCH_BUDGET = 900         # the bench phase: the script's budget (s),
+BENCH_TAIL = 30            # of which the rest of the script keeps this
+VARIANT_STAGES = (("kinds", "vector"), ("kinds", "oriented"),
+                  ("backends",), ("density", "urban"), ("density", "veg"))
+VARIANT_TIMEOUT = 240      # s a variant stage's process may take
+# backends: pallas_spans' feature sum (the three bands, float64) against
+# xla_highest's.  Both sum the same neighbourhoods in other entry
+# frames.  On an H100 80GB HBM3 (700 W) the two sums lay 8.26e-9 apart
+# in two calls, the stage's line and this check's own sum alike, and a
+# bf16 control (the kernel's slabs rounded
+# to bf16, ``_backends_holds``) lay 1.42e-4 apart: the tolerance sits
+# about 120x above the one and 140x below the other.  The elementwise
+# hold of each band's slabs is the strict check; this one ties the
+# kernel's features to an independent implementation's.
+SPAN_REL_TOLERANCE = 1e-6
 
 
 def _check(ok, what):
@@ -511,15 +555,15 @@ def _only(counts, names, what):
            f"{what} ran another kernel: {counts}")
 
 
-def _staged_band0(model, cloud, device):
-    """Band 0's serving inputs as ``predict_staged`` forms them: the
-    dequantized upload, its validity and the band's deduplicated,
+def _staged_band(model, cloud, device, index=0):
+    """Band ``index``'s serving inputs as ``predict_staged`` forms them:
+    the dequantized upload, its validity and the band's deduplicated,
     trimmed voxel centers."""
     import torch
     from nimrud_tpu_torch import pipeline
     from nimrud_tpu_torch.features import multiscale
 
-    band = model._fused_band_specs(cloud, cloud)[0]
+    band = model._fused_band_specs(cloud, cloud)[index]
     q_bucket = multiscale._pow2_bucket(len(cloud))
     quant, dequant = pipeline._quantize_upload(
         cloud, model.bounds[0], model.bounds[1], q_bucket, device)
@@ -537,7 +581,7 @@ def _packed_problems(model, cloud, device):
 
     problems = []
     # serving: band 0 (the pack grid) at q_cap 512, split capacities
-    band, query, valid, centers, mask = _staged_band0(model, cloud, device)
+    band, query, valid, centers, mask = _staged_band(model, cloud, device)
     plan = device_grid._pack_plan(query, valid, band[1])
     spans = device_grid._band_spans(plan, centers, mask, band[1],
                                     presorted=True)
@@ -659,24 +703,25 @@ def _total(rows):
 def _span_problem(model, cloud, device):
     """The span serving path's band-0 kernel inputs: (args, radii,
     span_rows)."""
-    import torch
     from nimrud_tpu_torch.ops import device_grid
 
-    band, query, valid, centers, mask = _staged_band0(model, cloud, device)
+    band, query, valid, centers, mask = _staged_band(model, cloud, device)
     prob = device_grid._span_problem(query, valid, centers, mask, band[1])
-    args = (prob["q_local"].contiguous(), prob["centers"].contiguous(),
-            prob["span_starts"].to(torch.int32).contiguous(),
-            prob["span_lens"].to(torch.int32).contiguous(),
-            prob["sorted_pts"].contiguous())
-    return args, band[2], prob["span_rows"]
+    return device_grid.span_args(prob), band[2], prob["span_rows"]
 
 
 def _span_kernel_phase(model, cloud, device):
     """span_moments vs plain at the span serving path's band-0 shapes."""
+    return _span_hold("serving band 0", *_span_problem(model, cloud, device))
+
+
+def _span_hold(what, args, radii, span_rows):
+    """span_moments vs plain on one span problem's ``args``
+    (``device_grid.span_args``); prints the kernel line.  Returns (the
+    numbers of :func:`_hold`, the work)."""
     import torch
     from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
 
-    args, radii, span_rows = _span_problem(model, cloud, device)
     totals = torch.clamp(args[3], 0, span_rows).sum(1)
     shape = (f"E={args[0].shape[0]} q_cap={args[0].shape[1]} "
              f"n_span={args[2].shape[1]} span_rows={span_rows} "
@@ -690,7 +735,7 @@ def _span_kernel_phase(model, cloud, device):
         lambda p: gk.span_moments_plain(*args, radii, span_rows,
                                         precision=p),
         lambda ref: gk.span_tolerance(ref, *args[1:], span_rows))
-    print(f"[kernel] span_moments serving band 0 {shape}: "
+    print(f"[kernel] span_moments {what} {shape}: "
           f"{_work_text(rec, work)}", flush=True)
     return rec, work
 
@@ -1822,10 +1867,7 @@ def _exclusion_kernels(model, cloud, band0, device):
                     - with_e[..., COUNT_COLS].sum())
     share = removed / out["packed_moments_excl"][1]["pairs"]
 
-    args = (prob["q_local"].contiguous(), prob["centers"].contiguous(),
-            prob["span_starts"].to(torch.int32).contiguous(),
-            prob["span_lens"].to(torch.int32).contiguous(),
-            prob["sorted_pts"].contiguous())
+    args = device_grid.span_args(prob)
     rows = prob["span_rows"]
     work = gk.span_moments_work(*args, radii, rows, exclude_radius=e)
     rec = _hold(
@@ -2437,31 +2479,33 @@ def _chunking(model, cloud):
     return sizing_s, pack.e_cap, pack.q_cap, chunk, n_chunks
 
 
-def _chunk_problems(model, cloud, device):
-    """Band 0's kernel inputs on the chunked serving path: the capacity
-    buckets of the first entry chunk, of the chunk holding the last
-    live entry and of the last (ragged) chunk, each split within its
-    chunk at the chunked capacities, as
-    ``fused_extract_packed_multi(entry_chunk=)`` splits them (entries
-    past the live ones, which e_cap's estimate leaves, run as dead
-    lanes).  Returns ``[((lo, hi), (q_t, cand_t, centers), radii)]`` a
-    bucket."""
+def _served_problems(model, cloud, device, index=0, pick=None):
+    """Band ``index``'s kernel inputs on the packed serving path, as
+    ``fused_extract_packed_multi`` forms them: the shared plan on the
+    pack grid, the band's spans against it, then in each entry chunk
+    (one chunk where the step is un-chunked) the capacity buckets split
+    within the chunk at the band's capacities (entries past the live
+    ones, which e_cap's estimate leaves, run as dead lanes).
+    ``pick(chunk, e_cap, plan)`` gives the starts of the chunks to keep
+    (default every chunk).  Returns ``[((lo, hi), (q_t, cand_t,
+    centers), radii)]`` a bucket."""
     from nimrud_tpu_torch import pipeline
     from nimrud_tpu_torch.ops import device_grid
 
-    band, query, valid, centers, mask = _staged_band0(model, cloud, device)
+    band, query, valid, centers, mask = _staged_band(model, cloud, device,
+                                                     index)
     pack = min((b[1] for b in model._fused_band_specs(cloud, cloud)),
                key=lambda spec: spec.tile_edge)
-    chunk = pipeline._serving_entry_chunk(pack.e_cap, pack.q_cap,
-                                          model.serving_chunk_slots)
+    chunk = pipeline._serving_entry_chunk(
+        pack.e_cap, pack.q_cap, model.serving_chunk_slots) or pack.e_cap
     plan = device_grid._pack_plan(query, valid, pack)
     spans = device_grid._band_spans(plan, centers, mask, band[1],
                                     presorted=True)
     sorted3 = device_grid._far_extended(spans["sorted_pts"])
-    last_live = int((plan["count"] > 0).nonzero().max())
+    starts = range(0, pack.e_cap, chunk) if pick is None \
+        else pick(chunk, pack.e_cap, plan)
     problems = []
-    for lo in sorted({0, last_live // chunk * chunk,
-                      (pack.e_cap - 1) // chunk * chunk}):
+    for lo in starts:
         hi = min(lo + chunk, pack.e_cap)
         buckets, _ = device_grid._bucket_problems(
             plan["q_t"][lo:hi], plan["centers"][lo:hi],
@@ -2469,6 +2513,18 @@ def _chunk_problems(model, cloud, device):
             band[5])
         problems += [((lo, hi), b[:3], band[2]) for b in buckets]
     return problems
+
+
+def _chunk_problems(model, cloud, device):
+    """Band 0's kernel inputs on the chunked serving path
+    (:func:`_served_problems`): the capacity buckets of the first entry
+    chunk, of the chunk holding the last live entry and of the last
+    (ragged) chunk."""
+    def ends(chunk, e_cap, plan):
+        last_live = int((plan["count"] > 0).nonzero().max())
+        return sorted({0, last_live // chunk * chunk,
+                       (e_cap - 1) // chunk * chunk})
+    return _served_problems(model, cloud, device, pick=ends)
 
 
 def _large_phase(device):
@@ -3763,32 +3819,43 @@ def _bench_stage_text(key, rec):
     return text
 
 
-def _bench_phase(started):
-    """Phase 16: ``python -m nimrud_tpu_torch.bench`` in its own process
-    group under what is left of ``BENCH_BUDGET``; the group is killed if
-    it outlives that.  Returns the stages' ``packed_moments`` launches."""
+def _group_run(args, timeout, tag, env=None):
+    """``python -m <args>`` from the repository root in its own process
+    group, killed with its group if it outlives ``timeout``; the last 40
+    lines of its stderr printed under ``[tag]``.  Returns (exit code,
+    its last stdout line)."""
     import signal
-    deadline = BENCH_BUDGET - (time.monotonic() - started) - BENCH_TAIL
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, NIMRUD_BENCH_DEADLINE_SEC=f"{deadline:.0f}",
+    env = dict(os.environ if env is None else env,
                PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
-    print(f"[bench] deadline {deadline:.0f} s", flush=True)
     proc = subprocess.Popen(
-        [sys.executable, "-m", "nimrud_tpu_torch.bench"], cwd=root, env=env,
+        [sys.executable, "-m", *args], cwd=root, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=deadline + 15)
+        out, err = proc.communicate(timeout=timeout)
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.communicate()
     for line in err.strip().splitlines()[-40:]:
-        print(f"[bench] {line}", flush=True)
+        print(f"[{tag}] {line}", flush=True)
     line = out.strip().splitlines()[-1] if out.strip() else ""
-    print(f"[bench] {line}", flush=True)
-    _check(proc.returncode == 0, f"the benchmark exited {proc.returncode}")
+    print(f"[{tag}] {line}", flush=True)
+    return proc.returncode, line
+
+
+def _bench_phase(started):
+    """Phase 16: ``python -m nimrud_tpu_torch.bench`` in its own process
+    group under what is left of ``BENCH_BUDGET``; the group is killed if
+    it outlives that.  Returns the stages' ``packed_moments`` launches."""
+    deadline = BENCH_BUDGET - (time.monotonic() - started) - BENCH_TAIL
+    print(f"[bench] deadline {deadline:.0f} s", flush=True)
+    rc, line = _group_run(
+        ["nimrud_tpu_torch.bench"], deadline + 15, "bench",
+        dict(os.environ, NIMRUD_BENCH_DEADLINE_SEC=f"{deadline:.0f}"))
+    _check(rc == 0, f"the benchmark exited {rc}")
     result = json.loads(line)
     _check(result["value"] is not None and result["value"] > 0,
            f"the benchmark's value {result['value']}")
@@ -3809,6 +3876,160 @@ def _bench_phase(started):
           flush=True)
     return sum(rec["launches_total"]["packed_moments"]
                for rec in stages.values())
+
+
+def _backends_text(rec):
+    """The backends stage's line, as text."""
+    return "backends: " + "; ".join(
+        f"{name} {1e3 * sec:.3f} ms an extraction of the three bands "
+        f"({rec['point_scales_per_sec_M'][name]:.1f}M point-scales/s), "
+        f"launches {rec['launches_per_extract'][name]}, feature sum "
+        f"{rec['checks'][name]['feature_sum']:.9g} (relative to "
+        f"xla_highest {rec['checks'][name]['rel_vs_xla_highest']:.3g})"
+        for name, sec in rec["device_compute_sec_per_extract"].items()) \
+        + f"; stage wall {rec['stage_wall_s']:.1f} s"
+
+
+def _variant_stage(args):
+    """One variant stage's process (phase 17), its line checked.
+    Returns its line."""
+    name = " ".join(args)
+    rc, line = _group_run([f"nimrud_tpu_torch.bench.{args[0]}", *args[1:]],
+                          VARIANT_TIMEOUT, "variants")
+    _check(rc == 0, f"variant stage {name} exited {rc}")
+    rec = json.loads(line)
+    total = set(rec["launches_total"])
+    if args[0] == "backends":
+        per = rec["launches_per_extract"]
+        _check(per["xla_highest"] == per["xla_mixed"] == {}
+               and per["pallas_spans"] == {"span_moments": 3}
+               and total == {"span_moments"},
+               f"backends launches {per}, in all {rec['launches_total']}")
+        rel = rec["checks"]["pallas_spans"]["rel_vs_xla_highest"]
+        _check(rel is not None and rel <= SPAN_REL_TOLERANCE,
+               f"backends pallas_spans: feature sum {rel} off "
+               f"xla_highest's, past {SPAN_REL_TOLERANCE}")
+        print(f"[variants] {_backends_text(rec)}", flush=True)
+        return rec
+    want = {"packed_moments_attr", "packed_moments_interp"} \
+        if "vector" in args else {"packed_moments"}
+    _check(rec["counters_all_zero"], f"variant stage {name} overflowed: "
+           f"{rec['overflow_counters']}")
+    _check(rec["train_accuracy"] > 0.8, f"variant stage {name} accuracy "
+           f"{rec['train_accuracy']}")
+    _check(set(rec["launches_per_step"]) == want and total == want,
+           f"variant stage {name} launches {rec['launches_total']}")
+    text = _bench_stage_text(name, rec) \
+        + f"; accuracy {rec['train_accuracy']:.4f}"
+    if "cap_buckets_per_band" in rec:
+        text += (f"; site {rec['site_extent_m']} m; capacities a band "
+                 f"{rec['cap_buckets_per_band']}; plan occupancy "
+                 f"{rec['plan_occupancy']}")
+    print(f"[variants] {text}", flush=True)
+    return rec
+
+
+def _density_holds(device):
+    """Phase 17's kernel holds: for each regime the bench model fit on
+    ``bench.density.make_regime_cloud``, then ``packed_moments`` against
+    its twin at the largest-capacity bucket of each band of the serving
+    step."""
+    import torch
+    from nimrud_tpu_torch.bench import density
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+    from nimrud_tpu_torch.utils import workload
+
+    for regime in density.REGIMES:
+        cloud, labels = density.make_regime_cloud(regime)
+        model = workload.make_bench_model(cloud, device=device)
+        model.fit(cloud, labels, sample=FIT_SAMPLE)
+        for index in range(len(model.scaleset)):
+            problems = _served_problems(model, cloud, device, index)
+            caps = [cand_t.shape[1] // q_t.shape[0]
+                    for _, (q_t, cand_t, _), _ in problems]
+            (lo, hi), (q_t, cand_t, cen), rr = problems[
+                caps.index(max(caps))]
+            del problems
+            shape = (f"{regime} band {index} chunk [{lo}, {hi}): "
+                     f"E={q_t.shape[0]} q_cap={q_t.shape[2]} c_cap="
+                     f"{max(caps)} radii={len(rr)} (capacities {caps})")
+            rec = _hold(
+                f"packed_moments density {shape}",
+                lambda p: pm.packed_moments(q_t, cand_t, cen, rr,
+                                            precision=p),
+                lambda p: pm.packed_moments_plain(q_t, cand_t, cen, rr,
+                                                  precision=p),
+                lambda ref: pm.moment_tolerance(ref, cand_t, cen))
+            work = pm.packed_moments_work(q_t, cand_t, cen, rr)
+            live = work["pairs"] / (q_t.shape[0] * max(caps) * q_t.shape[2])
+            print(f"[kernel] packed_moments density {shape} (live share of "
+                  f"lanes {live:.3f}): {_work_text(rec, work)}", flush=True)
+            del q_t, cand_t, cen
+        del model
+        torch.cuda.empty_cache()
+
+
+def _backends_holds(device, xla_sum):
+    """Phase 17's span holds: the backends stage's cloud and bands, built
+    here as the stage builds them, and ``span_moments`` against its twin
+    at each band's span problem as ``fused_extract_spans`` forms it.  Then
+    the three bands' feature sum from the kernel's slabs and from a bf16
+    control (the same slabs rounded to bf16), each relative to the
+    stage's ``xla_highest`` sum ``xla_sum``: the kernel's must lie within
+    ``SPAN_REL_TOLERANCE`` and the control's past it."""
+    import numpy as np
+    import torch
+    from nimrud_tpu_torch.bench import backends
+    from nimrud_tpu_torch.ops import device_grid
+    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+
+    cloud = backends.make_cloud(backends.N_POINTS, np.random.default_rng(0))
+    n = len(cloud)
+    query = torch.from_numpy(cloud).to(device)
+    q_valid = torch.ones(n, dtype=torch.bool, device=device)
+    sums = {"kernel": 0.0, "bf16 control": 0.0}
+    for edge, (centers, mask, spec, radii) in zip(
+            backends.EDGES, backends.make_bands(cloud, query)):
+        prob = device_grid._span_problem(query, q_valid, centers, mask, spec)
+        args = device_grid.span_args(prob)
+        rows = prob["span_rows"]
+        _span_hold(f"backends band edge {edge} radius {radii[0]}", args,
+                   radii, rows)
+        slabs = gk.span_moments(*args, radii, rows)
+        for name, got in (("kernel", slabs),
+                          ("bf16 control", slabs.to(torch.bfloat16).float())):
+            feats = device_grid.span_features(got, prob, spec, radii,
+                                              "minimal", n, n)
+            sums[name] += float(feats.sum(dtype=torch.float64))
+        del prob, args, slabs, feats
+    rel = {k: abs(v - xla_sum) / abs(xla_sum) for k, v in sums.items()}
+    print(f"[variants] backends: the three bands' feature sum relative to "
+          f"xla_highest's ({xla_sum:.9g}): " + ", ".join(
+              f"{k} {sums[k]:.9g} ({v:.3g})" for k, v in rel.items())
+          + f"; tolerance {SPAN_REL_TOLERANCE}", flush=True)
+    _check(rel["kernel"] <= SPAN_REL_TOLERANCE,
+           f"backends: the span kernel's feature sum {rel['kernel']} off "
+           f"xla_highest's, past {SPAN_REL_TOLERANCE}")
+    _check(rel["bf16 control"] > SPAN_REL_TOLERANCE,
+           f"backends: the bf16 control's feature sum {rel['bf16 control']}"
+           f" lies within {SPAN_REL_TOLERANCE}")
+
+
+def _variants_phase(device):
+    """Phase 17: the five variant stages, each in its own process, then
+    the span holds at the backends stage's bands and the density holds.
+    Returns the stages' launches by kernel name."""
+    import torch
+    torch.cuda.empty_cache()           # the stages' processes allocate
+    launches = collections.Counter()
+    recs = {}
+    for args in VARIANT_STAGES:
+        recs[args] = _variant_stage(args)
+        launches.update(recs[args]["launches_total"])
+    _backends_holds(device, recs[("backends",)]["checks"]["xla_highest"]
+                    ["feature_sum"])
+    _density_holds(device)
+    return dict(launches)
 
 
 def _build_phase(cuda_build):
@@ -3969,13 +4190,19 @@ def main():
     print(f"[launches] the multichip phase: "
           f"{ {k: n for k, n in walled['multichip'].items() if n} }",
           flush=True)
+    t0 = time.perf_counter()
+    varied = _variants_phase(device)
+    for kernel, n in varied.items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    print(f"[variants] phase wall {time.perf_counter() - t0:.1f} s; "
+          f"launches in the five stages {varied}", flush=True)
     torch.cuda.empty_cache()           # the benchmark's processes allocate
     t0 = time.perf_counter()
     benched = _bench_phase(started)
     launches["packed_moments"] += benched
     print(f"[bench] phase wall {time.perf_counter() - t0:.1f} s; "
-          f"packed_moments: {benched} in the benchmark's four stages",
-          flush=True)
+          f"packed_moments: {benched} in the benchmark's four stages; the "
+          f"script {time.monotonic() - started:.1f} s", flush=True)
 
     sources = {
         "packed_moments": ("packed_moments",

@@ -18,6 +18,11 @@ line:
   4. ``rpte_serving`` -- the random-projection tree ensemble in the serving
      step (``bench/rpte.py``).
 
+The variant stages (``bench/kinds.py``, ``bench/backends.py``,
+``bench/density.py``, the reference's ``scripts/bench_kinds.py``,
+``bench_backends.py`` and ``bench_density.py``) are run by hand, one a
+process, as the reference runs its scripts; they are not stages here.
+
 A global deadline (``NIMRUD_BENCH_DEADLINE_SEC``, default 1500 s) bounds
 the run: each stage gets the smaller of its cap and the time left, and a
 stage whose minimum no longer fits is recorded as ``{"skipped":

@@ -1,11 +1,12 @@
 """
-What the four benchmark stages share (the reference repeats it in each
-of its ``scripts/bench_*.py``): the command line (``--device``,
-``--points``), warm-up outside the timed window, step walls on the host
-clock ending in ``torch.cuda.synchronize()``, one ``torch.profiler``
-trace of a few steps read as the card's window, busy time, idle share
-and top kernels (``utils.profiling``), the moment kernels' launch
-counts, the peak device memory, and the one JSON line a stage prints.
+What the benchmark stages share (the reference repeats it in each of
+its ``scripts/bench_*.py``): the command line (``--device``,
+``--points``, and the kind or regime of a variant stage), warm-up
+outside the timed window, step walls on the host clock ending in
+``torch.cuda.synchronize()``, one ``torch.profiler`` trace of a few
+steps read as the card's window, busy time, idle share and top kernels
+(``utils.profiling``), the moment kernels' launch counts, the peak
+device memory, and the one JSON line a stage prints.
 
 A stage runs on the card unless ``--device cpu`` is given; on the CPU
 it traces nothing (a CPU trace has no device events) and its numbers
@@ -86,17 +87,27 @@ def trace_summary(events, runs):
 class Stage:
     """One stage's process: its arguments, device and clock."""
 
-    def __init__(self, name, argv, default_points):
+    def __init__(self, name, argv, default_points, choices=None):
+        """``choices``: the values of the stage's one positional argument
+        (a variant stage's kind or regime; the first is the default),
+        kept as ``self.choice``; any other value exits with argparse's
+        usage error."""
         import torch
 
         parser = argparse.ArgumentParser(
             prog=f"python -m nimrud_tpu_torch.bench.{name}")
+        if choices:
+            parser.add_argument("choice", nargs="?", choices=choices,
+                                default=choices[0],
+                                help=f"one of {', '.join(choices)} "
+                                     f"(default {choices[0]})")
         parser.add_argument("--device", default="cuda",
                             help="torch device (default cuda)")
         parser.add_argument("--points", type=int, default=default_points,
                             help=f"cloud size (default {default_points})")
         args = parser.parse_args(argv)
         self.name = name
+        self.choice = getattr(args, "choice", None)
         self.n_points = args.points
         self.device = torch.device(args.device)
         self.cuda = self.device.type == "cuda"
@@ -140,6 +151,39 @@ class Stage:
             del staged, out
         return stage_ms, predict_ms, outs
 
+    def serve(self, stage, predict, cloud, staged=None, stream=None):
+        """The serving part of a stage's line: one warm-up step outside
+        the window (``predict`` of ``staged``, else of ``stage(cloud)``),
+        the timed steps (:meth:`steps`) of ``stream`` (default
+        :data:`TIMED_RUNS` times ``cloud``; ``predict`` returns (labels,
+        diagnostics)), the launches a step, the peak memory over the
+        timed steps, one traced window of ``predict`` on the warm-up's
+        staged cloud, and the overflow counters of every timed step.
+        Returns the line's fields and the timed steps' outputs."""
+        stream = [cloud] * TIMED_RUNS if stream is None else stream
+        staged = stage(cloud) if staged is None else staged
+        _, warm_s = self.seconds(lambda: predict(staged))
+        self.reset_peak()
+        before = launches()
+        stage_ms, predict_ms, outs = self.steps(stage, predict, stream)
+        per_step = launched_since(before, len(stream))
+        peak = self.peak_gib()
+        trace = self.trace([lambda: predict(staged)] * TRACE_RUNS)
+        median = statistics.median(predict_ms)
+        self.note(f"warm-up step {warm_s:.2f} s, predict_staged "
+                  f"{median:.3f} ms (median)")
+        return {"points_per_sec": self.n_points / (median / 1e3),
+                "timing_semantics": "host clock to torch.cuda.synchronize()",
+                "warmup_step_s": warm_s,
+                "predict_ms": summary(predict_ms),
+                "stage_ms": summary(stage_ms),
+                "step_with_stage_ms": summary(
+                    [s + p for s, p in zip(stage_ms, predict_ms)]),
+                "trace": trace,
+                "launches_per_step": per_step,
+                "peak_gib": peak,
+                **counters([diag for _, diag in outs])}, outs
+
     def trace(self, steps):
         """Trace ``steps`` (callables, run in turn, then synchronize) and
         summarize the card's part (:func:`trace_summary`); None on the
@@ -154,6 +198,16 @@ class Stage:
                     step()
                 self.sync()
             return trace_summary(profiling.trace_events(out), len(steps))
+
+    def roofline(self, model, staged, trace):
+        """The byte model of a staged step (``workload.roofline_payload``),
+        with its rates over the traced window where there is one."""
+        from nimrud_tpu_torch.utils import workload
+        roof = workload.roofline_payload(model, staged)
+        if trace is None:
+            return roof
+        return workload.roofline_rates(roof, trace["window_ms_per_step"],
+                                       self.device_name)
 
     def kernel_ms(self, fn, repeat=3):
         """Milliseconds a call of ``fn`` after a warm-up: CUDA events over

@@ -703,22 +703,37 @@ def fused_extract_spans(query, q_valid, search, s_valid, spec, radii,
             f"kind={kind!r}: the span kernel has no sazo fold and no "
             "attribute rows; such bands take the XLA path (fused_extract)")
     prob = _span_problem(query, q_valid, search, s_valid, spec)
-    centers = prob["centers"]
-    slabs = gk.span_moments(
-        prob["q_local"].contiguous(), centers.contiguous(),
-        prob["span_starts"].to(torch.int32).contiguous(),
-        prob["span_lens"].to(torch.int32).contiguous(),
-        prob["sorted_pts"].contiguous(), radii, prob["span_rows"],
-        exclude_radius=exclude_radius, precision=precision)
-    blocks = [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
-                                  prob["q_pts"], radius)
-              for p, radius in zip(moments_from_slabs(slabs, centers, radii),
-                                   radii)]
-    feats = torch.cat(blocks, dim=-1)
-    out = _unsort_features(feats, prob, spec, query.shape[0], n_out)
+    slabs = gk.span_moments(*span_args(prob), radii, prob["span_rows"],
+                            exclude_radius=exclude_radius,
+                            precision=precision)
+    out = span_features(slabs, prob, spec, radii, kind, query.shape[0],
+                        n_out)
     if not with_stats:
         return out
     return out, {"dropped_query": q_valid.sum() - prob["count"].sum()}
+
+
+def span_args(prob):
+    """The ``span_moments`` tensor arguments of a span problem
+    (:func:`_span_problem`): q_local, centers, span_starts, span_lens,
+    sorted_pts, contiguous, the span tables int32."""
+    return (prob["q_local"].contiguous(), prob["centers"].contiguous(),
+            prob["span_starts"].to(torch.int32).contiguous(),
+            prob["span_lens"].to(torch.int32).contiguous(),
+            prob["sorted_pts"].contiguous())
+
+
+def span_features(slabs, prob, spec, radii, kind, n_query, n_out):
+    """A span problem's moment slabs -> (n_out, width) ``kind`` features
+    in caller order."""
+    from nimrud_tpu_torch.features import layouts
+
+    blocks = [layouts.build_block(kind, p["count"], p["mean"], p["cov"],
+                                  prob["q_pts"], radius)
+              for p, radius in zip(
+                  moments_from_slabs(slabs, prob["centers"], radii), radii)]
+    return _unsort_features(torch.cat(blocks, dim=-1), prob, spec, n_query,
+                            n_out)
 
 
 def _max_candidates(query, q_valid, search, s_valid, spec):

@@ -17,7 +17,8 @@ features on the card against the CPU, the host-classifier route
 layer on a (2, 2) mesh of one card's four entries against a CPU mesh
 (``predict_multichip`` on the packed and span backends, the 2-D sharded
 extraction, the forest's mesh fit bit-equal to its single-device fit),
-and the benchmark's headline stage at 100k points.
+the benchmark's headline stage at 100k points, and its urban density
+stage at 100k points.
 They skip without a card.  On a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest
@@ -939,3 +940,17 @@ def test_bench_headline_on_card(cuda, capsys):
     assert 0 < trace["busy_ms_per_step"] <= trace["window_ms_per_step"]
     assert line["roofline"]["window_ms"] == trace["window_ms_per_step"]
     assert line["train_accuracy"] > 0.8
+
+
+def test_bench_density_urban_on_card(cuda, capsys):
+    from nimrud_tpu_torch.bench import density
+    line = density.main(["urban", "--points", "100000"])
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1])["mode"] == line["mode"] == "density_urban"
+    assert line["device"] == torch.cuda.get_device_name(0)
+    # launches_total counts from the process's start: earlier tests' too
+    assert set(line["launches_per_step"]) == {"packed_moments"}
+    assert line["counters_all_zero"]
+    assert any(len(band["caps"]) > 1 for band in line["cap_buckets_per_band"])
+    assert [row["edge"] for row in line["plan_occupancy"]] \
+        == list(workload.BENCH_EDGES)
