@@ -303,7 +303,7 @@ Phases, one or more lines each:
               own process group, its deadline
               (``NIMRUD_BENCH_DEADLINE_SEC``) what is left of the
               script's 900 s budget less 30 s (it runs last, after
-              phase 17, so that it gets what phase 17 leaves): the
+              phases 18 and 17, so that it gets what they leave): the
               headline, designated,
               10M and rpte stages, each in its own process.  Its JSON
               line is printed as ``[bench] {...}``, with each stage's
@@ -341,7 +341,34 @@ Phases, one or more lines each:
               every band of its serving step (``_served_problems``):
               counts equal, moments within ``moment_tolerance``; time,
               bound, share and error as in phase 3.
-Phases 10-17 print their wall time.
+18. fuzz   -- (runs before phase 17) the reference's random-config
+              equivalence test (``tests/test_fuzz_equivalence.py``) on
+              the card: draws 0-11 of its generator (``_fuzz_config``,
+              a copy; q_cap 16 / 64, m 2 / 3, 1-2 radii, three kinds,
+              cube, slab and needle aspects), each scene through six
+              routes (``FUZZ_ROUTES``): ``extract_scaleset`` by the
+              dense and tiled methods, the fused method on the packed,
+              span and XLA backends, and the tiled problem on the entry
+              kernel.  Each route counted from zero: the fused packed
+              and span routes and the entry route launch only their
+              kernel, the other three none.  ``dense`` and the three
+              kernel routes against the same route on the CPU (the
+              plain twins): populations equal but where the float64
+              oracle finds a voxel center within ``_d2_tolerance`` of
+              r*r, every other feature within the reference test's
+              rtol 2e-3 / atol 5e-3; every route against the card's
+              ``dense`` with the reference test's bars (populations
+              equal on 0.99 of queries for the tiled routes, 0.98 for
+              the fused ones, 0.999 of the values close).  Then each
+              kernel's calls, captured on a second run of its route,
+              held against its twin at both precisions (``_hold``; the
+              entry kernel reads none) at the smallest and the largest
+              call of each q_cap and the largest of a draw with m 2 and
+              two radii.  Then ``python -m
+              nimrud_tpu_torch.examples.serving`` and ``.training`` at
+              their default sizes, each in its own process group: exit
+              0, accuracy > 0.8.  Its launches join the kernels line.
+Phases 10-18 print their wall time.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the kernel comparisons run outside those windows.  The sazo,
@@ -435,6 +462,20 @@ BENCH_TAIL = 30            # of which the rest of the script keeps this
 VARIANT_STAGES = (("kinds", "vector"), ("kinds", "oriented"),
                   ("backends",), ("density", "urban"), ("density", "veg"))
 VARIANT_TIMEOUT = 240      # s a variant stage's process may take
+FUZZ_DRAWS = 12            # the fuzz phase: the reference's random draws
+                           # (tests/test_fuzz_equivalence.py), cases 0-11;
+# its six routes, each with the moment kernel it must launch (None: none)
+FUZZ_ROUTES = {"dense": None, "tiled": None,
+               "fused_packed": "packed_moments", "fused_span": "span_moments",
+               "fused_xla": None, "tiled_entry": "entry_moments"}
+FUZZ_BACKENDS = {"packed": "packed", "span": "pallas", "xla": "xla"}
+# the reference test's bars between routes: the share of queries whose
+# population may differ from dense's, and the values where it does not
+FUZZ_POP_TOL = {"tiled": 0.01, "tiled_entry": 0.01, "fused_packed": 0.02,
+                "fused_span": 0.02, "fused_xla": 0.02}
+FUZZ_RTOL = 2e-3
+FUZZ_ATOL = 5e-3
+FUZZ_CLOSE = 0.999
 # backends: pallas_spans' feature sum (the three bands, float64) against
 # xla_highest's.  Both sum the same neighbourhoods in other entry
 # frames.  On an H100 80GB HBM3 (700 W) the two sums lay 8.26e-9 apart
@@ -4032,6 +4073,330 @@ def _variants_phase(device):
     return dict(launches)
 
 
+def _fuzz_config(rng):
+    """One random draw of the reference's equivalence test (a copy of
+    ``_random_config`` in tests/test_fuzz_equivalence.py, which this
+    script cannot import: no jax here): (n_search, n_query, aspect, edge,
+    radii, kind, m, q_cap)."""
+    n_search = int(rng.integers(1500, 6000))
+    n_query = int(rng.integers(200, 800))
+    aspect = rng.choice([
+        [10, 10, 10], [30, 30, 2], [40, 4, 4], [15, 15, 0.5]])
+    edge = float(rng.choice([0.2, 0.35, 0.5]))
+    n_radii = int(rng.integers(1, 3))
+    top = float(rng.choice([0.8, 1.2, 1.6]))
+    radii = tuple(round(top / (2 ** i), 3) for i in range(n_radii))
+    kind = str(rng.choice(["minimal", "geometric", "covariance"]))
+    m = int(rng.choice([2, 3]))
+    q_cap = int(rng.choice([16, 64]))
+    return n_search, n_query, aspect, edge, radii, kind, m, q_cap
+
+
+def _fuzz_scene(case):
+    """Draw ``case``'s scene as the reference's test builds it
+    (``default_rng(1000 + case)``): half uniform, half five blobs,
+    clipped to the aspect box; the queries a permutation of the search
+    cloud.  Returns a dict: ``query``, ``search`` (float32), ``edge``,
+    ``radii``, ``kind``, ``m``, ``q_cap``, ``aspect``."""
+    import numpy as np
+    rng = np.random.default_rng(1000 + case)
+    n_search, n_query, aspect, edge, radii, kind, m, q_cap = \
+        _fuzz_config(rng)
+    uniform = rng.random((n_search // 2, 3)) * aspect
+    blob_centers = rng.random((5, 3)) * aspect
+    blobs = (blob_centers[rng.integers(0, 5, n_search - len(uniform))]
+             + rng.normal(0, min(aspect) / 8 + 0.05,
+                          (n_search - len(uniform), 3)))
+    search = np.clip(np.vstack([uniform, blobs]), 0,
+                     aspect).astype(np.float32)
+    query = search[rng.permutation(n_search)[:n_query]]
+    return {"query": query, "search": search, "edge": edge, "radii": radii,
+            "kind": kind, "m": m, "q_cap": q_cap, "aspect": aspect}
+
+
+def _fuzz_route(name, scene, device):
+    """One of ``FUZZ_ROUTES`` on a draw's scene on ``device``: the
+    (n_query, width) float32 features as a NumPy array.  ``tiled_entry``
+    builds the tiled problem over the band's voxel centers with the
+    draw's m and q_cap and sums on the entry kernel."""
+    from nimrud_tpu_torch.features import multiscale
+    from nimrud_tpu_torch.ops import grid
+
+    query, search = scene["query"], scene["search"]
+    radii, kind = scene["radii"], scene["kind"]
+    tuning = {"query_tile_factor": scene["m"],
+              "query_capacity": scene["q_cap"]}
+    if name == "tiled_entry":
+        centers, _ = multiscale.voxel_downsample(search, scene["edge"],
+                                                 device=device)
+        problem = grid.build_tiled_problem(
+            query, centers, max(radii), query_tile_factor=scene["m"],
+            query_capacity=scene["q_cap"], entry_batch=TILED_BATCH)
+        return grid.tiled_features(
+            problem, query, centers, radii, kind, entry_batch=TILED_BATCH,
+            backend="pallas", device=device).cpu().numpy()
+    method, _, backend = name.partition("_")
+    if backend:
+        tuning["backend"] = FUZZ_BACKENDS[backend]
+    return multiscale.extract_scaleset(
+        query, search, [(scene["edge"], radii)], kind=kind, method=method,
+        tuning=None if method == "dense" else tuning, device=device)
+
+
+def _fuzz_agree(got, ref, n_radii, pop_tol):
+    """The reference test's bars between two routes' features: per
+    radius the population column (the first of each block) equal within
+    rtol 1e-6 on at least ``1 - pop_tol`` of the queries, and where it
+    is, more than ``FUZZ_CLOSE`` of the block within ``FUZZ_RTOL`` /
+    ``FUZZ_ATOL``.  Returns (ok, the least population share, the least
+    close share)."""
+    import numpy as np
+    width = ref.shape[1] // n_radii
+    pops, closes = [], []
+    for ri in range(n_radii):
+        agree = np.isclose(ref[:, width * ri], got[:, width * ri], rtol=1e-6)
+        cols = slice(width * ri, width * (ri + 1))
+        pops.append(float(agree.mean()))
+        closes.append(float(np.isclose(got[agree, cols], ref[agree, cols],
+                                       rtol=FUZZ_RTOL,
+                                       atol=FUZZ_ATOL).mean()))
+    ok = (got.shape == ref.shape and min(pops) >= 1.0 - pop_tol - 1e-9
+          and min(closes) > FUZZ_CLOSE)
+    return ok, min(pops), min(closes)
+
+
+def _fuzz_card_vs_cpu(what, card, cpu, scene, centers):
+    """One route's card features against its CPU run (the plain twins):
+    per radius the population column equal but at the rows the float64
+    oracle witnesses (a voxel center within ``_d2_tolerance`` of r*r,
+    the global extent bounding every frame), every feature of the other
+    rows within ``FUZZ_RTOL`` / ``FUZZ_ATOL``.  Returns (rows whose
+    population differs, the largest feature error as a share of its
+    bar)."""
+    import numpy as np
+    import torch
+    _check(card.shape == cpu.shape and np.isfinite(card).all(),
+           f"{what}: card features {card.shape}, CPU {cpu.shape}, or "
+           "non-finite")
+    radii = scene["radii"]
+    width = cpu.shape[1] // len(radii)
+    extent = float(max(np.abs(scene["query"]).max(), np.abs(centers).max()))
+    differ, worst = 0, 0.0
+    for ri, radius in enumerate(radii):
+        agree = np.isclose(card[:, width * ri], cpu[:, width * ri],
+                           rtol=1e-6)
+        rows = np.nonzero(~agree)[0]
+        if len(rows):
+            _, near, _, _, _ = _float64_oracle(
+                torch.from_numpy(scene["query"][rows]),
+                torch.from_numpy(centers), radius,
+                _d2_tolerance(radius, extent))
+            _check(bool((near > 0).all()),
+                   f"{what} radius {radius}: {int((near == 0).sum())} of "
+                   f"{len(rows)} rows differ in population with no voxel "
+                   "center at the rounding bound of r*r")
+        differ += len(rows)
+        cols = slice(width * ri, width * (ri + 1))
+        a, b = card[agree, cols], cpu[agree, cols]
+        share = np.abs(a - b) / (FUZZ_ATOL + FUZZ_RTOL * np.abs(b))
+        worst = max(worst, float(share.max()) if share.size else 0.0)
+    _check(worst <= 1.0, f"{what}: a feature {worst:.3g}x its bar off the "
+           "CPU's")
+    return differ, worst
+
+
+@contextlib.contextmanager
+def _fuzz_capture(calls):
+    """Within the block, each moment kernel's wrapper records its call
+    (kernel name, args, kwargs) in ``calls`` and returns its plain
+    twin's slabs: no kernel launches, no count moves."""
+    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+    from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+
+    patched = ((pm, "packed_moments", pm.packed_moments_plain),
+               (gk, "span_moments", gk.span_moments_plain),
+               (mk, "entry_moments", mk.entry_moments_plain))
+
+    def recorder(name, plain):
+        def record(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return plain(*args, **kwargs)
+        return record
+
+    kernels = [getattr(module, name) for module, name, _ in patched]
+    for module, name, plain in patched:
+        setattr(module, name, recorder(name, plain))
+    try:
+        yield
+    finally:
+        for (module, name, _), kernel in zip(patched, kernels):
+            setattr(module, name, kernel)
+
+
+def _fuzz_call_shape(name, args):
+    """(q_cap, text, pairs) of one captured kernel call."""
+    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+    from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+    if name == "packed_moments":
+        q_t, cand_t, cen, radii = args[:4]
+        pairs = pm.packed_moments_work(q_t, cand_t, cen, radii)["pairs"]
+        return q_t.shape[2], (f"E={q_t.shape[0]} q_cap={q_t.shape[2]} "
+                              f"c_cap={cand_t.shape[1] // q_t.shape[0]} "
+                              f"radii={len(radii)}"), pairs
+    if name == "span_moments":
+        pairs = gk.span_moments_work(*args[:7])["pairs"]
+        return args[0].shape[1], (f"E={args[0].shape[0]} q_cap="
+                                  f"{args[0].shape[1]} spans="
+                                  f"{args[2].shape[1]} span_rows={args[6]} "
+                                  f"radii={len(args[5])}"), pairs
+    pairs = mk.entry_moments_work(*args[:4])["pairs"]
+    return args[0].shape[1], (f"E={args[0].shape[0]} q_cap="
+                              f"{args[0].shape[1]} F={args[1].shape[1]} "
+                              f"radii={len(args[3])}"), pairs
+
+
+def _fuzz_picks(calls):
+    """The captured calls a kernel is held at: for each kernel and q_cap
+    the smallest and the largest by pairs, and the largest of a draw with
+    m = 2 and two radii.  ``calls``: (case, scene, name, args, kwargs).
+    Returns {(kernel, q_cap): [indices into ``calls``]}."""
+    groups = collections.defaultdict(list)
+    for i, (_, scene, name, args, _) in enumerate(calls):
+        q_cap, _, pairs = _fuzz_call_shape(name, args)
+        two = scene["m"] == 2 and len(scene["radii"]) == 2
+        groups[(name, q_cap)].append((pairs, i, two))
+    picks = {}
+    for key, group in groups.items():
+        group.sort()
+        chosen = {group[0][1], group[-1][1]}
+        chosen.update([i for _, i, two in group if two][-1:])
+        picks[key] = sorted(chosen)
+    return picks
+
+
+def _fuzz_hold(case, name, args, kwargs):
+    """One captured kernel call held against its plain twin on the card
+    (``_hold``: both precisions where the kernel reads one); prints the
+    kernel line.  Returns (the numbers of ``_hold``, the work)."""
+    from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
+    from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
+    from nimrud_tpu_torch.ops.kernels import packed_moments as pm
+
+    _, shape, _ = _fuzz_call_shape(name, args)
+    what = f"{name} fuzz draw {case} {shape}"
+    if name == "span_moments":
+        return _span_hold(f"fuzz draw {case} radii={len(args[5])}",
+                          args[:5], args[5], args[6])
+    if name == "packed_moments":
+        kw = {k: v for k, v in kwargs.items() if k != "precision"}
+        rec = _hold(what,
+                    lambda p: pm.packed_moments(*args, precision=p, **kw),
+                    lambda p: pm.packed_moments_plain(*args, precision=p,
+                                                      **kw),
+                    lambda ref: pm.moment_tolerance(ref, args[1], args[2]))
+        work = pm.packed_moments_work(*args[:4])
+    else:
+        rec = _hold(what, lambda _: mk.entry_moments(*args, **kwargs),
+                    lambda _: mk.entry_moments_plain(*args, **kwargs),
+                    lambda ref: mk.entry_tolerance(ref, args[1], args[2]),
+                    precisions=("highest",))
+        work = mk.entry_moments_work(*args[:4])
+    print(f"[kernel] {what}: {_work_text(rec, work)}", flush=True)
+    return rec, work
+
+
+def _fuzz_draw(case, device, calls):
+    """Phase 18 on one draw: the six routes on the card, each counted
+    from zero; ``dense`` and the kernel routes against their CPU runs;
+    every route against the card's ``dense`` with the reference test's
+    bars; the kernel routes run once more with their kernels' calls
+    captured into ``calls``.  Returns the launches by kernel name."""
+    from nimrud_tpu_torch.features import multiscale
+
+    scene = _fuzz_scene(case)
+    centers, _ = multiscale.voxel_downsample(scene["search"], scene["edge"],
+                                             device="cpu")
+    card, launches, held = {}, collections.Counter(), {}
+    for name, kernel in FUZZ_ROUTES.items():
+        _reset_counts()
+        card[name] = _fuzz_route(name, scene, device)
+        counts = _counts()
+        _only(counts, (kernel,), f"fuzz draw {case} {name}")
+        _check(kernel is None or counts[kernel] > 0,
+               f"fuzz draw {case} {name} launched no {kernel}")
+        if kernel is not None:
+            launches[kernel] += counts[kernel]
+            captured = []
+            with _fuzz_capture(captured):
+                _fuzz_route(name, scene, device)
+            calls += [(case, scene, k, a, kw) for k, a, kw in captured]
+        if kernel is not None or name == "dense":
+            held[name] = _fuzz_card_vs_cpu(
+                f"fuzz draw {case} {name}", card[name],
+                _fuzz_route(name, scene, "cpu"), scene, centers)
+    agree = {}
+    for name, tol in FUZZ_POP_TOL.items():
+        ok, pop, close = _fuzz_agree(card[name], card["dense"],
+                                     len(scene["radii"]), tol)
+        _check(ok, f"fuzz draw {case} {name} against dense: populations "
+               f"{pop}, close {close}")
+        agree[name] = pop
+    print(f"[fuzz] draw {case}: config {len(scene['search'])} search, "
+          f"{len(scene['query'])} query points, aspect "
+          f"{scene['aspect'].tolist()}, edge {scene['edge']}, radii "
+          f"{scene['radii']}, {scene['kind']}, m {scene['m']}, q_cap "
+          f"{scene['q_cap']}; routes {', '.join(FUZZ_ROUTES)}; launches "
+          f"{dict(launches)}; populations equal on "
+          + ", ".join(f"{k} {v:.4f}" for k, v in agree.items())
+          + " of dense's; card against CPU (rows witnessed, largest "
+          "feature error as a share of its bar) " + ", ".join(
+              f"{k} {n} / {v:.3g}" for k, (n, v) in held.items()),
+          flush=True)
+    return launches
+
+
+def _fuzz_examples():
+    """Phase 18's examples: ``python -m nimrud_tpu_torch.examples.<name>``
+    at their default sizes on the card, each in its own process group;
+    exit 0 and the accuracy of the last line > 0.8."""
+    import re
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nimrud_tpu_torch", "_build", "examples")
+    for example in ("serving", "training"):
+        workdir = os.path.join(root, example)
+        os.makedirs(workdir, exist_ok=True)
+        t0 = time.perf_counter()
+        rc, line = _group_run([f"nimrud_tpu_torch.examples.{example}",
+                               "--workdir", workdir], VARIANT_TIMEOUT,
+                              "fuzz")
+        found = re.search(r"accuracy ([0-9.]+)", line)
+        _check(rc == 0 and found and float(found.group(1)) > 0.8,
+               f"example {example} exited {rc}: {line}")
+        print(f"[fuzz] example {example}: exit 0, accuracy "
+              f"{found.group(1)}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    shutil.rmtree(root)
+
+
+def _fuzz_phase(device):
+    """Phase 18: the reference's random draws through the six routes on
+    the card, the kernels held at the drawn shapes, the two examples.
+    Returns the draws' launches by kernel name."""
+    launches, calls = collections.Counter(), []
+    for case in range(FUZZ_DRAWS):
+        launches.update(_fuzz_draw(case, device, calls))
+    for (name, q_cap), picks in sorted(_fuzz_picks(calls).items()):
+        for i in picks:
+            case, _, _, args, kwargs = calls[i]
+            _fuzz_hold(case, name, args, kwargs)
+    del calls
+    _fuzz_examples()
+    return dict(launches)
+
+
 def _build_phase(cuda_build):
     """Build every kernel, all nvcc processes together; print ptxas's
     usage and the tensor-core instructions of each template instance.
@@ -4190,6 +4555,12 @@ def main():
     print(f"[launches] the multichip phase: "
           f"{ {k: n for k, n in walled['multichip'].items() if n} }",
           flush=True)
+    t0 = time.perf_counter()
+    fuzzed = _fuzz_phase(device)
+    for kernel, n in fuzzed.items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    print(f"[fuzz] phase wall {time.perf_counter() - t0:.1f} s; launches "
+          f"in the twelve draws {fuzzed}", flush=True)
     t0 = time.perf_counter()
     varied = _variants_phase(device)
     for kernel, n in varied.items():

@@ -64,8 +64,11 @@ def distance2(query, search, metric):
     if metric == "euclidean":
         d2 = None
         for axis in range(3):
+            # in place: the same rounded operations, a third of the
+            # (..., Q, S) temporaries
             diff = query[..., :, None, axis] - search[..., None, :, axis]
-            d2 = diff * diff if d2 is None else d2 + diff * diff
+            diff.mul_(diff)
+            d2 = diff if d2 is None else d2.add_(diff)
         return d2
     if metric == "chebyshev":
         d = None
