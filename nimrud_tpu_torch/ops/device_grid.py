@@ -39,6 +39,7 @@ from nimrud_tpu_torch.ops.packing import scalar
 from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
 from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 from nimrud_tpu_torch.ops.kernels.multiscale_kernel import moments_from_slabs
+from nimrud_tpu_torch.utils import profiling
 
 _BIG = 2**31 - 1
 
@@ -610,8 +611,11 @@ def _bucket_problems(q_t, centers, starts, lens, sorted3, c_cap):
 
     def one(q, c, st, ln, cap):
         src, dropped = _pack_src(st, ln, cap, n_search)
-        return (q.contiguous(), cand_src[:, src.reshape(-1)],
-                c.contiguous(), dropped)
+        cand = cand_src[:, src.reshape(-1)]
+        if profiling.recording():
+            profiling.count("lanes_live", pm.live_lanes(cand))
+            profiling.count("lanes", cand.shape[1])
+        return q.contiguous(), cand, c.contiguous(), dropped
 
     if not isinstance(c_cap, tuple):
         return [one(q_t, centers, starts, lens, int(c_cap))], None
@@ -843,12 +847,21 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
     ``with_stats`` adds ``dropped_query`` and ``dropped_candidates``
     (the candidates past a capacity, summed over chunks and buckets, and
     each band's clipped span rows, counted once).
+
+    Inside an open span of ``utils.profiling`` it records the child
+    spans ``.plan``, ``.spans`` (a band), ``.moments`` (a band and
+    chunk), ``.classify`` (a chunk) and ``.scatter``, named under the
+    open span (the serving step's: ``nimrud.predict.plan``, ...), and the
+    counters ``slots_live`` / ``slots`` (the plan's placed rows over the
+    entry slots a chunk) and ``lanes_live`` / ``lanes`` (the packed
+    blocks' live lanes over their lanes).
     """
     if order not in ("caller", "plan", "rank"):
         raise ValueError(f"unknown order {order!r}")
     n_query = query.shape[0]
     n_out = n_query if n_out is None else n_out
-    plan = _pack_plan(query, q_valid, pack_spec)
+    with profiling.span(".plan"):
+        plan = _pack_plan(query, q_valid, pack_spec)
     n_bands = len(band_specs)
     attributes = attributes or (None,) * n_bands
     search_tables = search_tables or (None,) * n_bands
@@ -864,9 +877,10 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
     for search, s_valid, spec, radii, c_cap, attrs, tables in zip(
             searches, s_valids, band_specs, radii_bands, c_caps,
             attributes, search_tables):
-        band = _band_spans(plan, search, s_valid, spec, attrs=attrs,
-                           presorted=presorted and attrs is None,
-                           tables=tables)
+        with profiling.span(".spans"):
+            band = _band_spans(plan, search, s_valid, spec, attrs=attrs,
+                               presorted=presorted and attrs is None,
+                               tables=tables)
         dropped = dropped + band["clipped"]
         bands.append((band["span_starts"], band["span_lens"],
                       _far_extended(band["sorted_pts"]), c_cap, radii))
@@ -874,12 +888,16 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
     def features(lo, hi):
         """Feature rows of entries [lo, hi) of every band, (hi - lo,
         q_cap, width), and the candidates they dropped."""
+        if profiling.recording():
+            profiling.count("slots_live", plan["count"][lo:hi].sum())
+            profiling.count("slots", (hi - lo) * pack_spec.q_cap)
         blocks, drop = [], 0
         for starts, lens, sorted3, c_cap, radii in bands:
-            bl, dr = _band_blocks(kind, plan["q_t"][lo:hi],
-                                  plan["centers"][lo:hi], starts[lo:hi],
-                                  lens[lo:hi], sorted3, c_cap, radii,
-                                  precision=precision)
+            with profiling.span(".moments"):
+                bl, dr = _band_blocks(kind, plan["q_t"][lo:hi],
+                                      plan["centers"][lo:hi], starts[lo:hi],
+                                      lens[lo:hi], sorted3, c_cap, radii,
+                                      precision=precision)
             blocks.extend(bl)
             drop = drop + dr
         return torch.cat(blocks, dim=-1), drop
@@ -891,7 +909,8 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
         for lo in range(0, e_cap, entry_chunk):
             feats, dr = features(lo, min(lo + entry_chunk, e_cap))
             width = feats.shape[-1]
-            parts.append(reduce_fn(feats.reshape(-1, width)))
+            with profiling.span(".classify"):
+                parts.append(reduce_fn(feats.reshape(-1, width)))
             dropped = dropped + dr
             del feats
         red = tuple(torch.cat(leaf) for leaf in zip(*parts))
@@ -900,18 +919,22 @@ def fused_extract_packed_multi(query, q_valid, searches, s_valids,
         dropped = dropped + dr
         width = feats.shape[-1]
         flat = feats.reshape(-1, width)
-        red = reduce_fn(flat) if reduced else None
+        red = None
+        if reduced:
+            with profiling.span(".classify"):
+                red = reduce_fn(flat)
     n_rows = e_cap * pack_spec.q_cap
     if red is not None:
-        zero_row = reduce_fn(query.new_zeros((1, width)))
-        if order == "rank":
-            out = (_rank_compact(red, plan, pack_spec, zero_row, n_query),
-                   plan["q_order"])
-        else:
-            out = (tuple(torch.cat([leaf, z])
-                         for leaf, z in zip(red, zero_row)),
-                   _unsort_positions(plan, pack_spec, n_query,
-                                     n_rows)[:n_out])
+        with profiling.span(".scatter"):
+            zero_row = reduce_fn(query.new_zeros((1, width)))
+            if order == "rank":
+                out = (_rank_compact(red, plan, pack_spec, zero_row,
+                                     n_query), plan["q_order"])
+            else:
+                out = (tuple(torch.cat([leaf, z])
+                             for leaf, z in zip(red, zero_row)),
+                       _unsort_positions(plan, pack_spec, n_query,
+                                         n_rows)[:n_out])
     elif order == "rank":
         out = (flat, _rank_positions(plan, pack_spec, n_query, n_rows),
                plan["q_order"])

@@ -215,6 +215,14 @@ def moment_tolerance(slabs, cand_t, centers, n_attr=0):
     return slab_tolerance(slabs, extent, c_cap, attr_extent)
 
 
+def live_lanes(cand_t):
+    """The lanes of a packed candidate block (3 + A, E * c_cap) that hold
+    a search point, not the FAR pad, as a device scalar: the one
+    definition of a live lane (:func:`packed_moments_work`'s pairs, the
+    serving step's ``lanes_live`` counter)."""
+    return (cand_t[:3] != FAR).any(0).sum()
+
+
 def packed_moments_work(q_t, cand_t, centers, radii, with_sazo=False,
                         n_attr=0, metric="euclidean", exclude_radius=None):
     """:func:`multiscale_kernel.moment_bound` of one call: live lanes
@@ -227,7 +235,7 @@ def packed_moments_work(q_t, cand_t, centers, radii, with_sazo=False,
     ``exclude_radius`` its compare and select, ``EXCLUSION_OPS`` a
     pair.  The tensor term sums 10 + ``n_attr`` columns."""
     n_entries, q_cap, _ = _shapes(q_t, cand_t, centers, n_attr)
-    live = int((cand_t[:3] != FAR).any(0).sum())
+    live = int(live_lanes(cand_t))
     n_bytes = 4 * (q_t.numel() + cand_t.numel() + centers.numel()) \
         + slab_bytes(n_entries, q_cap, len(radii))
     if metric == "chebyshev":

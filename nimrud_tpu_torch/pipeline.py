@@ -39,7 +39,10 @@ and span tables once; clouds staged against that handle
 labels equal to ``stage(cloud, search=map)``'s.  ``predict_stream``
 stages one cloud ahead in a worker thread on a CUDA stream of its own.
 The host work of staging (bounds, uint16 quantization, the sizing of
-uncached specs) runs on the C++ host runtime (``ops.native``).
+uncached specs) runs on the C++ host runtime (``ops.native``).  While a
+``torch.profiler`` session records, ``stage``, ``predict_staged`` and
+the sizing record spans and counters (``utils.profiling``:
+``nimrud.stage.*``, ``nimrud.predict.*``, ``nimrud.size``).
 
 ``fit`` and ``extract_device`` take the reference's extraction method
 (``method=``, ``chunk_size=``; ``multiscale.extract_scaleset_device``):
@@ -80,6 +83,7 @@ from nimrud_tpu_torch.learning.classifiers import param_classifier
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
 from nimrud_tpu_torch.ops import (device_grid, interp, native, packing,
                                   span_host, unique)
+from nimrud_tpu_torch.utils import profiling
 
 BACKENDS = ("auto", "packed", "pallas", "xla")
 
@@ -92,21 +96,32 @@ COUNTERS = ("vox_dropped", "dropped_query", "dropped_search",
             "interp_dropped", "dropped_candidates")
 
 
-def _quantize_upload(cloud, c_lo, c_hi, q_bucket, device, impl="native"):
-    """uint16-quantized upload, the one copy of the quantization contract
-    shared by every staging path: 65000 steps over the widest bound span
-    (1e-6 floor), ``floor(g + 0.5)`` and clipped on the host by the host
-    runtime (``impl="numpy"``: its twin).  Returns (device int16
-    (q_bucket, 3) holding the uint16 bit patterns, device f32 (4,)
-    [lo_xyz, step]); the bits travel as int16 because CUDA kernels for
-    torch.uint16 are sparse, and the device widens them with a mask."""
+def _quantize(cloud, c_lo, c_hi, q_bucket, impl="native"):
+    """uint16 quantization on the host, the one copy of the quantization
+    contract shared by every staging path: 65000 steps over the widest
+    bound span (1e-6 floor), ``floor(g + 0.5)`` and clipped by the host
+    runtime (``impl="numpy"``: its twin).  Returns (int16 (q_bucket, 3)
+    holding the uint16 bit patterns, f32 (4,) [lo_xyz, step]); the bits
+    travel as int16 because CUDA kernels for torch.uint16 are sparse,
+    and the device widens them with a mask."""
     lo = np.asarray(c_lo, np.float64)
     span = float((np.asarray(c_hi, np.float64) - lo).max())
     step = max(span, 1e-6) / 65000.0
     quant = native.quantize_u16(cloud, lo, step, pad_to=q_bucket, impl=impl)
-    return (torch.from_numpy(quant.view(np.int16)).to(device),
-            torch.from_numpy(np.append(lo, step).astype(np.float32))
-            .to(device))
+    return quant.view(np.int16), np.append(lo, step).astype(np.float32)
+
+
+def _upload(arrays, device):
+    """Host arrays (a None stays None) copied to ``device``: the one
+    upload of every staging path."""
+    return tuple(None if a is None else torch.from_numpy(a).to(device)
+                 for a in arrays)
+
+
+def _quantize_upload(cloud, c_lo, c_hi, q_bucket, device, impl="native"):
+    """:func:`_quantize`'s two arrays, uploaded to ``device``
+    (:func:`_upload`)."""
+    return _upload(_quantize(cloud, c_lo, c_hi, q_bucket, impl), device)
 
 
 def _cloud_bounds(arr, impl="native"):
@@ -276,8 +291,9 @@ def _fused_predict_step(query, q_valid, search, s_valid, clf_params,
     searches, masks, cattrs = [], [], []
     if search_tables is None:
         for band in band_specs:
-            centers, mask, ca, v_inc, i_inc = _band_search_prep(
-                search, s_valid, band, kind, attributes)
+            with profiling.span(".search"):
+                centers, mask, ca, v_inc, i_inc = _band_search_prep(
+                    search, s_valid, band, kind, attributes)
             diag["vox_dropped"] = diag["vox_dropped"] + v_inc
             diag["interp_dropped"] = diag["interp_dropped"] + i_inc
             searches.append(centers)
@@ -295,11 +311,12 @@ def _fused_predict_step(query, q_valid, search, s_valid, clf_params,
     diag["dropped_candidates"] = stats["dropped_candidates"]
     # out_rank is in sorted-rank order; q_order maps rank -> caller row
     caller = []
-    for leaf in out_rank:
-        full = torch.empty((q_order.shape[0],) + leaf.shape[1:],
-                           dtype=leaf.dtype, device=leaf.device)
-        full[q_order] = leaf
-        caller.append(full[:n_query])
+    with profiling.span(".scatter"):
+        for leaf in out_rank:
+            full = torch.empty((q_order.shape[0],) + leaf.shape[1:],
+                               dtype=leaf.dtype, device=leaf.device)
+            full[q_order] = leaf
+            caller.append(full[:n_query])
     probs = caller[1] if with_proba else None
     return caller[0], probs, diag
 
@@ -560,16 +577,18 @@ class GeometryClassifier:
             return
         arr = np.asarray(cloud, dtype=np.float32)[:, :3]
         trimmed = []
-        for (edge, _), (vox, dev, rr, interp_spec, v_cap, c_cap) in zip(
-                self.scaleset, self._fused_band_specs(
-                    arr, arr, attr_width=attr_width)):
-            if v_cap is None and self.kind != "vector":
-                n_vox = len(multiscale._host_unique_voxels(
-                    arr, edge, bounds=self.bounds))
-                v_cap = n_vox + n_vox // 4 + 4096
-                v_cap = -(-v_cap // 16384) * 16384
-            trimmed.append((vox, device_grid.with_entry_estimate(dev, arr),
-                            rr, interp_spec, v_cap, c_cap))
+        specs = self._fused_band_specs(arr, arr, attr_width=attr_width)
+        with profiling.span("nimrud.size", top=True):
+            for (edge, _), (vox, dev, rr, interp_spec, v_cap, c_cap) in zip(
+                    self.scaleset, specs):
+                if v_cap is None and self.kind != "vector":
+                    n_vox = len(multiscale._host_unique_voxels(
+                        arr, edge, bounds=self.bounds))
+                    v_cap = n_vox + n_vox // 4 + 4096
+                    v_cap = -(-v_cap // 16384) * 16384
+                trimmed.append((vox,
+                                device_grid.with_entry_estimate(dev, arr),
+                                rr, interp_spec, v_cap, c_cap))
         trimmed = tuple(trimmed)
         self._spec_cache = (self._spec_key(arr.shape[0], arr.shape[0],
                                            attr_width), trimmed)
@@ -633,6 +652,16 @@ class GeometryClassifier:
             return self._spec_cache[1]
         if self.bounds is not None and key in self._stage_spec_cache:
             return self._stage_spec_cache[key]
+        with profiling.span("nimrud.size", top=True):
+            specs = self._size_band_specs(cloud, search, bounds, attr_width)
+        if self.bounds is not None:
+            if len(self._stage_spec_cache) > 8:
+                self._stage_spec_cache.clear()
+            self._stage_spec_cache[key] = specs
+        return specs
+
+    def _size_band_specs(self, cloud, search, bounds, attr_width):
+        """:meth:`_fused_band_specs` sized on the host (not cached)."""
         if bounds is None and self.bounds is not None:
             bounds = (*self.bounds, *self.bounds)
         if bounds is None:
@@ -647,17 +676,11 @@ class GeometryClassifier:
         s_hi = np.asarray(s_hi, np.float64)
         q_bucket = multiscale._pow2_bucket(cloud.shape[0])
         if not self._packed_step(attr_width):
-            specs = self._band_loop_specs(
+            return self._band_loop_specs(
                 lo, hi, s_lo, s_hi, q_bucket,
                 multiscale._pow2_bucket(search.shape[0]))
-        else:
-            specs = self._packed_band_specs(cloud, search, lo, hi, s_lo,
-                                            s_hi, q_bucket)
-        if self.bounds is not None:
-            if len(self._stage_spec_cache) > 8:
-                self._stage_spec_cache.clear()
-            self._stage_spec_cache[key] = specs
-        return specs
+        return self._packed_band_specs(cloud, search, lo, hi, s_lo, s_hi,
+                                       q_bucket)
 
     def _packed_step(self, attr_width):
         """Whether serving takes the packed step (one shared plan, the
@@ -833,12 +856,16 @@ class GeometryClassifier:
                 "capacities / device); rebuild it with this model's "
                 "stage_search()")
         cloud = np.asarray(cloud, dtype=np.float32)[:, :3]
-        specs = self._fused_band_specs(cloud, handle["search_host"],
-                                       attr_width=handle["attr_width"])
+        with profiling.span(".specs"):
+            specs = self._fused_band_specs(cloud, handle["search_host"],
+                                           attr_width=handle["attr_width"])
         n_query = cloud.shape[0]
         q_bucket = multiscale._pow2_bucket(n_query)
-        return {"query": torch.from_numpy(multiscale._pad_rows_f32(
-                    cloud, q_bucket)).to(self.device),
+        with profiling.span(".quantize"):
+            query = multiscale._pad_rows_f32(cloud, q_bucket)
+        with profiling.span(".upload"):
+            query, = _upload((query,), self.device)
+        return {"query": query,
                 "search": None, "n_query": n_query, "q_bucket": q_bucket,
                 "n_search": 0, "s_bucket": 0, "specs": specs,
                 "dequant": None, "attributes": None,
@@ -860,13 +887,25 @@ class GeometryClassifier:
         returns None for it): it raises.  ``impl="numpy"`` runs the
         bounds scan and the quantization on the host runtime's NumPy
         twins (for comparison; the specs' sizing, cached under fixed
-        bounds, stays native)."""
-        if staged_search is not None:
-            if search is not None or attributes is not None:
+        bounds, stays native).  Under a profiler session the handle
+        carries the scan id of its ``nimrud.stage`` span (``"scan"``),
+        which :meth:`predict_staged`'s spans reuse."""
+        with profiling.span("nimrud.stage", self.device, top=True) as record:
+            if staged_search is None:
+                staged = self._stage_cloud(cloud, search, attributes, impl)
+            elif search is not None or attributes is not None:
                 raise ValueError(
                     "with staged_search, the search cloud and its "
                     "attributes come from the stage_search handle")
-            return self._stage_with_search(cloud, staged_search)
+            else:
+                staged = self._stage_with_search(cloud, staged_search)
+        if record is not None:
+            staged["scan"] = record.scan
+        return staged
+
+    def _stage_cloud(self, cloud, search, attributes, impl):
+        """:meth:`stage` of a cloud and its search cloud (default the
+        cloud itself)."""
         self._no_staged_step()
         same = search is None or search is cloud
         cloud = np.asarray(cloud, dtype=np.float32)[:, :3]
@@ -876,33 +915,35 @@ class GeometryClassifier:
         if self.bounds is not None:
             c_lo, c_hi = s_lo, s_hi = self.bounds
         else:
-            c_lo, c_hi = _cloud_bounds(cloud, impl)
-            s_lo, s_hi = (c_lo, c_hi) if same \
-                else _cloud_bounds(search_arr, impl)
-        specs = self._fused_band_specs(
-            cloud, search_arr, bounds=(c_lo, c_hi, s_lo, s_hi),
-            attr_width=None if attributes is None else attributes.shape[1])
+            with profiling.span(".quantize"):
+                c_lo, c_hi = _cloud_bounds(cloud, impl)
+                s_lo, s_hi = (c_lo, c_hi) if same \
+                    else _cloud_bounds(search_arr, impl)
+        with profiling.span(".specs"):
+            specs = self._fused_band_specs(
+                cloud, search_arr, bounds=(c_lo, c_hi, s_lo, s_hi),
+                attr_width=None if attributes is None
+                else attributes.shape[1])
         n_query = cloud.shape[0]
         q_bucket = multiscale._pow2_bucket(n_query)
         s_bucket = multiscale._pow2_bucket(search_arr.shape[0])
-        dequant = None
-        if self.transfer_dtype == "uint16" and same:
-            query_dev, dequant = _quantize_upload(
-                cloud, c_lo, c_hi, q_bucket, self.device, impl)
-        else:
-            query_dev = torch.from_numpy(multiscale._pad_rows_f32(
-                cloud, q_bucket)).to(self.device)
-        search_dev = query_dev if same else torch.from_numpy(
-            multiscale._pad_rows_f32(search_arr, s_bucket)).to(self.device)
-        attrs_dev = None
-        if attributes is not None:
-            attrs_dev = torch.from_numpy(multiscale._pad_rows_f32(
-                attributes, s_bucket)).to(self.device)
-        return {"query": query_dev, "search": search_dev,
+        with profiling.span(".quantize"):
+            if self.transfer_dtype == "uint16" and same:
+                query, dequant = _quantize(cloud, c_lo, c_hi, q_bucket, impl)
+            else:
+                query = multiscale._pad_rows_f32(cloud, q_bucket)
+                dequant = None
+            search_rows = None if same else multiscale._pad_rows_f32(
+                search_arr, s_bucket)
+            attrs = None if attributes is None \
+                else multiscale._pad_rows_f32(attributes, s_bucket)
+        with profiling.span(".upload"):
+            query, dequant, search_rows, attrs = _upload(
+                (query, dequant, search_rows, attrs), self.device)
+        return {"query": query, "search": query if same else search_rows,
                 "n_query": n_query, "q_bucket": q_bucket,
                 "n_search": search_arr.shape[0], "s_bucket": s_bucket,
-                "specs": specs, "dequant": dequant,
-                "attributes": attrs_dev}
+                "specs": specs, "dequant": dequant, "attributes": attrs}
 
     def predict_staged(self, staged, with_proba=False, with_diag=False):
         """Labels (and optionally probabilities) of a staged cloud, as
@@ -911,7 +952,13 @@ class GeometryClassifier:
         ``interp_dropped``, ``dropped_candidates``) as device scalars,
         with a staged search map's own counts added; nonzero means the
         cloud (or the map) is denser than the capacities were sized
-        for."""
+        for.  Under a profiler session its ``nimrud.predict`` span takes
+        the scan id of the handle's ``nimrud.stage``."""
+        with profiling.span("nimrud.predict", self.device, staged.get("scan"),
+                            top=True):
+            return self._predict_staged(staged, with_proba, with_diag)
+
+    def _predict_staged(self, staged, with_proba, with_diag):
         if all(band[5] is not None for band in staged["specs"]):
             step = _fused_predict_step
             extra = {"chunk_slots": self.serving_chunk_slots,

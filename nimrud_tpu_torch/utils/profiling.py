@@ -12,16 +12,34 @@ Profiling and throughput observability (port of
 The device events of a ``torch.profiler`` chrome trace are its complete
 (``ph == "X"``) events of category ``kernel``, ``gpu_memcpy`` or
 ``gpu_memset``; the host's operator and runtime events are left out.
+
+Spans and counters of the serving path (:func:`span`, :func:`count`,
+:func:`collected`) record exactly while a ``torch.profiler`` session
+records -- :func:`trace`, or any ``torch.profiler.profile`` around the
+model -- and then only: the switch is the profiler itself.  Off, a span
+reads one bool (torch's own flag) and does nothing else.  On, it opens a
+``torch.profiler.record_function`` range (a ``user_annotation`` event of
+the chrome trace, on the kernels' clock) and keeps a record in memory:
+its name, its parent span's name, its scan id, its host start and end
+and, on CUDA, the device milliseconds between two CUDA events recorded
+on the current stream at entry and exit.  Counters add host ints and
+device scalars to the innermost open span's scan, read only by
+:func:`collected`.
 """
 
 import collections
 import contextlib
 import glob
 import gzip
+import itertools
 import json
 import os
 import tempfile
+import threading
 import time
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 #: chrome-trace categories of the work the card ran
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -73,9 +91,9 @@ def trace(log_dir=None):
             model.predict(cloud)
 
     Yields the ``torch.profiler.profile``.  The card's activity is traced
-    where CUDA is available.
+    where CUDA is available.  The program's spans and counters record
+    inside it (:func:`collected`).
     """
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     if log_dir is None:
@@ -159,3 +177,228 @@ def device_track_stats(trace_path):
         cur_hi = max(cur_hi, hi)
     busy += cur_hi - cur_lo
     return busy, max(hi for _, hi in spans) - spans[0][0]
+
+
+# -- spans and counters -------------------------------------------------------
+
+#: span records kept in memory; past it a span still opens its profiler
+#: range, and its record is counted in ``collected()["dropped"]``
+SPAN_LIMIT = 65536
+
+
+def _profiler_on():
+    """Whether a ``torch.profiler`` session records: torch's own flag,
+    read through ``getattr`` so that a torch without it turns the spans
+    off rather than failing the program."""
+    return getattr(_autograd_profiler, "_is_profiler_enabled", False)
+
+
+class _Record:
+    """One span's record (:func:`collected` gives it as a dict)."""
+
+    __slots__ = ("name", "parent", "scan", "device", "start_ns", "end_ns",
+                 "events")
+
+    def __init__(self, name, parent, scan, device):
+        self.name, self.parent, self.scan = name, parent, scan
+        self.device = device
+        self.start_ns = self.end_ns = None
+        self.events = None
+
+    def as_dict(self):
+        host_ms = (self.end_ns - self.start_ns) / 1e6
+        if self.events is not None:
+            device_ms = self.events[0].elapsed_time(self.events[1])
+        elif self.device is not None and self.device.type == "cpu":
+            device_ms = host_ms        # the CPU's work runs on the host
+        else:
+            device_ms = None
+        return {"name": self.name, "parent": self.parent, "scan": self.scan,
+                "start_ns": self.start_ns, "end_ns": self.end_ns,
+                "host_ms": host_ms, "device_ms": device_ms}
+
+
+class Recorder:
+    """The spans and counters of one process (the profiler is one a
+    process): a bounded list of span records, the counters' totals a
+    scan (host ints, and device scalars a device), and a stack of open
+    spans a thread."""
+
+    def __init__(self, limit=SPAN_LIMIT):
+        self.limit = limit
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.scans = itertools.count(1)
+        self.reset()
+
+    def reset(self):
+        with self.lock:
+            self.records = []
+            self.dropped = 0
+            self.host_totals = collections.Counter()   # (name, scan)
+            self.device_totals = {}                     # (name, scan, device)
+
+    def stack(self):
+        """This thread's open spans, innermost last."""
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+    def keep(self, record):
+        """Buffer ``record``; False (and counted) past the limit."""
+        with self.lock:
+            if len(self.records) >= self.limit:
+                self.dropped += 1
+                return False
+            self.records.append(record)
+            return True
+
+    def add(self, name, value, scan):
+        with self.lock:
+            if isinstance(value, torch.Tensor):
+                key = (name, scan, value.device)
+                total = self.device_totals.get(key)
+                self.device_totals[key] = value if total is None \
+                    else total + value
+            else:
+                self.host_totals[name, scan] += int(value)
+
+    def collected(self):
+        with self.lock:
+            records = [r for r in self.records if r.end_ns is not None]
+            by_scan = collections.Counter(self.host_totals)
+            device_totals = dict(self.device_totals)
+            dropped = self.dropped
+        devices = {r.device for r in records if r.events is not None}
+        devices |= {device for _, _, device in device_totals
+                    if device.type == "cuda"}
+        for device in devices:
+            torch.cuda.synchronize(device)
+        for device in {device for _, _, device in device_totals}:
+            keys = [key for key in device_totals if key[2] == device]
+            values = torch.stack([device_totals[key].reshape(())
+                                  .to(torch.int64) for key in keys])
+            for (name, scan, _), value in zip(keys, values.tolist()):
+                by_scan[name, scan] += value
+        scans, counters = {}, collections.Counter()
+        for (name, scan), value in sorted(by_scan.items(),
+                                          key=lambda kv: (kv[0][1], kv[0][0])):
+            scans.setdefault(scan, {})[name] = value
+            counters[name] += value
+        return {"spans": [r.as_dict() for r in records],
+                "counters": dict(counters), "scans": scans,
+                "dropped": dropped}
+
+
+_RECORDER = Recorder()
+
+
+class _Span:
+    """A span while the profiler records (:func:`span`)."""
+
+    __slots__ = ("name", "device", "scan", "top", "record", "range")
+
+    def __init__(self, name, device, scan, top):
+        self.name, self.device, self.scan, self.top = name, device, scan, top
+        self.record = self.range = None
+
+    def __enter__(self):
+        stack = _RECORDER.stack()
+        parent = stack[-1] if stack else None
+        if parent is None and not self.top:
+            return None
+        name = self.name
+        if parent is not None and name.startswith("."):
+            name = parent.name + name
+        scan = self.scan
+        if scan is None:
+            scan = parent.scan if parent is not None \
+                else next(_RECORDER.scans)
+        device = parent.device if self.device is None and parent is not None \
+            else self.device
+        if device is not None:
+            device = torch.device(device)
+        record = _Record(name, None if parent is None else parent.name,
+                         scan, device)
+        self.range = torch.profiler.record_function(name)
+        self.range.__enter__()
+        if _RECORDER.keep(record) and device is not None \
+                and device.type == "cuda":
+            record.events = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+            record.events[0].record(torch.cuda.current_stream(device))
+        record.start_ns = time.perf_counter_ns()
+        stack.append(record)
+        self.record = record
+        return record
+
+    def __exit__(self, *exc):
+        record = self.record
+        if record is None:
+            return False
+        _RECORDER.stack().pop()
+        if record.events is not None:
+            record.events[1].record(torch.cuda.current_stream(record.device))
+        record.end_ns = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name, device=None, scan=None, top=False):
+    """
+    A span of the program: ``with profiling.span("nimrud.predict"):``.
+    While no profiler session records it reads one bool and is a no-op;
+    while one records it opens a ``record_function`` range and keeps a
+    record (see the module's docstring).  ``with ... as record`` gives
+    the record (its ``scan``), or None where nothing records.
+
+    ``top``: the span records also where no span is open on this thread
+    (the entry points: ``nimrud.stage``, ``nimrud.predict``,
+    ``nimrud.size``); any other span records only inside one, so code
+    that other paths share records nothing there.  A ``name`` that
+    starts with ``.`` is its parent's name and it: code shared by
+    several entry points names its own layer (``span(".plan")``) and the
+    entry point's span gives the context (``nimrud.predict.plan``).
+    ``scan``: the scan id (default the parent's, or a new one for a span
+    with no parent).  ``device``: where the enclosed work runs (default
+    the parent's): on CUDA the record times it with CUDA events, on the
+    CPU its device time is its host time, with None it has no device
+    time.
+    """
+    if not _profiler_on():
+        return _OFF
+    return _Span(name, device, scan, top)
+
+
+def recording():
+    """Whether spans and counters record here: a profiler session
+    records, and a span is open on this thread.  Guard the work of a
+    counter's value with it."""
+    return _profiler_on() and bool(_RECORDER.stack())
+
+
+def count(name, value):
+    """Add ``value`` (a host int, or a device scalar tensor kept on the
+    device until :func:`collected`) to counter ``name`` of the innermost
+    open span's scan, where :func:`recording`."""
+    if recording():
+        _RECORDER.add(name, value, _RECORDER.stack()[-1].scan)
+
+
+def collected():
+    """The spans and counters recorded so far in this process, after one
+    synchronize of each device they timed on: ``{"spans": [{"name",
+    "parent", "scan", "start_ns", "end_ns", "host_ms", "device_ms"},
+    ...] (closed spans, by start), "counters": {name: int} (over every
+    scan), "scans": {scan: {name: int}}, "dropped": spans past
+    ``SPAN_LIMIT``}``.  Reading clears nothing (:func:`reset` does)."""
+    return _RECORDER.collected()
+
+
+def reset():
+    """Forget every span and counter recorded so far."""
+    _RECORDER.reset()
