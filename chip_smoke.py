@@ -9,11 +9,13 @@ Phases, one or more lines each:
 
 1. card    -- nvidia-smi name and power limit, torch's device name.
 2. build   -- one nvcc per kernel, all started together: csrc/
-              packed_moments.cu, span_moments.cu and entry_moments.cu
-              for sm_90a; ptxas's registers / shared memory / spills per
-              template instance (no kernel may spill) and, from
-              ``cuobjdump -sass``, the HMMA (tensor-core) instructions
-              of each instance: every one must hold some (43 instances
+              packed_moments.cu, span_moments.cu, entry_moments.cu and
+              forest_walk.cu for sm_90a; ptxas's registers / shared
+              memory / spills per template instance (no kernel may
+              spill) and, from ``cuobjdump -sass``, the HMMA
+              (tensor-core) instructions of each instance: every moment
+              kernel's must hold some (the 12 ``forest_walk_kernel``
+              instances, one a padded row width, none; 43 instances
               of ``packed_moments``: 1-4 radii without and with the sazo
               fold, the attribute instances at 1-4 radii and 1, 4 or 6
               attribute slots, the chebyshev instances at 1, 4 or 6
@@ -182,12 +184,30 @@ Phases, one or more lines each:
               ``make_bench_model(cloud, classifier="rpte")`` (10 trees,
               ``wmean``, seed 0), ``fit`` (``fit_device`` on a 100k
               sample) and serving the three clouds of phase 4, counted
-              from zero: only ``packed_moments`` launched, counters 0,
+              from zero: only ``packed_moments`` and ``forest_walk``
+              launched, counters 0,
               accuracy > 0.8; fit seconds, step times, the forest's
               ``max_depth_``, the levels walked a step (``walk_depth_ +
-              1``: one past the deepest split, no early exit) and the
+              1``: one past the deepest split) and the
               levels the cloud's rows need, the walk alone timed on the served
-              rows, peak memory.  Then card against CPU at 100k
+              rows, peak memory.  Then the walk kernel
+              (``csrc/forest_walk.cu``, ``_walk_phase``) against its
+              plain twin on ``extract_device``'s rows of a served cloud,
+              on the slot rows a serving step hands the classifier, and
+              on drawn forests (``WALK_DRAWS``: depth 1-14, 4-100
+              features, 2-20 classes, 1-100 trees, the register
+              instances and the wide kernel, both decision functions, 1
+              row and row counts off the 128-row block, walks cut
+              short): a row may differ in a probability by
+              more than ``WALK_PROBA_TOLERANCE`` or in its label only
+              where the walk witness holds it near a split; a served
+              scan launches it once an entry chunk plus once for the
+              scatter's zero row, also counted as ``walk_launches`` in a
+              traced scan (phase 4's linear scans launch it never); its
+              time on the step's rows (CUDA events) beside its bound
+              (``forest_walk_work``: the projections' operations or the
+              bytes once, the tables' counted as the distinct rows the
+              walk reads) and the plain twin's.  Then card against CPU at 100k
               (``_e2e_kind`` with the forest): differing labels at
               near-ties or held by the rounding witness, the card's
               label being the CPU walk's of the card's rows or held by
@@ -285,7 +305,9 @@ Phases, one or more lines each:
               span program (only ``span_moments``), and the rpte model
               whose forest ``fit_device`` grew from a 100k sample of the
               bench features -- ``fit_device_mesh`` on the same rows
-              over the four shards, tables bit-equal; ``vector`` at 100k
+              over the four shards, tables bit-equal; its mesh program
+              launches only ``packed_moments`` and ``forest_walk``;
+              ``vector`` at 100k
               through the segment-wide interp plans; the packed mesh
               program card against a CPU mesh at 100k points of the
               reference pipeline tests' compact scene (each differing
@@ -310,8 +332,9 @@ Phases, one or more lines each:
               numbers on a line of its own; it must exit 0, every stage
               must have run without error, ``value`` > 0, every stage's
               overflow counters 0, and every stage must have launched
-              ``packed_moments`` (and no other kernel); its launches join
-              the kernels line.
+              ``packed_moments`` (and no other kernel but the rpte
+              stage's ``forest_walk``); its ``packed_moments`` launches
+              join the kernels line.
 17. variants -- (runs before phase 16) the benchmark's variant stages
               at full size, each
               ``python -m nimrud_tpu_torch.bench.<stage>`` in its own
@@ -394,7 +417,7 @@ chrome traces and the full kernel tables go to ``DIR``.
 
 Then a JSON line with the kernel records (times, pairs, bound, launches
 on the paths; ``library_ms`` is null: no single PyTorch call computes a
-masked moment sum) and, last, the result line.
+masked moment sum or a forest walk) and, last, the result line.
 Any failure raises (exit code 1).  Without a CUDA device it exits with
 code 2 and prints no result.
 """
@@ -427,7 +450,33 @@ WITNESS_SAMPLE = 4096      # points a cloud held against float64 counts
 EPS32 = 2.0 ** -24         # f32 unit roundoff
 TILED_BATCH = 256
 COUNT_COLS = slice(0, None, 16)
-INSTANCES = {"packed_moments": 43, "span_moments": 8, "entry_moments": 8}
+# forest_walk: 12 register instances and the wide kernel
+INSTANCES = {"packed_moments": 43, "span_moments": 8, "entry_moments": 8,
+             "forest_walk": 13}
+# the kernels whose every instance sums on the tensor cores (HMMA)
+MMA_KERNELS = ("packed_moments", "span_moments", "entry_moments")
+# the walk kernel against its plain twin: probabilities of a row whose
+# every tree ends at the same leaf differ only in the order of f32 sums
+# over at most 64 trees (and f32 division), so by a few ulps of 1.0
+WALK_PROBA_TOLERANCE = 1e-6
+# the walk phase's drawn forests (checks.drawn_forest): trees, depth,
+# levels walked (fewer than depth + 1 leave pairs at no leaf), features,
+# classes, decision function, rows (1, and counts off the 128-row block);
+# the last five take the wide kernel (64 features or more, more than 64
+# trees or more than 16 classes)
+WALK_DRAWS = ((10, 14, 14, 12, 3, "wmean", 100_003),
+              (1, 1, 1, 4, 2, "wmax", 1),
+              (3, 3, 3, 5, 8, "wmean", 127),
+              (7, 7, 5, 24, 5, "wmax", 129),
+              (10, 10, 10, 13, 2, "wmean", 1000),
+              (6, 12, 12, 20, 6, "wmax", 4099),
+              (4, 9, 9, 63, 4, "wmean", 2049),
+              (64, 6, 6, 16, 16, "wmax", 513),
+              (10, 14, 14, 100, 7, "wmean", 20_000),
+              (100, 8, 8, 100, 20, "wmean", 1001),
+              (3, 6, 4, 64, 5, "wmax", 257),
+              (65, 5, 5, 12, 3, "wmean", 130),
+              (2, 4, 4, 7, 17, "wmax", 129))
 EXCLUDE_RADIUS = 0.1       # the exclusion phase's exclude_radius (m)
 KINDS = {"sazo": 3, "oriented": 3, "vector": 3, "geometric": 1,
          "covariance": 1, "eigen": 1}  # clouds each kind serves
@@ -562,6 +611,7 @@ def _work_text(rec, work):
 
 def _kernels():
     """Each kernel instance's launch count: (wrapper, attribute)."""
+    from nimrud_tpu_torch.ops.kernels import forest_walk as fw
     from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
     from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
     from nimrud_tpu_torch.ops.kernels import packed_moments as pm
@@ -577,7 +627,8 @@ def _kernels():
             "span_moments": (gk.span_moments, "launches"),
             "span_moments_excl": (gk.span_moments, "excl_launches"),
             "entry_moments": (mk.entry_moments, "launches"),
-            "entry_moments_excl": (mk.entry_moments, "excl_launches")}
+            "entry_moments_excl": (mk.entry_moments, "excl_launches"),
+            "forest_walk": (fw.forest_proba, "launches")}
 
 
 def _reset_counts():
@@ -2692,13 +2743,151 @@ def _levels_needed(tables, feats, max_depth):
     return max_depth + 1
 
 
+def _walk_hold(what, tables, feats, depth, d_func):
+    """The forest walk kernel against its plain twin on one forest's
+    dense ``tables`` (with their packing, ``forest_walk.pack_tables``)
+    and feature rows, walked ``depth + 1`` levels: one
+    launch; wherever the two differ in a probability by more than
+    ``WALK_PROBA_TOLERANCE`` or in the label (a leaf taken on the other
+    side of a split), the walk witness must hold the row near a split.
+    Returns the rows that differ and the largest difference elsewhere."""
+    import torch
+    from nimrud_tpu_torch.ops.kernels import forest_walk as fw
+    from nimrud_tpu_torch.utils import checks
+
+    before = fw.forest_proba.launches
+    got = fw.forest_proba(tables, feats, depth, d_func)
+    torch.cuda.synchronize()
+    _check(fw.forest_proba.launches == before + 1, f"{what}: no launch")
+    want = fw.forest_proba_plain(tables, feats, depth, d_func)
+    _check(bool(torch.isfinite(got).all()), f"{what}: non-finite answers")
+    err = (got - want).abs().amax(1)
+    off = (err > WALK_PROBA_TOLERANCE) | (got.argmax(1) != want.argmax(1))
+    rows = off.nonzero()[:, 0]
+    held = checks.walk_witness(tables, feats[rows].cpu(), depth,
+                               torch.arange(len(rows)))
+    _check(bool(held.all()), f"{what}: rows {rows.cpu()[~held][:8].tolist()}"
+           " differ from the plain walk away from any split")
+    return {"rows_off": len(rows),
+            "max_abs_err": float(err[~off].max()) if bool((~off).any())
+            else 0.0}
+
+
+def _walk_draws(device):
+    """The walk kernel against its twin on the drawn forests of
+    ``WALK_DRAWS``, every instance width they reach and both decision
+    functions."""
+    from nimrud_tpu_torch.ops.kernels import forest_walk as fw
+    from nimrud_tpu_torch.utils import checks
+
+    lines = []
+    for seed, (trees, depth, walk, dim, classes, d_func, rows) in \
+            enumerate(WALK_DRAWS):
+        tables, feats = checks.drawn_forest(seed, trees, depth, dim,
+                                            classes, rows)
+        tables = fw.pack_tables({k: v.to(device) for k, v in tables.items()})
+        rec = _walk_hold(f"drawn forest {seed}", tables, feats.to(device),
+                         walk, d_func)
+        lines.append(f"{trees} trees, depth {depth}, {walk + 1} levels, D "
+                     f"{dim} ({fw.instance(tables)}), C {classes}, "
+                     f"{d_func}, {rows} rows: {rec['rows_off']} off, max "
+                     f"err {rec['max_abs_err']:.3g}")
+    print("[walk] drawn forests against the plain walk: "
+          + "; ".join(lines), flush=True)
+
+
+def _step_rows(model, staged):
+    """The feature rows a serving step hands the classifier, chunk by
+    chunk in the plan's slot order (the last, one zero row, is the
+    scatter's)."""
+    from nimrud_tpu_torch import pipeline
+
+    classify, rows = pipeline.classify_features, []
+
+    def capture(params, features):
+        rows.append(features.clone())
+        return classify(params, features)
+
+    pipeline.classify_features = capture
+    try:
+        model.predict_staged(staged)
+    finally:
+        pipeline.classify_features = classify
+    return rows
+
+
+def _walk_phase(model, clouds, device):
+    """The walk kernel on the rpte bench model: held against its twin on
+    ``extract_device``'s rows of a served cloud and on the slot rows its
+    serving step classifies, then on the drawn forests; a served scan
+    launches it once an entry chunk and once for the scatter's zero row,
+    also as the ``walk_launches`` counter of a traced scan, and a linear
+    scan never (phase 4's count); timed on the step's rows beside its
+    bound and the twin.  Returns the kernel record and its work."""
+    import torch
+    from nimrud_tpu_torch.ops.kernels import forest_walk as fw
+    from nimrud_tpu_torch.utils import profiling
+
+    forest = model.classifier
+    tables = forest.walk_tables_
+    depth, d_func = forest.walk_depth_, forest.d_func
+    extracted = model.extract_device(clouds[0])
+    rec = _walk_hold("extract_device rows", tables, extracted, depth, d_func)
+    staged = model.stage(clouds[1])
+    _, _, _, chunk, n_chunks = _chunking(model, clouds[1])
+    before = fw.forest_proba.launches
+    chunks = _step_rows(model, staged)
+    launched = fw.forest_proba.launches - before
+    _check(launched == n_chunks + 1 == len(chunks),
+           f"a served rpte scan launched the walk {launched} times, "
+           f"{n_chunks} entry chunks")
+    rows = torch.cat(chunks[:-1])
+    step = _walk_hold("the step's slot rows", tables, rows, depth, d_func)
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        model.predict_staged(model.stage(clouds[2]))
+    counted = profiling.collected()["counters"].get("walk_launches")
+    profiling.reset()
+    _check(counted == n_chunks + 1,
+           f"a traced rpte scan counted walk_launches {counted}")
+    _walk_draws(device)
+    rec["max_abs_err"] = max(rec["max_abs_err"], step["max_abs_err"])
+    rec["ms"] = _events_ms(lambda: fw.forest_proba(tables, rows, depth,
+                                                   d_func), 20)
+    rec["plain_ms"] = _events_ms(
+        lambda: fw.forest_proba_plain(tables, rows, depth, d_func), 3)
+    extract_ms = _events_ms(lambda: forest.proba_device(extracted), 20)
+    work = fw.forest_walk_work(tables, rows, depth)
+    print(f"[walk] {fw.instance(tables)} on the "
+          f"step's {rows.shape[0]} slot rows ({n_chunks} chunk(s) of "
+          f"{chunk or 'all'} entries; {launched} launches a scan, "
+          f"walk_launches {counted} traced): kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms; {work['pairs']} (row, tree) "
+          f"pairs, {work['internal']} projections, {work['leaves']} "
+          f"leaves, {work['row_bytes'] / 1e9:.3f} GB of table rows read "
+          f"({work['table_bytes'] / 1e6:.2f} MB of them distinct); "
+          f"bound {work['bound_ms']:.4f} ms ({work['bound_term']}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in work["terms_ms"].items())
+          + f"), {100 * work['bound_ms'] / rec['ms']:.1f}% of bound; on "
+          f"extract_device's {extracted.shape[0]} rows {extract_ms:.4f} ms; "
+          f"rows off the plain walk {rec['rows_off']} / {step['rows_off']} "
+          "(each held by the walk witness), largest difference elsewhere "
+          f"{rec['max_abs_err']:.3g}", flush=True)
+    return rec, work
+
+
 def _rpte_phase(cloud, labels, clouds, truths, device, profile_dir=None):
     """The reference's ``scripts/bench_rpte.py`` workload: the bench model
     with ``classifier="rpte"`` (10 trees, ``wmean``, seed 0) fit on the
     device (``fit_device`` on a 100k sample) and serving the three 1M
     clouds, counted from zero; the forest walk alone timed on a step's
-    feature rows; card against CPU at 100k (``_e2e_kind``); with a
-    ``profile_dir`` three steps profiled with the walk's share."""
+    feature rows; the walk kernel's holds, launches and time
+    (``_walk_phase``); card against CPU at 100k (``_e2e_kind``); with a
+    ``profile_dir`` three steps profiled with the walk's share.  Returns
+    the walk kernel's record (with its launches in the three serving
+    steps) and work."""
     import torch
     from nimrud_tpu_torch import pipeline
     from nimrud_tpu_torch.utils import checks, workload
@@ -2717,10 +2906,12 @@ def _rpte_phase(cloud, labels, clouds, truths, device, profile_dir=None):
     counts = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     accs = _check_served("rpte", diags, served, truths)
-    _only(counts, ("packed_moments",), "the rpte path")
+    _only(counts, ("packed_moments", "forest_walk"), "the rpte path")
     _check(fit_counts["packed_moments"] > 0
            and counts["packed_moments"] > fit_counts["packed_moments"],
            "the kernel did not run in the rpte fit and serving")
+    _check(counts["forest_walk"] > fit_counts["forest_walk"],
+           "the walk kernel did not run in the rpte serving")
     forest = model.classifier
     staged = model.stage(clouds[0])
     feats = checks.served_features(model, staged)
@@ -2737,7 +2928,11 @@ def _rpte_phase(cloud, labels, clouds, truths, device, profile_dir=None):
           f"deepest split; {needed} needed "
           f"by the cloud's rows); the walk alone on the cloud's "
           f"{feats.shape[0]} served rows {walk_ms:.3f} ms (CUDA events); peak "
-          f"{peak_gb:.3f} GiB", flush=True)
+          f"{peak_gb:.3f} GiB; forest_walk launches "
+          f"{(counts['forest_walk'] - fit_counts['forest_walk']) / 3:g} a "
+          "step", flush=True)
+    walk = _walk_phase(model, clouds, device)
+    walk[0]["launches"] = counts["forest_walk"] - fit_counts["forest_walk"]
     if profile_dir:
         staged_all = [model.stage(c) for c in clouds]
         classify = pipeline.classify_features
@@ -2759,6 +2954,7 @@ def _rpte_phase(cloud, labels, clouds, truths, device, profile_dir=None):
     other, other_labels = workload.make_bench_cloud(E2E_POINTS, seed=1)
     _e2e_kind("minimal", small, small_labels, other, other_labels, device,
               classifier="rpte")
+    return walk
 
 
 def _knn_d2_bound(radius):
@@ -3670,9 +3866,9 @@ def _mc_forest(model, cloud, labels, clouds, truths, mesh, device):
     print(f"[multichip] rpte predict_multichip: {ms:.1f} ms (first call, "
           f"host sizing); launches {counts}; accuracy {acc:.4f}; agreement "
           f"with its single-device labels {agree:.6f}", flush=True)
-    _only(counts, ("packed_moments",), "the rpte mesh program")
-    _check(counts["packed_moments"] > 0 and acc > 0.8 and agree >= 0.99,
-           "rpte mesh serving")
+    _only(counts, ("packed_moments", "forest_walk"), "the rpte mesh program")
+    _check(counts["packed_moments"] > 0 and counts["forest_walk"] > 0
+           and acc > 0.8 and agree >= 0.99, "rpte mesh serving")
     return counts
 
 
@@ -3907,8 +4103,11 @@ def _bench_phase(started):
                f"bench stage {key}: {rec}")
         _check(rec["counters_all_zero"], f"bench stage {key} overflowed: "
                f"{rec['overflow_counters']}")
-        _check(rec["launches_per_step"].get("packed_moments", 0) > 0
-               and set(rec["launches_total"]) == {"packed_moments"},
+        # the forest's stage also walks it in the walk kernel
+        kernels = {"packed_moments"} | (
+            {"forest_walk"} if key == "rpte_serving" else set())
+        _check(all(rec["launches_per_step"].get(k, 0) > 0 for k in kernels)
+               and set(rec["launches_total"]) == kernels,
                f"bench stage {key} launches {rec['launches_total']}")
         print(f"[bench] {_bench_stage_text(key, rec)}", flush=True)
     print(f"[bench] value {result['value']:.1f} points/s "
@@ -4400,8 +4599,8 @@ def _fuzz_phase(device):
 def _build_phase(cuda_build):
     """Build every kernel, all nvcc processes together; print ptxas's
     usage and the tensor-core instructions of each template instance.
-    No kernel may spill, and every instance must hold HMMA
-    instructions."""
+    No kernel may spill, each has its number of instances, and every
+    instance of a moment kernel must hold HMMA instructions."""
     t0 = time.perf_counter()
     built = cuda_build.build_all()
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
@@ -4413,7 +4612,8 @@ def _build_phase(cuda_build):
         print(f"[build] {kernel} HMMA instructions (cuobjdump -sass): "
               + ", ".join(f"{k} {v}" for k, v in hmma.items()), flush=True)
         _check(cuda_build.spill_bytes(report) == 0, f"{kernel} spills")
-        _check(len(hmma) == INSTANCES[kernel] and min(hmma.values()) > 0,
+        _check(len(hmma) == INSTANCES[kernel], f"{kernel}: instances {hmma}")
+        _check(kernel not in MMA_KERNELS or min(hmma.values()) > 0,
                f"{kernel}: a template instance without HMMA {hmma}")
 
 
@@ -4545,6 +4745,8 @@ def main():
         print(f"[{phase}] phase wall {time.perf_counter() - t0:.1f} s",
               flush=True)
     del model
+    record["forest_walk"] = walled["rpte"]
+    launches["forest_walk"] = walled["rpte"][0]["launches"]
     features, swept = walled["workflows"]
     launches["packed_moments"] += features + swept
     print(f"[launches] packed_moments: {features} in the features workflow, "
@@ -4608,8 +4810,13 @@ def main():
         "entry_moments_excl": (
             "entry_moments",
             "nimrud_tpu/ops/pallas/multiscale_kernel.py:84 "
-            "(exclude_radius)")}
-    # no single PyTorch call computes a masked moment sum: library_ms null
+            "(exclude_radius)"),
+        "forest_walk": (
+            "forest_walk",
+            "none: the JAX package walks the forest in XLA "
+            "(nimrud_tpu/learning/rpt.py _walk_forest_dense)")}
+    # no single PyTorch call computes a masked moment sum or a forest
+    # walk: library_ms null
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",
         "source": f"nimrud_tpu_torch/csrc/{source}.cu",

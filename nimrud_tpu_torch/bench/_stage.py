@@ -32,13 +32,15 @@ def _counters():
     """(name, wrapper, attribute) of every kernel launch counter, named
     as ``chip_smoke.py`` names them; read at call time, so a wrapper
     replaced on its module is the one read."""
+    from nimrud_tpu_torch.ops.kernels import forest_walk as fw
     from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
     from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
     from nimrud_tpu_torch.ops.kernels import packed_moments as pm
     rows = []
     for name, fn in (("packed_moments", pm.packed_moments),
                      ("span_moments", gk.span_moments),
-                     ("entry_moments", mk.entry_moments)):
+                     ("entry_moments", mk.entry_moments),
+                     ("forest_walk", fw.forest_proba)):
         for attr in vars(fn):
             if attr.endswith("launches"):
                 suffix = attr[:-len("launches")].rstrip("_")

@@ -23,7 +23,12 @@ a leaf; a test of that is a host synchronization a level here, so the
 walk runs a fixed number of levels instead: one past the forest's
 deepest split (``walk_depth_``, found once when the tables are set),
 where every pair stands at a leaf, so the results are the reference's
-(a pair at a leaf stays where it is).
+(a pair at a leaf stays where it is).  On the card the dense walk and
+the decision function run in one hand-written kernel
+(``ops/kernels/forest_walk``, ``csrc/forest_walk.cu``), which leaves
+each tree at its leaf, on the tables with their packing added once when
+they are installed (``walk_tables_``); the plain walk is the CPU path
+and its oracle.
 
 :meth:`RPTEnsemble.fit_device_mesh` grows the same forest from features
 sharded over a device mesh (``parallel.mesh``), bit-identical to
@@ -40,6 +45,8 @@ itself, not against the JAX fit's ``jax.random`` draws.
 import numpy as np
 import torch
 
+from nimrud_tpu_torch.ops.kernels import forest_walk
+
 # branch codes carry one bit per level plus the root bit: int32 tables
 # need depth < 31
 MAX_DEPTH = 30
@@ -51,7 +58,6 @@ _LEAF = np.float32(np.inf)
 
 SPARSE_KEYS = ("tags", "splits", "vecs", "ginis", "props")
 DENSE_KEYS = ("dense_splits", "dense_vecs", "dense_ginis", "dense_props")
-_WMEAN_EPS = float(np.float32(np.spacing(32)))
 
 
 class RPTEnsemble:
@@ -168,11 +174,15 @@ class RPTEnsemble:
         return self
 
     def _set_tables(self, tables):
-        """Install fitted tables (``max_depth_`` set) and find the depth
+        """Install fitted tables (``max_depth_`` set), find the tables
+        the walk reads (``walk_tables_``: the dense tables with the walk
+        kernel's packing added, else the sparse tables) and the depth
         the walk needs: one past the deepest split, at most
         ``max_depth_`` (one device read, here and not in a step)."""
         self._tables = tables
         dense = "dense_splits" in tables
+        self.walk_tables_ = forest_walk.pack_tables(tables) if dense \
+            else tables
         splits = tables["dense_splits" if dense else "splits"]
         finite = torch.isfinite(splits)
         codes = torch.arange(splits.shape[1], device=splits.device).expand(
@@ -417,7 +427,7 @@ class RPTEnsemble:
 
     def proba_device(self, features):
         """Class probabilities of a device feature tensor."""
-        return ensemble_proba(self._tables, features, self.walk_depth_,
+        return ensemble_proba(self.walk_tables_, features, self.walk_depth_,
                               self.d_func)
 
     def predict(self, data):
@@ -599,7 +609,7 @@ def _walk_one_tree(tags, splits, vecs, ginis, props, data, max_depth):
 def _walk_one_tree_dense(dsplits, dvecs, dginis, dprops, data, max_depth):
     """Direct-index walk of one dense tree (node = branch code, dead
     branches filled at pack time): the per-tree form of
-    :func:`_walk_forest_dense`, with the same results."""
+    ``forest_walk.walk_dense_plain``, with the same results."""
     size = dsplits.shape[0]
     batch = data.shape[0]
     tag = torch.ones(batch, dtype=torch.int64, device=data.device)
@@ -617,60 +627,19 @@ def _walk_one_tree_dense(dsplits, dvecs, dginis, dprops, data, max_depth):
     return dginis[node], dprops[node]
 
 
-def _walk_forest_dense(tables, data, max_depth):
-    """All trees walked together over the dense tables: the tree axis
-    folds into the gather index and the split rides each projection row
-    as one more column, so a level is one row gather of (trees, points,
-    dim + 1); gini rides the proportion rows at the end.  Every level to
-    ``max_depth`` runs (no early exit, so no host synchronization):
-    pairs at a leaf stay frozen.  Returns gini (trees, points) and
-    proportions (trees, points, classes)."""
-    dsplits, dvecs = tables["dense_splits"], tables["dense_vecs"]
-    n_trees, size, dim = dvecs.shape
-    batch = data.shape[0]
-    fvecs = torch.cat([dvecs, dsplits[:, :, None]], dim=2).reshape(
-        n_trees * size, dim + 1)
-    stats = torch.cat([tables["dense_ginis"][:, :, None],
-                       tables["dense_props"]], dim=2).reshape(
-        n_trees * size, -1)
-    offs = (torch.arange(n_trees, device=data.device) * size)[:, None]
-    tag = torch.ones((n_trees, batch), dtype=torch.int64, device=data.device)
-    done = torch.zeros((n_trees, batch), dtype=torch.bool,
-                       device=data.device)
-    node = torch.zeros_like(tag)
-    for _ in range(max_depth + 1):
-        row = fvecs[(offs + torch.clamp(tag, max=size - 1)).reshape(-1)]
-        row = row.reshape(n_trees, batch, dim + 1)
-        split = row[:, :, dim]
-        is_leaf = torch.isinf(split)
-        node = torch.where(~done & is_leaf, tag, node)
-        done = done | is_leaf
-        projection = (data[None] * row[:, :, :dim]).sum(2)
-        next_tag = (tag << 1) | (projection > split).to(torch.int64)
-        tag = torch.where(done, tag, next_tag)
-    out = stats[(offs + node).reshape(-1)].reshape(n_trees, batch, -1)
-    return out[:, :, 0], out[:, :, 1:]
-
-
 def ensemble_proba(tables, data, max_depth, d_func):
     """Class probabilities of feature rows ``data`` (points, dim) under
     the forest ``tables``, walked ``max_depth + 1`` levels (the forest's
     ``max_depth_``, or its ``walk_depth_``: the same results): the dense
-    walk when the dense tables exist, else the sparse walk tree by tree;
-    then the decision function."""
+    walk and decision of ``ops/kernels/forest_walk`` when the dense
+    tables exist (for a CUDA tensor the kernel, on the packing of the
+    forest's ``walk_tables_``; the plain walk on the CPU), else the
+    sparse walk tree by tree, then the decision function."""
     if "dense_splits" in tables:
-        gini, proportions = _walk_forest_dense(tables, data, max_depth)
-    else:
-        walks = [_walk_one_tree(*(tables[k][t] for k in SPARSE_KEYS), data,
-                                max_depth)
-                 for t in range(tables["tags"].shape[0])]
-        gini = torch.stack([g for g, _ in walks])
-        proportions = torch.stack([p for _, p in walks])
-    weights = (1.0 - gini).T[:, :, None]               # (points, trees, 1)
-    proportions = proportions.permute(1, 0, 2)         # (points, trees, C)
-    if d_func == "wmean":
-        weights = weights / (weights.sum(1, keepdim=True) + _WMEAN_EPS)
-        return (proportions * weights).sum(1)
-    if d_func == "wmax":
-        return (proportions * weights).max(1).values
-    raise ValueError(f"unknown decision function {d_func!r}")
+        return forest_walk.forest_proba(tables, data, max_depth, d_func)
+    walks = [_walk_one_tree(*(tables[k][t] for k in SPARSE_KEYS), data,
+                            max_depth)
+             for t in range(tables["tags"].shape[0])]
+    gini = torch.stack([g for g, _ in walks])
+    proportions = torch.stack([p for _, p in walks])
+    return forest_walk.decide(gini, proportions, d_func)

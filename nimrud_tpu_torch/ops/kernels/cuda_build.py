@@ -30,7 +30,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("packed_moments", "span_moments", "entry_moments")
+KERNELS = ("packed_moments", "span_moments", "entry_moments",
+           "forest_walk")
 
 
 def _nvcc():
@@ -167,15 +168,18 @@ _FUNCTION = re.compile(r"Function : (\S+)")
 _PTXAS_FUNCTION = re.compile(r"Compiling entry function '([^']+)'")
 _TEMPLATE = re.compile(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E")
 _ARGUMENT = re.compile(r"L([ib])(\d+)E")
+_PLAIN = re.compile(r"\d([a-z][a-z_]*_kernel)E")
 
 
 def kernel_name(mangled):
     """A templated kernel's mangled name with its int and bool template
     arguments, as ``name<N>``, ``name<N, true|false>`` or ``name<N, M>``;
+    a kernel without template arguments (in a namespace) as ``name``;
     other names unchanged."""
     template = _TEMPLATE.search(mangled)
     if not template:
-        return mangled
+        plain = _PLAIN.search(mangled)
+        return plain.group(1) if plain else mangled
     kernel, args = template.groups()
     values = [value if kind == "i" else ("true" if value == "1" else "false")
               for kind, value in _ARGUMENT.findall(args)]

@@ -598,8 +598,9 @@ class GeometryClassifier:
     def _fused_classifier(self):
         """The classifier's device parameters for the serving step
         (:func:`classify_features`): the linear model's weights and
-        standardization, or the forest's tables with its walk depth and
-        decision function."""
+        standardization, or the tables the forest's walk reads (with
+        the walk kernel's packing) with its walk depth and decision
+        function."""
         clf = self.classifier
         if isinstance(clf, SoftmaxClassifier) and clf.params is not None:
             return {"kind": "linear",
@@ -610,7 +611,7 @@ class GeometryClassifier:
         if isinstance(clf, rpt.RPTEnsemble) and clf._tables is not None:
             return {"kind": "rpte",
                     "tables": {k: v.to(self.device)
-                               for k, v in clf._tables.items()},
+                               for k, v in clf.walk_tables_.items()},
                     "max_depth": clf.walk_depth_, "d_func": clf.d_func}
         raise ValueError("serving needs a fitted linear or rpte classifier")
 

@@ -1,6 +1,7 @@
 """
 Correctness checks shared by the port's tests and ``chip_smoke.py``:
-the forest walk's rounding witness, the tolerance of chunked against
+the forest walk's rounding witness, drawn forests to hold the walk
+kernel against its plain twin, the tolerance of chunked against
 un-chunked serving probabilities, a fitted classifier's CPU copy, the
 feature rows a serving step classifies, and a host classifier that
 needs no sklearn (:class:`NearestMean`).
@@ -48,6 +49,36 @@ def walk_witness(tables, feats, max_depth, rows):
                 code = 2 * code + int(proj > splits[t, node])
         held.append(near)
     return torch.tensor(held, dtype=torch.bool)
+
+
+def drawn_forest(seed, n_trees, depth, dim, n_classes, n_rows):
+    """A random forest's dense tables (the ``dense_*`` keys, float32 on
+    the CPU) and ``n_rows`` standard normal (n_rows, dim) feature rows,
+    from ``seed``: each tree's root splits, a node below splits with
+    probability 0.8 where its parent did, down to level ``depth - 1``
+    (so ``2 ** (depth + 2)`` nodes a tree); unit projection vectors,
+    splits about the projections' spread, gini in [0, 0.7) and Dirichlet
+    proportions at every node.  Walk it ``depth`` levels deep (or fewer,
+    to leave pairs at no leaf)."""
+    rng = np.random.default_rng(seed)
+    size = 1 << (depth + 2)
+    internal = np.zeros((n_trees, size), bool)
+    internal[:, 1] = depth > 0
+    for code in range(2, 1 << depth):
+        internal[:, code] = internal[:, code >> 1] \
+            & (rng.random(n_trees) < 0.8)
+    vecs = rng.normal(size=(n_trees, size, dim))
+    vecs /= np.linalg.norm(vecs, axis=2, keepdims=True)
+    splits = np.where(internal, rng.normal(0.0, 0.5, (n_trees, size)),
+                      np.inf)
+    tables = {"dense_splits": splits, "dense_vecs": vecs,
+              "dense_ginis": rng.uniform(0.0, 0.7, (n_trees, size)),
+              "dense_props": rng.dirichlet(np.ones(n_classes),
+                                           (n_trees, size))}
+    feats = rng.normal(size=(n_rows, dim))
+    return ({k: torch.from_numpy(v.astype(np.float32))
+             for k, v in tables.items()},
+            torch.from_numpy(feats.astype(np.float32)))
 
 
 def on_cpu(clf):

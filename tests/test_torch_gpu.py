@@ -9,7 +9,11 @@ the same model on the CPU; designated-search serving (a staged search
 map, the stream's side stream) and staging on the C++ host runtime
 against its NumPy twin; entry-chunked serving against the un-chunked
 step, the random-projection-tree forest (its device fit, its walks
-and its serving step), the XLA tile path, the dense method and an
+and its serving step; the walk kernel against its plain twin on drawn
+forests, its wide kernel among them, its checks, its launches in a
+served scan, and the train workflows on 100 kernel-map columns), the
+XLA tile
+path, the dense method and an
 ``xla`` model's serving step on the card against the CPU; the kNN and radius neighbor search
 (ties on a 1/8 m grid, a candidate at exactly ``f32(r*r)``) and the kNN
 features on the card against the CPU, the host-classifier route
@@ -33,8 +37,10 @@ import numpy as np
 import pytest
 import torch
 
+from nimrud_tpu_torch import pipeline
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
 from nimrud_tpu_torch.learning.rpt import RPTEnsemble
+from nimrud_tpu_torch.ops.kernels import forest_walk as fw
 from nimrud_tpu_torch.ops.kernels import gather_kernel as gk
 from nimrud_tpu_torch.ops.kernels import multiscale_kernel as mk
 from nimrud_tpu_torch.ops.kernels import packed_moments as pm
@@ -722,6 +728,112 @@ def test_rpte_serving_on_card_matches_cpu(cuda):
         rows).all())
     differ = got.cpu() != cpu.predict_staged(cpu.stage(cloud))
     assert int(differ.sum()) <= 0.001 * len(cloud)
+
+
+@pytest.mark.parametrize("draw", [
+    (10, 14, 14, 12, 3, "wmean", 20_011), (1, 1, 1, 4, 2, "wmax", 1),
+    (7, 7, 5, 24, 5, "wmax", 129), (4, 9, 9, 63, 8, "wmean", 257),
+    (64, 6, 6, 16, 16, "wmean", 513), (100, 8, 8, 100, 20, "wmean", 1001),
+    (3, 6, 4, 64, 5, "wmax", 257), (65, 5, 5, 12, 3, "wmean", 130),
+    (2, 4, 4, 7, 17, "wmax", 129)])
+def test_forest_walk_kernel_matches_plain_walk(cuda, draw):
+    # trees, depth, levels walked - 1, features, classes, decision, rows
+    trees, depth, walk, dim, classes, d_func, n = draw
+    tables, feats = checks.drawn_forest(dim, trees, depth, dim, classes, n)
+    tables = fw.pack_tables({k: v.to(cuda) for k, v in tables.items()})
+    feats = feats.to(cuda)
+    before = fw.forest_proba.launches
+    got = fw.forest_proba(tables, feats, walk, d_func)
+    assert fw.forest_proba.launches == before + 1
+    want = fw.forest_proba_plain(tables, feats, walk, d_func)
+    off = ((got - want).abs().amax(1) > 1e-6) \
+        | (got.argmax(1) != want.argmax(1))
+    rows = off.nonzero()[:, 0].cpu()
+    assert bool(checks.walk_witness(tables, feats.cpu(), walk, rows).all())
+
+
+def test_forest_walk_kernel_refuses_what_it_does_not_take(cuda):
+    tables, feats = checks.drawn_forest(0, 3, 4, 12, 3, 64)
+    tables = {k: v.to(cuda) for k, v in tables.items()}
+    packed = fw.pack_tables(tables)
+    feats = feats.to(cuda)
+    before = fw.forest_proba.launches
+    with pytest.raises(TypeError):
+        fw.forest_proba(packed, feats.double(), 4, "wmean")
+    with pytest.raises(ValueError):
+        fw.forest_proba(packed, feats[:, ::2], 4, "wmean")
+    with pytest.raises(ValueError):
+        fw.forest_proba(packed, torch.cat([feats, feats[:, :1]], 1), 4,
+                        "wmean")
+    with pytest.raises(ValueError):
+        fw.forest_proba(dict(packed, walk_vecs=packed["walk_vecs"].cpu()),
+                        feats, 4, "wmean")
+    with pytest.raises(ValueError):
+        fw.forest_proba(tables, feats, 4, "wmean")
+    with pytest.raises(ValueError):
+        fw.forest_proba(packed, feats, 5, "wmean")
+    assert fw.forest_proba.launches == before
+    assert fw.forest_proba(packed, feats[:0], 4, "wmean").shape == (0, 3)
+
+
+def test_forest_workflows_on_card_with_kernel_map_columns(cuda, tmp_path):
+    # the workflow's default rpte on the card on the 100 columns of an
+    # RBF kernel map (kernel_approx="rbf"'s width, drawn here without
+    # sklearn), then a device-fit forest of those columns applied: its
+    # dense tables take the wide walk kernel
+    from nimrud_tpu_torch.archive.store import CloudArchive
+    from nimrud_tpu_torch.workflows import train
+
+    rng = np.random.default_rng(3)
+    cloud = np.vstack([rng.random((400, 3)) * [6, 6, 0.02],
+                       rng.random((400, 3)) * [0.02, 0.02, 6] + [8, 3, 0],
+                       rng.normal([14, 3, 3], 0.8, (400, 3))]
+                      ).astype(np.float32)
+    labels = np.repeat([0, 1, 2], 400).astype(np.int32)
+    proj = rng.normal(0.0, 0.3, (3, 100))
+    feats = (np.sqrt(2 / 100) * np.cos(
+        cloud @ proj + rng.uniform(0, 2 * np.pi, 100))).astype(np.float32)
+    archive = CloudArchive.create(tmp_path / "wide", cloud)
+    index = np.arange(len(cloud))
+    archive.add_asset("labels", labels, index)
+    archive.add_asset("f", feats, index)
+    report = train.multiclass_train(
+        archive, ["f"], "labels",
+        train.TrainConfig(classifier="rpte", classifier_kwargs={"seed": 0}))
+    assert report["classifier"].device.type == cuda.type
+    assert report["validation_accuracy"] > 0.8
+    forest = RPTEnsemble(seed=0, device=cuda).fit_device(
+        torch.from_numpy(feats).to(cuda), labels, n_classes=3)
+    assert fw.instance(forest.walk_tables_) == "forest_walk_wide_kernel"
+    before = fw.forest_proba.launches
+    assert train.apply_classifier(archive, forest, ["f"],
+                                  result_asset="applied") == "applied"
+    assert fw.forest_proba.launches > before
+    np.testing.assert_array_equal(archive.get_asset("applied")[0],
+                                  forest.predict(feats))
+    assert float((archive.get_asset("applied")[0] == labels).mean()) > 0.8
+    _walk_card_and_cpu(forest, feats)
+
+
+def test_rpte_serving_launches_the_walk_kernel(cuda):
+    cloud, labels = workload.make_bench_cloud(30000, seed=0)
+    model = workload.make_bench_model(cloud, classifier="rpte", device=cuda,
+                                      serving_chunk_slots=256 * 512)
+    model.fit(cloud, labels, sample=15000)
+    staged = model.stage(cloud)
+    pack = min((s[1] for s in staged["specs"]), key=lambda d: d.tile_edge)
+    chunk = pipeline._serving_entry_chunk(pack.e_cap, pack.q_cap,
+                                          model.serving_chunk_slots)
+    assert chunk is not None and pack.e_cap > chunk
+    before = fw.forest_proba.launches
+    model.predict_staged(staged)
+    # one launch an entry chunk, one for the scatter's zero row
+    assert fw.forest_proba.launches - before == -(-pack.e_cap // chunk) + 1
+    linear = workload.make_bench_model(cloud, device=cuda)
+    linear.fit(cloud, labels, sample=15000)
+    before = fw.forest_proba.launches
+    linear.predict_staged(linear.stage(cloud))
+    assert fw.forest_proba.launches == before
 
 
 # -- the XLA path and the dense method ----------------------------------------

@@ -217,16 +217,17 @@ def test_kernel_build_key_follows_included_headers(tmp_path, monkeypatch,
     assert changed != key
     (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\nint a2;\n')
     assert cuda_build.source_key(str(csrc / "k.cu")) not in (key, changed)
-    # the port's three kernels share one header: an edit there rebuilds
-    # each of them
+    # the port's three moment kernels share one header: an edit there
+    # rebuilds each of them, and not the forest walk, which includes none
     port = tmp_path / "port"
     shutil.copytree(port_csrc, port)
     source = port / f"{kernel}.cu"
-    assert '#include "moment_mma.cuh"' in source.read_text()
+    shares = '#include "moment_mma.cuh"' in source.read_text()
+    assert shares == (kernel != "forest_walk")
     key = cuda_build.source_key(str(source))
     header = port / "moment_mma.cuh"
     header.write_text(header.read_text() + "\n// an edit\n")
-    assert cuda_build.source_key(str(source)) != key
+    assert (cuda_build.source_key(str(source)) != key) == shares
 
 
 def test_sass_and_ptxas_report_parsers():

@@ -41,6 +41,7 @@ from nimrud_tpu.learning import rpt as jrpt
 
 from nimrud_tpu_torch.utils import checks
 from nimrud_tpu_torch.learning import rpt as trpt
+from nimrud_tpu_torch.ops.kernels import forest_walk
 from nimrud_tpu_torch.learning.classifiers import param_classifier
 from torch_rpt_cases import forest_data, numpy_tables
 from torch_thread_cases import one_torch_thread  # noqa: F401
@@ -146,7 +147,7 @@ def test_dense_walks_match_reference(data, device_fit):
     _check_walk(tables, device_fit.max_depth_, "wmean", xt)
     # the per-tree walk is the forest walk's per-tree form
     t = {k: torch.from_numpy(v) for k, v in tables.items()}
-    gini, props = trpt._walk_forest_dense(t, torch.from_numpy(xt), 14)
+    gini, props = forest_walk.walk_dense_plain(t, torch.from_numpy(xt), 14)
     for tree in range(gini.shape[0]):
         g, p = trpt._walk_one_tree_dense(
             *(t[k][tree] for k in trpt.DENSE_KEYS), torch.from_numpy(xt), 14)
