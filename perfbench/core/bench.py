@@ -3,17 +3,20 @@ One run of one cell: set-up, the measured window, the traced segment
 (``trace``), the reference's check, and the result line.
 
 Set-up makes everything from the seed: the labelled scan, the served
-clouds (the traffic's generator), the classifier state (the reference's
-features of a sample of the scan; a ridge fit or the forest's growth,
-``reference``), the program's model with that state installed, the
-designated map's handle, and ``warmup`` served clouds.  ``setup_s`` is
+clouds and, where the traffic brings them, their per-point attribute
+columns (the traffic's generator), the classifier state (the
+reference's features, in the configuration's layout, of a sample of the
+scan; a ridge fit or the forest's growth, ``reference``), the program's
+model with that state installed, the designated map's handle, and
+``warmup`` served clouds.  ``setup_s`` is
 the process's start to the window's first cloud less the seconds of the
 classifier state's making and of the host probe: the program's part.
 
 The window is the traffic's loop (``perfbench/loops/``) over the pool.
-A cloud's time runs from its arrival through ``stage``,
-``predict_staged`` (labels, probabilities, overflow counters) and the
-copy of all three to the host.  A cloud that raises, or whose counters
+A cloud's time runs from its arrival through ``stage`` (with its
+attribute columns, where it has them), ``predict_staged`` (labels,
+probabilities, overflow counters) and the copy of all three to the
+host.  A cloud that raises, or whose counters
 are not all zero, is counted in ``failed``.
 
 The host probe times a fixed piece of single-threaded host work before
@@ -90,21 +93,35 @@ class Setup:
         self._fit_classifier(seed)
         self.state_s = time.perf_counter() - start
 
-    def ref_scene(self, points):
-        """The reference's view of a served cloud (on the device)."""
+    def search_attributes(self, k=None):
+        """The attribute columns of the search cloud of pool cloud ``k``
+        (of the labelled scan for None): the designated map's are the
+        labelled scan's; None without attributes."""
+        t = self.traffic
+        if t.attributes is None:
+            return None
+        fit, pool = t.attributes
+        return fit if k is None or t.search is not None else pool[k]
+
+    def ref_scene(self, points, attributes=None):
+        """The reference's view of a served cloud (on the device), with
+        its search cloud's ``attributes``."""
         t = self.traffic
         search = None if t.search is None else \
             torch.from_numpy(t.search).to(self.device)
+        if attributes is not None:
+            attributes = torch.from_numpy(attributes).to(self.device)
         return rfeat.Scene(torch.from_numpy(points).to(self.device), search,
                            self.bands, self.lo, self.hi, t.self_search,
-                           self.cfg["control_frame_m"])
+                           self.cfg["control_frame_m"], self.cfg["kind"],
+                           attributes)
 
     def _fit_classifier(self, seed):
         fit = self.cfg["classifier_fit"]
         points, labels = self.traffic.fit
         rows = np.sort(scene.rng(seed, scene.FIT_ROWS).choice(
             len(points), int(fit["sample"]), replace=False))
-        ref = self.ref_scene(points)
+        ref = self.ref_scene(points, self.search_attributes())
         feats = ref.features(torch.from_numpy(rows).to(self.device))[0]
         feats = feats[:len(rows)]
         labels = labels[rows]
@@ -129,8 +146,9 @@ class Setup:
             raise ValueError(f"unknown classifier {kind!r}")
 
     def program(self):
-        """The program's model with the state installed, and the
-        designated map's handle (or None)."""
+        """The program's model with the state installed (its serving
+        sized on the labelled scan, and its attribute columns where the
+        traffic has them), and the designated map's handle (or None)."""
         from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
         from nimrud_tpu_torch.learning.rpt import RPTEnsemble
         from nimrud_tpu_torch.pipeline import GeometryClassifier
@@ -150,19 +168,33 @@ class Setup:
             s = self.state
             clf = RPTEnsemble.from_tables(s["tables"], s["depth"],
                                           s["d_func"], self.device)
-        model.install_classifier(clf, self.traffic.fit[0])
+        columns = self.search_attributes()
+        kw = {} if columns is None else {"attributes": columns}
+        model.install_classifier(clf, self.traffic.fit[0], **kw)
         handle = None
         if self.traffic.search is not None:
-            handle = model.stage_search(self.traffic.search)
+            handle = model.stage_search(self.traffic.search, **kw)
         return model, handle
+
+    def stage_kw(self):
+        """``stage``'s attribute argument a pooled cloud, by the cloud's
+        id (none for a designated map's clouds, whose handle holds the
+        map's)."""
+        t = self.traffic
+        if t.attributes is None or t.search is not None:
+            return {}
+        return {id(c): {"attributes": a}
+                for c, a in zip(t.pool, t.attributes[1])}
 
 
 class Server:
     """The timed path: one cloud from arrival to its answers on the
-    host."""
+    host.  ``stage_kw``: ``stage``'s further arguments by the served
+    cloud's id (``Setup.stage_kw``)."""
 
-    def __init__(self, model, handle, device):
+    def __init__(self, model, handle, device, stage_kw=None):
         self.model, self.handle = model, handle
+        self.stage_kw = stage_kw or {}
         self.cuda = torch.device(device).type == "cuda"
 
     def sync(self):
@@ -178,7 +210,8 @@ class Server:
         start = time.perf_counter()
         with rng("perfbench.stage"):
             if self.handle is None:
-                staged = self.model.stage(cloud)
+                staged = self.model.stage(cloud,
+                                          **self.stage_kw.get(id(cloud), {}))
             else:
                 staged = self.model.stage(cloud, staged_search=self.handle)
             if split:
@@ -248,10 +281,12 @@ def _profile(server, clouds):
             "clouds": len(clouds)}
 
 
-def _walk_ms(model, cloud, device):
+def _walk_ms(model, cloud, device, attributes=None):
     """Milliseconds of the forest walk alone on a served cloud's feature
-    rows: CUDA events around ``WALK_REPEATS`` calls."""
-    feats = model.extract_device(cloud)
+    rows (``attributes``: its columns, for a layout that takes them):
+    CUDA events around ``WALK_REPEATS`` calls."""
+    kw = {} if attributes is None else {"attributes": attributes}
+    feats = model.extract_device(cloud, **kw)
     walk = model.classifier.proba_device
     walk(feats)
     if torch.device(device).type != "cuda":
@@ -297,7 +332,7 @@ def run(cell, seed, seconds, trace, device="cuda", t0=None, control=False,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     model, handle = setup.program()
-    server = Server(model, handle, device)
+    server = Server(model, handle, device, setup.stage_kw())
     for k in range(int(setup.spec["warmup"])):
         server.step(pool[k % len(pool)], split=trace)
     server.sync()
@@ -351,8 +386,8 @@ def run(cell, seed, seconds, trace, device="cuda", t0=None, control=False,
         if cuda:
             records["trace"] = _profile(server, [pool[k] for k in traced])
         if setup.cfg["classifier"] == "rpte":
-            records["classifier"]["walk_ms"] = _walk_ms(model, pool[0],
-                                                        device)
+            records["classifier"]["walk_ms"] = _walk_ms(
+                model, pool[0], device, setup.search_attributes(0))
 
     del server, model, handle
     gc.collect()
@@ -360,17 +395,22 @@ def run(cell, seed, seconds, trace, device="cuda", t0=None, control=False,
         torch.cuda.empty_cache()
 
     # -- the reference -----------------------------------------------------
-    gaps, control_gaps = [], []
+    gaps, control_gaps, tied = [], [], []
     work = {"pairs": [], "voxels": []}
+    layout_work = []
     for k in sorted(set(served) | set(traced)):
-        ref = setup.ref_scene(pool[k])
+        ref = setup.ref_scene(pool[k], setup.search_attributes(k))
         rows = torch.from_numpy(setup.rows[k]).to(setup.device)
         if k in traced:
             scale = n / len(rows)
             work["pairs"].append([c * scale for c in ref.pair_counts(rows)])
             work["voxels"].append(ref.voxel_counts)
+            layout_work.append(ref.layout_work())
         if k not in served:
             continue
+        ties = ref.tied_rows(rows)
+        if ties is not None:
+            tied.append(ties * len(served[k]))
         feats, owner = ref.features(rows)
         ref_p = setup.ref_proba(feats)
         for labels, proba in served[k]:
@@ -385,6 +425,8 @@ def run(cell, seed, seconds, trace, device="cuda", t0=None, control=False,
         del ref
     miss_gap = float(setup.cfg["miss_gap"])
     nums = compare.numbers(gaps, miss_gap)
+    if tied:
+        nums["interp_tie_points"] = sum(tied)
     records["numbers"] = nums
     if control:
         records["control"] = compare.numbers(control_gaps, miss_gap)
@@ -393,6 +435,9 @@ def run(cell, seed, seconds, trace, device="cuda", t0=None, control=False,
             "points": n,
             "pairs": np.mean(work["pairs"], axis=0).tolist(),
             "voxels": np.mean(work["voxels"], axis=0).tolist()}
+        for key in layout_work[0]:
+            records["work"][key] = np.mean([w[key] for w in layout_work],
+                                           axis=0).tolist()
 
     checks = {"failed_clouds": {"value": failed, "limit": 0}}
     for name, limit in setup.cfg["checks"].items():

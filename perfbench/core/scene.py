@@ -19,7 +19,7 @@ generators' common parts.
 import numpy as np
 
 N_WALLS = 8
-FIT_ROWS, CHECK_ROWS, FOREST = 1, 2, 3     # purposes of ``rng``
+FIT_ROWS, CHECK_ROWS, FOREST, ATTRIBUTES = 1, 2, 3, 4   # purposes of ``rng``
 
 
 def bench_cloud(n, seed, scale=1.0, walls=None):
@@ -67,14 +67,18 @@ class Traffic:
     """The clouds one run serves, and the scan the model is fitted on.
 
     ``fit``: (points, labels) of the labelled scan; ``search``: the
-    designated map or None; ``pool``: the served clouds; ``self_search``:
-    whether each cloud is its own search cloud (the uint16 upload)."""
+    designated map (the labelled scan's points) or None; ``pool``: the
+    served clouds; ``self_search``: whether each cloud is its own search
+    cloud (the uint16 upload); ``attributes``: None, or the per-point
+    columns as ``(fit scan's (n, A), [one (n, A) a pooled cloud])``,
+    float32, rows aligned with the points."""
 
-    def __init__(self, fit, search, pool, self_search):
+    def __init__(self, fit, search, pool, self_search, attributes=None):
         self.fit = fit
         self.search = search
         self.pool = pool
         self.self_search = self_search
+        self.attributes = attributes
 
 
 def make_traffic(spec, seed, lo, hi):

@@ -6,7 +6,8 @@ a cell's own size).  The benchmark's own runs plant none.
 Each fault is ``fault(patch, cfg)``: it replaces a function of the
 program through ``patch(module, name, value)`` with a wrapper that
 keeps the function's attributes (the kernels' launch counters);
-``cfg`` is the cell's configuration.  The first three break every served point, the last two
+``cfg`` is the cell's configuration.  Of the serving faults
+(``FAULTS``) the first three break every served point, the last two
 only a part of them:
 
 * ``stale_state`` -- a step that returns its state unchanged: each scan
@@ -22,6 +23,15 @@ only a part of them:
 * ``answer_block`` -- the answers of a block of rows altered: the
   classes of the first sixteenth of the rows of each classifier call
   swapped.
+
+The attribute faults (``ATTRIBUTE_FAULTS``) break a cell whose layout
+reads per-point attribute columns, and leave any other alone: the
+columns reach each band's search side (``pipeline._band_search_prep``:
+the served clouds' and a designated map's)
+
+* ``attribute_columns`` -- in another column order (reversed);
+* ``attribute_rows`` -- in another row order (rolled by half the rows),
+  each point taking another point's columns.
 """
 
 import contextlib
@@ -114,9 +124,34 @@ def answer_block(patch, cfg):
     patch(pipeline, "classify_features", classify_features)
 
 
+def _reordered(patch, reorder):
+    from nimrud_tpu_torch import pipeline
+
+    original = pipeline._band_search_prep
+
+    @functools.wraps(original)
+    def band_search_prep(search, s_valid, band, kind="minimal",
+                         attributes=None, **kw):
+        if attributes is not None:
+            attributes = reorder(attributes)
+        return original(search, s_valid, band, kind, attributes, **kw)
+
+    patch(pipeline, "_band_search_prep", band_search_prep)
+
+
+def attribute_columns(patch, cfg):
+    _reordered(patch, lambda columns: columns.flip(1))
+
+
+def attribute_rows(patch, cfg):
+    _reordered(patch, lambda columns: columns.roll(columns.shape[0] // 2, 0))
+
+
 FAULTS = {f.__name__: f for f in (stale_state, half_the_neighbours,
                                   swapped_classes, band_region,
                                   answer_block)}
+ATTRIBUTE_FAULTS = {f.__name__: f for f in (attribute_columns,
+                                            attribute_rows)}
 LOCAL = ("band_region", "answer_block")
 
 
@@ -130,7 +165,7 @@ def planted(name, cfg):
         setattr(owner, attr, value)
 
     try:
-        FAULTS[name](patch, cfg)
+        {**FAULTS, **ATTRIBUTE_FAULTS}[name](patch, cfg)
         yield
     finally:
         for owner, attr, value in reversed(saved):

@@ -1,9 +1,10 @@
 """
 The plain reference of what a served cloud's labels rest on: the uint16
 upload against the site bounds, each band's voxel dedup of the search
-cloud, the radius neighbourhoods of the query points, their moments and
-the ``minimal`` layout.  Plain PyTorch, on any device, in float64 (or,
-for the lower-precision control, float32 with its moment sums in TF32).
+cloud, the radius neighbourhoods of the query points, and the
+configuration's layout over them (``reference/layouts/<kind>.py``).
+Plain PyTorch, on any device, in float64 (or, for the lower-precision
+control, float32 with its sums in TF32).
 
 Semantics, stated here once:
 
@@ -19,10 +20,8 @@ Semantics, stated here once:
   ``|c - q|^2 <= f32(r * r)``.  A pair within ``d2_tolerance`` of the
   radius cannot be decided by a float32 program: it is reported as
   ambiguous, and the comparison accepts either side of it.
-* The ``minimal`` block: ``[count, |mean - q|, l1 / trace, l2 / trace]``
-  with ``l1 >= l2`` the two largest eigenvalues of the population
-  covariance; the eigenvalue columns are 0 below two points, the
-  centroid column 0 for an empty neighbourhood.
+* A band's features: the block of the configuration's layout, stated
+  in its module under ``reference/layouts/``.
 
 Nothing here imports the program under test.
 """
@@ -31,6 +30,8 @@ import math
 
 import numpy as np
 import torch
+
+from perfbench.reference import layouts
 
 QUANT_STEPS = 65000.0
 MAX_KEY_BITS = 30
@@ -126,9 +127,10 @@ def _window(radius, edge):
 
 def neighbourhood(grid, queries, radius):
     """The voxel centres near each query (float32 queries (s, 3)): the
-    centres (s, w, 3) float32, and masks (s, w) of the pairs inside the
-    radius for certain (``inside``) and of the undecidable ones
-    (``ambiguous``)."""
+    centres (s, w, 3) float32, their squared distances (s, w) float64,
+    masks (s, w) of the pairs inside the radius for certain (``inside``)
+    and of the undecidable ones (``ambiguous``), and the centres' voxel
+    indices (s, w, 3) (0 past the grid)."""
     offsets = _window(radius, grid.edge).to(queries.device)
     cells = grid.cells(queries)[:, None, :] + offsets[None]
     dims = torch.tensor(grid.dims, device=queries.device)
@@ -144,59 +146,7 @@ def neighbourhood(grid, queries, radius):
     tol = d2_tolerance(radius)
     inside = present & (d2 < r2 - tol)
     ambiguous = present & ((d2 - r2).abs() <= tol)
-    return centers, d2, inside, ambiguous
-
-
-def moments_block(centers, queries, mask, precision="float64", frame=None):
-    """``minimal`` block (s, 4) of the neighbourhoods ``mask`` selects
-    among ``centers`` (s, w, 3) float32 around ``queries`` (s, 3).
-
-    ``precision``: "float64" (the reference: offsets from the query,
-    two-pass covariance), or "tf32" (the control: the offsets from
-    ``frame`` (s, 3) float32, the masked sums as a TF32 product forms
-    them -- operands rounded to TF32, float32 accumulation -- and the
-    rest in float32)."""
-    if precision == "float64":
-        x = centers.to(torch.float64) - queries.to(torch.float64)[:, None]
-        w = mask.to(torch.float64)
-        count = w.sum(1)
-        denom = count.clamp(min=1.0)[:, None]
-        mean = (w[..., None] * x).sum(1) / denom
-        centred = x - mean[:, None, :]
-        cov = torch.einsum("swi,swj->sij", centred * w[..., None], centred) \
-            / denom[..., None]
-        shift = mean
-    else:
-        x = centers - frame[:, None, :]
-        w = mask.to(torch.float32)
-        xs, ys, zs = x.unbind(-1)
-        terms = torch.stack([torch.ones_like(xs), xs, ys, zs, xs * xs,
-                             xs * ys, xs * zs, ys * ys, ys * zs, zs * zs],
-                            dim=-1)
-        sums = torch.einsum("sw,swk->sk", w, tf32(terms))
-        count = sums[:, 0]
-        denom = count.clamp(min=1.0)[:, None]
-        mean = sums[:, 1:4] / denom
-        second = sums[:, 4:10] / denom
-        mx, my, mz = mean.unbind(-1)
-        packed = second - torch.stack([mx * mx, mx * my, mx * mz, my * my,
-                                       my * mz, mz * mz], dim=-1)
-        xx, xy, xz, yy, yz, zz = packed.unbind(-1)
-        cov = torch.stack([torch.stack([xx, xy, xz], -1),
-                           torch.stack([xy, yy, yz], -1),
-                           torch.stack([xz, yz, zz], -1)], dim=-2)
-        shift = mean - (queries - frame)
-    # LAPACK on the host: cuSOLVER's batched 3 x 3 solver refuses large
-    # batches
-    eigs = torch.linalg.eigvalsh(cov.cpu()).to(cov.device).flip(-1)
-    trace = cov.diagonal(dim1=-2, dim2=-1).sum(-1)
-    ok = (count >= 2) & (trace > 0)
-    safe = torch.where(trace > 0, trace, torch.ones_like(trace))
-    norm = torch.where(ok[:, None], eigs / safe[:, None],
-                       torch.zeros_like(eigs))
-    centroid = torch.where(count > 0, torch.linalg.vector_norm(shift, dim=-1),
-                           torch.zeros_like(count))
-    return torch.stack([count, centroid, norm[:, 0], norm[:, 1]], dim=-1)
+    return centers, d2, inside, ambiguous, cells
 
 
 class Scene:
@@ -206,15 +156,23 @@ class Scene:
     query and the search map (the query itself where ``search`` is
     None) are served as float32.  ``frame_m``: the
     pitch of the lattice whose cells frame the control's float32 sums
-    (the program's entries are at least that large)."""
+    (the program's entries are at least that large).  ``kind``: the
+    layout (``reference/layouts/<kind>.py``; one the folder lacks
+    raises, naming those it has); ``attributes``: the search cloud's
+    per-point columns (n, A), rows aligned with it, or None."""
 
-    def __init__(self, query, search, bands, lo, hi, quantized, frame_m=1.5):
+    def __init__(self, query, search, bands, lo, hi, quantized, frame_m=1.5,
+                 kind="minimal", attributes=None):
+        self.layout = layouts.find(kind)
         self.bands = [(float(e), float(r)) for e, r in bands]
         if quantized:
             query = Upload(lo, hi).served(query)
         if quantized or search is None:
             search = query
         self.query = query
+        self.search = search
+        self.attributes = attributes
+        self.cache = {}              # the layout's own, by its keys
         self.lo32 = torch.tensor(np.asarray(lo, np.float32),
                                  device=query.device)
         self.frame32 = torch.tensor(np.float32(frame_m), device=query.device)
@@ -230,14 +188,26 @@ class Scene:
         q = self.query[rows]
         return [int((inside | amb).sum())
                 for grid, (_, r) in zip(self.grids, self.bands)
-                for _, _, inside, amb in [neighbourhood(grid, q, r)]]
+                for _, _, inside, amb, _ in [neighbourhood(grid, q, r)]]
+
+    def layout_work(self):
+        """The layout's own work a band (its ``work``), or {}."""
+        work = getattr(self.layout, "work", None)
+        return {} if work is None else work(self)
+
+    def tied_rows(self, rows):
+        """The layout's count of the query ``rows`` that rest on a
+        decision a float32 program may take either way (its
+        ``tied_rows``), or None."""
+        tied = getattr(self.layout, "tied_rows", None)
+        return None if tied is None else tied(self, rows)
 
     def _frames(self, q):
         cell = torch.floor((q - self.lo32) / self.frame32)
         return (cell + 0.5) * self.frame32 + self.lo32
 
     def features(self, rows, precision="float64"):
-        """Feature rows of the query ``rows``: (m, 4 * bands) with ``m >=
+        """Feature rows of the query ``rows``: (m, width) with ``m >=
         len(rows)``, and ``owner`` (m,), the row each belongs to; the
         first ``len(rows)`` rows are the rows themselves.  A row with
         ambiguous pairs gets one feature row for every way of deciding
@@ -252,6 +222,7 @@ class Scene:
         d2 = torch.cat([p[1] for p in parts], 1)
         inside = torch.cat([p[2] for p in parts], 1)
         amb = torch.cat([p[3] for p in parts], 1)
+        cells = torch.cat([p[4] for p in parts], 1)
         r2 = torch.cat([torch.full((w,), float(np.float32(r * r)),
                                    dtype=torch.float64, device=device)
                         for w, (_, r) in zip(widths, self.bands)])
@@ -275,12 +246,13 @@ class Scene:
                                         device=device))
         mask = torch.cat(masks, 0)
         owner = torch.cat(owner, 0)
-        centers, q = centers[owner], q[owner]
+        centers, cells, q = centers[owner], cells[owner], q[owner]
         frame = self._frames(q) if precision != "float64" else None
         blocks, start = [], 0
-        for w in widths:
+        for band, w in enumerate(widths):
             sl = slice(start, start + w)
-            blocks.append(moments_block(centers[:, sl], q, mask[:, sl],
-                                        precision, frame))
+            blocks.append(self.layout.block(self, band, centers[:, sl],
+                                            cells[:, sl], q, mask[:, sl],
+                                            precision, frame))
             start += w
         return torch.cat(blocks, 1), owner

@@ -37,8 +37,24 @@ def tiny_cell(name, points=12000, warmup=1, check_rows=256):
     return cell
 
 
+def attributed_cell(points=12000, warmup=1, check_rows=256, attributes=4):
+    """A cell kept out of BENCHMARK.json, built from dicts: the tiny
+    ``site_linear.rescan_1m`` served with the ``vector`` layout on
+    ``rescan_attributed``'s scans (``attributes`` columns a point)."""
+    cell = tiny_cell("site_linear.rescan_1m", points, warmup, check_rows)
+    cell.name = "site_linear_vector.rescan_attributed"
+    cell.config = dict(cell.config, name="site_linear_vector", kind="vector")
+    cell.traffic = dict(cell.traffic, generator="rescan_attributed",
+                        attributes=attributes)
+    return cell
+
+
 def tiny_run(name, seed=2 ** 31 + 7, seconds=0.5, trace=False,
              points=12000, warmup=1, check_rows=256, **kw):
+    """``bench.run`` of the tiny ``name`` on the CPU; ``name`` None runs
+    :func:`attributed_cell`."""
     torch.set_num_threads(2)
-    return bench.run(tiny_cell(name, points, warmup, check_rows), seed,
-                     seconds, trace, "cpu", time.perf_counter(), **kw)
+    cell = attributed_cell(points, warmup, check_rows) if name is None \
+        else tiny_cell(name, points, warmup, check_rows)
+    return bench.run(cell, seed, seconds, trace, "cpu", time.perf_counter(),
+                     **kw)

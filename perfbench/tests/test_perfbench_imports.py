@@ -1,6 +1,7 @@
 """Nothing a run imports is JAX or the JAX package (top-level names
 compared whole) or the program's own benchmark (``nimrud_tpu_torch.
-bench``), and the reference imports nothing of the program."""
+bench``), and the reference, every layout of ``reference/layouts/``
+with it, imports nothing of the program."""
 
 import json
 import pathlib
@@ -16,6 +17,7 @@ import perfbench.run as entry
 from perfbench_tiny import tiny_run
 tiny_run("site_rpte.rescan_1m", trace=True)
 tiny_run("site_linear.designated_1m")
+tiny_run(None)
 print(json.dumps(entry.loaded_forbidden()))
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 print(json.dumps(sorted(m for m in sys.modules
@@ -25,8 +27,13 @@ print(json.dumps(sorted(m for m in sys.modules
 REFERENCE = """
 import json, sys
 sys.path.insert(0, {root!r})
+import pathlib
 import perfbench.reference.features, perfbench.reference.linear
 import perfbench.reference.forest
+from perfbench.reference import layouts
+for path in sorted(pathlib.Path(layouts.__file__).parent.glob("*.py")):
+    if path.stem != "__init__":
+        layouts.find(path.stem)
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 

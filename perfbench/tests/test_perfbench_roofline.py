@@ -43,6 +43,39 @@ def test_bound_by_hand():
     assert moved > distance > tensor
 
 
+def test_bound_keywords_by_hand():
+    # the vector layout's second stage: 1 + A = 5 sums a pair and
+    # radius, each centre read with its 4 interpolated columns
+    points, pairs, voxels = 1_000_000, [3e7, 4e7, 5e7], [4e5, 2e5, 1e5]
+    assert peaks.moments_bound_s(points, pairs, voxels, cols=10,
+                                 pair_ops=8, voxel_bytes=12) \
+        == peaks.moments_bound_s(points, pairs, voxels)
+    seconds, term = peaks.moments_bound_s(points, [3e6, 4e6, 5e6], voxels,
+                                          cols=5, voxel_bytes=28)
+    moved = (points * 12 + 7e5 * 28 + 3 * points * 20) / 3.35e12
+    assert term == "bytes" and seconds == pytest.approx(moved)
+    seconds, term = peaks.moments_bound_s(points, [1e9], [4e5], cols=5,
+                                          pair_ops=20)
+    assert term == "distance"
+    assert seconds == pytest.approx(1e9 * 20 / (132 * 128 * 1.98e9))
+
+
+def test_interp_bound_by_hand():
+    # 1M raw points with 4 columns, 2.5M / 2M / 2M chebyshev pairs and
+    # 4e5 / 2e5 / 1e5 centres: 5 operations a pair against the bytes
+    # of the cloud and its columns read once and 5 sums a centre
+    points, pairs, voxels = 1_000_000, [2.5e6, 2e6, 2e6], [4e5, 2e5, 1e5]
+    seconds, term = peaks.interp_bound_s(points, pairs, voxels, cols=5)
+    distance = 6.5e6 * 5 / (132 * 128 * 1.98e9)
+    tensor = 6.5e6 * 5 * 3 * 2 / 989e12
+    moved = (points * (12 + 16) + 7e5 * 20) / 3.35e12
+    assert term == "bytes" and seconds == pytest.approx(moved)
+    assert moved > distance > tensor
+    seconds, term = peaks.interp_bound_s(10, [1e9], [10], cols=2)
+    assert term == "distance"
+    assert seconds == pytest.approx(1e9 * 5 / (132 * 128 * 1.98e9))
+
+
 def test_readers_by_hand():
     device = [("void (anonymous namespace)::packed_moments_kernel<1, false>"
                "(float const*)", 0.0, 100.0),
