@@ -775,11 +775,18 @@ def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
     max-norm ball (the packed attribute interp).  ``precision``:
     "highest" or "bf16x2".  ``exclude_radius`` leaves out the pairs with
     ``d2 < f32(e*e)`` (the kernel's exclusion instances; euclidean only).
+
+    Inside an open span of ``utils.profiling`` it counts ``slots_live``
+    / ``slots`` (the plan's placed rows over its entry slots) and
+    ``lanes_live`` / ``lanes``, as :func:`fused_extract_packed_multi`.
     """
     if kind == "vector" and attributes is None:
         raise ValueError("kind='vector' requires attributes")
     prob = _span_problem(query, q_valid, search, s_valid, spec,
                          attrs=attributes)
+    if profiling.recording():
+        profiling.count("slots_live", prob["count"].sum())
+        profiling.count("slots", spec.e_cap * spec.q_cap)
     blocks, dropped = _band_blocks(
         kind, prob["q_t"], prob["centers"], prob["span_starts"],
         prob["span_lens"], _far_extended(prob["sorted_pts"]), c_cap, radii,

@@ -189,22 +189,27 @@ def _band_search_prep(search, s_valid, band, kind="minimal",
     (``band[4]`` None) the matmul interp on ``band[3]``'s spec past 8
     attribute columns, else the gather interp at ``vector_s_cap``
     points a voxel; the under-reads counted.  Returns ``(centers, mask,
-    center attributes or None, vox_dropped, interp_dropped)``."""
+    center attributes or None, vox_dropped, interp_dropped)``.
+
+    The interp runs in the span ``.interp``, whose counters take the
+    prefix ``interp_`` (its plan's ``interp_slots``, its kernel's
+    ``interp_lanes``), apart from the extraction's."""
     vox_spec, dev_spec, _, interp_spec, cap, _ = band
     zero = torch.zeros((), dtype=torch.int64, device=search.device)
     if kind == "vector":
-        if cap is not None:
-            centers, mask, attrs, stats = interp.packed_interp(
-                search, s_valid, attributes, vox_spec, interp_spec, cap,
-                with_stats=True)
-        elif attributes.shape[1] > 8:
-            centers, mask, (attrs, stats) = interp.matmul_interp(
-                search, s_valid, attributes, vox_spec, interp_spec,
-                with_stats=True)
-        else:
-            centers, mask, attrs, stats = interp.interp_to_voxels(
-                search, s_valid, attributes, vox_spec, vector_s_cap,
-                with_stats=True)
+        with profiling.span(".interp", counters="interp_"):
+            if cap is not None:
+                centers, mask, attrs, stats = interp.packed_interp(
+                    search, s_valid, attributes, vox_spec, interp_spec, cap,
+                    with_stats=True)
+            elif attributes.shape[1] > 8:
+                centers, mask, (attrs, stats) = interp.matmul_interp(
+                    search, s_valid, attributes, vox_spec, interp_spec,
+                    with_stats=True)
+            else:
+                centers, mask, attrs, stats = interp.interp_to_voxels(
+                    search, s_valid, attributes, vox_spec, vector_s_cap,
+                    with_stats=True)
         return centers, mask, attrs, zero, stats["dropped_search"]
     centers, _, mask = unique.unique_voxels(
         search, vox_spec, valid=s_valid,

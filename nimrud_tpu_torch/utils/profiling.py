@@ -196,12 +196,12 @@ def _profiler_on():
 class _Record:
     """One span's record (:func:`collected` gives it as a dict)."""
 
-    __slots__ = ("name", "parent", "scan", "device", "start_ns", "end_ns",
-                 "events")
+    __slots__ = ("name", "parent", "scan", "device", "prefix", "start_ns",
+                 "end_ns", "events")
 
-    def __init__(self, name, parent, scan, device):
+    def __init__(self, name, parent, scan, device, prefix):
         self.name, self.parent, self.scan = name, parent, scan
-        self.device = device
+        self.device, self.prefix = device, prefix
         self.start_ns = self.end_ns = None
         self.events = None
 
@@ -297,10 +297,12 @@ _RECORDER = Recorder()
 class _Span:
     """A span while the profiler records (:func:`span`)."""
 
-    __slots__ = ("name", "device", "scan", "top", "record", "range")
+    __slots__ = ("name", "device", "scan", "top", "prefix", "record",
+                 "range")
 
-    def __init__(self, name, device, scan, top):
+    def __init__(self, name, device, scan, top, prefix):
         self.name, self.device, self.scan, self.top = name, device, scan, top
+        self.prefix = prefix
         self.record = self.range = None
 
     def __enter__(self):
@@ -319,8 +321,11 @@ class _Span:
             else self.device
         if device is not None:
             device = torch.device(device)
+        prefix = self.prefix
+        if prefix is None:
+            prefix = parent.prefix if parent is not None else ""
         record = _Record(name, None if parent is None else parent.name,
-                         scan, device)
+                         scan, device, prefix)
         self.range = torch.profiler.record_function(name)
         self.range.__enter__()
         if _RECORDER.keep(record) and device is not None \
@@ -348,7 +353,7 @@ class _Span:
 _OFF = contextlib.nullcontext()
 
 
-def span(name, device=None, scan=None, top=False):
+def span(name, device=None, scan=None, top=False, counters=None):
     """
     A span of the program: ``with profiling.span("nimrud.predict"):``.
     While no profiler session records it reads one bool and is a no-op;
@@ -367,11 +372,12 @@ def span(name, device=None, scan=None, top=False):
     with no parent).  ``device``: where the enclosed work runs (default
     the parent's): on CUDA the record times it with CUDA events, on the
     CPU its device time is its host time, with None it has no device
-    time.
+    time.  ``counters``: the prefix of the counters added inside the
+    span (default the parent's, none at the top).
     """
     if not _profiler_on():
         return _OFF
-    return _Span(name, device, scan, top)
+    return _Span(name, device, scan, top, counters)
 
 
 def recording():
@@ -383,10 +389,12 @@ def recording():
 
 def count(name, value):
     """Add ``value`` (a host int, or a device scalar tensor kept on the
-    device until :func:`collected`) to counter ``name`` of the innermost
-    open span's scan, where :func:`recording`."""
+    device until :func:`collected`) to counter ``name``, with the
+    innermost open span's counter prefix, of that span's scan, where
+    :func:`recording`."""
     if recording():
-        _RECORDER.add(name, value, _RECORDER.stack()[-1].scan)
+        record = _RECORDER.stack()[-1]
+        _RECORDER.add(record.prefix + name, value, record.scan)
 
 
 def collected():

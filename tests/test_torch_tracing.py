@@ -14,6 +14,11 @@ two entry chunks:
   cloud's points;
 * ``lanes_live`` is ``packed_moments_work``'s live lanes of the blocks
   the step launched, ``lanes`` their lanes and the lanes the specs give;
+* a ``vector`` step's attribute interp runs in one
+  ``nimrud.predict.search.interp`` span a band and counts its plan and
+  kernel under ``interp_slots*`` / ``interp_lanes*``, so ``slots*`` and
+  ``lanes*`` count the extraction alone; a ``minimal`` step opens no
+  such span and counts no ``interp_*``;
 * past the buffer's bound a span still opens its range, and its record
   is counted as dropped; a child span's ``.name`` is named under its
   parent, and counters are kept a scan;
@@ -200,3 +205,70 @@ def test_a_torch_without_the_flag_turns_spans_off(monkeypatch):
         monkeypatch.undo()             # the session's flag, before its exit
     assert off is profiling._OFF and not recording
     assert not torch.autograd.profiler._is_profiler_enabled
+
+
+INTERP = "nimrud.predict.search.interp"
+TWO_BANDS = [(0.25, (0.5,)), (0.5, (1.0,))]
+
+
+@pytest.mark.parametrize("kind", ["minimal", "vector"])
+def test_interp_span_and_counters(kind):
+    """One profiled two-band step: the interp's span a band and its
+    counters under their own names (``vector``), the extraction's lanes
+    and slots as the specs give them, alone, in both kinds."""
+    cloud = workload.make_bench_cloud(N, seed=1)[0] * np.float32(0.5)
+    attrs = None
+    width = 4 if kind == "minimal" else 2
+    if kind == "vector":
+        attrs = np.random.default_rng(2).random((N, 2)).astype(np.float32)
+    model = pipeline.GeometryClassifier(
+        TWO_BANDS, kind=kind, transfer_dtype="uint16", backend="packed",
+        bounds=(cloud.min(0), cloud.max(0)), trim_entries=True,
+        device="cpu", serving_chunk_slots=CHUNK_SLOTS)
+    rng = np.random.default_rng(3)
+    clf = SoftmaxClassifier.from_state(
+        rng.standard_normal((2 * width, 3)), np.zeros(3),
+        np.zeros(2 * width), np.ones(2 * width), "cpu")
+    kw = {} if attrs is None else {"attributes": attrs}
+    model.install_classifier(clf, cloud, **kw)
+    widths = {"euclidean": 0, "chebyshev": 0}
+    original = pm.packed_moments
+
+    def packed_moments(q_t, cand_t, centers, radii, **kw):
+        widths[kw.get("metric", "euclidean")] += cand_t.shape[1]
+        return original(q_t, cand_t, centers, radii, **kw)
+
+    profiling.reset()
+    pm.packed_moments = packed_moments
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            staged = model.stage(cloud, **kw)
+            model.predict_staged(staged)
+    finally:
+        pm.packed_moments = original
+    got = profiling.collected()
+    counters = got["counters"]
+    interps = [s for s in got["spans"] if s["name"] == INTERP]
+    spec = _pack_spec(staged)
+    chunk = pipeline._serving_entry_chunk(spec.e_cap, spec.q_cap,
+                                          CHUNK_SLOTS)
+    lanes = sum(workload._packed_lane_total(band[5], spec.e_cap, chunk)
+                for band in staged["specs"])
+    assert counters["lanes"] == widths["euclidean"] == lanes
+    assert counters["slots"] == spec.e_cap * spec.q_cap
+    assert counters["slots_live"] == N
+    assert 0 < counters["lanes_live"] <= counters["lanes"]
+    if kind == "minimal":
+        assert interps == [] and widths["chebyshev"] == 0
+        assert not any(name.startswith("interp_") for name in counters)
+        assert not any(s["name"].endswith(".interp") for s in got["spans"])
+        return
+    assert len(interps) == len(TWO_BANDS)
+    assert all(s["parent"] == "nimrud.predict.search"
+               and s["scan"] == staged["scan"] for s in interps)
+    assert counters["interp_lanes"] == widths["chebyshev"] > 0
+    assert 0 < counters["interp_lanes_live"] <= counters["interp_lanes"]
+    assert 0 < counters["interp_slots_live"] <= counters["interp_slots"]
+    assert set(counters) == {
+        f"{prefix}{name}" for prefix in ("", "interp_")
+        for name in ("lanes", "lanes_live", "slots", "slots_live")}
