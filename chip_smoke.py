@@ -674,14 +674,14 @@ def _packed_problems(model, cloud, device):
     problems = []
     # serving: band 0 (the pack grid) at q_cap 512, split capacities
     band, query, valid, centers, mask = _staged_band(model, cloud, device)
-    plan = device_grid._pack_plan(query, valid, band[1])
-    spans = device_grid._band_spans(plan, centers, mask, band[1],
+    plan = device_grid._pack_plan(query, valid, band.dev_spec)
+    spans = device_grid._band_spans(plan, centers, mask, band.dev_spec,
                                     presorted=True)
     buckets, _ = device_grid._bucket_problems(
         plan["q_t"], plan["centers"], spans["span_starts"],
         spans["span_lens"], device_grid._far_extended(spans["sorted_pts"]),
-        band[5])
-    problems += [("serve", b[:3], band[2]) for b in buckets]
+        band.c_cap)
+    problems += [("serve", b[:3], band.radii) for b in buckets]
     # fit: band 0 at q_cap 256, one capacity (extract_scaleset_fused)
     prob, cap, radii = _fit_band0(model, cloud, device)
     buckets, _ = device_grid._bucket_problems(
@@ -693,12 +693,12 @@ def _packed_problems(model, cloud, device):
 
 
 def _fit_specs(model, cloud, n_bands=None):
-    """The per-band ``(vox_spec, spec, radii, cap)`` (of the first
-    ``n_bands``) of
+    """The per-band ``pipeline.BandSpec`` (of the first ``n_bands``) of
     ``extract_scaleset_fused`` on ``cloud`` with the model's bounds: the
     voxel grid, the band's own plan (q_cap 256, entries estimated on the
-    cloud) and its packed candidate capacity."""
+    cloud), its radii and its packed candidate capacity (``c_cap``)."""
     import numpy as np
+    from nimrud_tpu_torch import pipeline
     from nimrud_tpu_torch.features import multiscale
     from nimrud_tpu_torch.ops import device_grid, packing, span_host
 
@@ -713,8 +713,9 @@ def _fit_specs(model, cloud, n_bands=None):
         cap = span_host.candidate_cap(
             cloud, multiscale._host_unique_voxels(cloud, edge,
                                                   bounds=model.bounds), spec)
-        specs.append((packing.GridSpec.fit_bounds(lo, hi, edge), spec, radii,
-                      int(cap)))
+        specs.append(pipeline.BandSpec(
+            packing.GridSpec.fit_bounds(lo, hi, edge), spec, radii,
+            c_cap=int(cap)))
     return specs
 
 
@@ -726,7 +727,9 @@ def _fit_band0(model, cloud, device):
     from nimrud_tpu_torch.features import multiscale
     from nimrud_tpu_torch.ops import device_grid, unique
 
-    vox, spec, radii, cap = _fit_specs(model, cloud, 1)[0]
+    band = _fit_specs(model, cloud, 1)[0]
+    vox, spec, radii, cap = band.vox_spec, band.dev_spec, band.radii, \
+        band.c_cap
     q_bucket = multiscale._pow2_bucket(len(cloud))
     query32 = torch.from_numpy(
         multiscale._pad_rows_f32(cloud, q_bucket)).to(device)
@@ -798,8 +801,9 @@ def _span_problem(model, cloud, device):
     from nimrud_tpu_torch.ops import device_grid
 
     band, query, valid, centers, mask = _staged_band(model, cloud, device)
-    prob = device_grid._span_problem(query, valid, centers, mask, band[1])
-    return device_grid.span_args(prob), band[2], prob["span_rows"]
+    prob = device_grid._span_problem(query, valid, centers, mask,
+                                     band.dev_spec)
+    return device_grid.span_args(prob), band.radii, prob["span_rows"]
 
 
 def _span_kernel_phase(model, cloud, device):
@@ -1022,8 +1026,8 @@ def _attr_bound(staged):
     import torch
     attrs = staged["attributes"][:staged["n_query"]].cpu().to(torch.float64)
     extent = attrs.abs().amax(0)
-    c_i = max(_max_cap(band[4]) for band in staged["specs"])
-    c_e = max(_max_cap(band[5]) for band in staged["specs"])
+    c_i = max(_max_cap(band.cap) for band in staged["specs"])
+    c_e = max(_max_cap(band.c_cap) for band in staged["specs"])
     return 2.0 * (c_i + c_e + 2) * EPS32 * extent
 
 
@@ -1096,9 +1100,10 @@ def _rounding_witness(kind, model, staged, rows, feats, ref):
     valid = torch.arange(query.shape[0]) < staged["n_query"]
     points = query[rows]
     specs = staged["specs"]
-    extent = max(math.hypot(*(d * band[1].tile_edge for d in band[1].dims))
+    extent = max(math.hypot(*(d * band.dev_spec.tile_edge
+                              for d in band.dev_spec.dims))
                  for band in specs) + max(edge for edge, _ in model.scaleset)
-    pack_spec = min((band[1] for band in specs),
+    pack_spec = min((band.dev_spec for band in specs),
                     key=lambda spec: spec.tile_edge)
     frames = _entry_centers(query, valid, pack_spec)[rows]
     exclude = staged.get("exclude_radius")
@@ -1108,9 +1113,10 @@ def _rounding_witness(kind, model, staged, rows, feats, ref):
     worst, col = 0.0, 0
     for band in specs:
         if staged.get("band_plans"):
-            frames = _entry_centers(query, valid, band[1])[rows]
-        centers, _, mask = unique.unique_voxels(query, band[0], valid=valid)
-        for radius in band[2]:
+            frames = _entry_centers(query, valid, band.dev_spec)[rows]
+        centers, _, mask = unique.unique_voxels(query, band.vox_spec,
+                                                valid=valid)
+        for radius in band.radii:
             exact, near, _, block, cov = _float64_oracle(
                 points, centers[mask], radius, _d2_tolerance(radius, extent),
                 exclude, exclude_tol)
@@ -1220,21 +1226,22 @@ def _flip_witness(packed, span, clouds, span_labels, packed_labels):
         points = query[rows]
         # entry centers, queries and voxel centers all lie in the grid
         # boxes (voxel centers up to half an edge outside)
-        extent = max(math.hypot(*(d * band[1].tile_edge
-                                  for d in band[1].dims))
+        extent = max(math.hypot(*(d * band.dev_spec.tile_edge
+                                  for d in band.dev_spec.dims))
                      for band in st_s["specs"] + st_p["specs"]) \
             + max(edge for edge, _ in span.scaleset)
-        pack_spec = min((band[1] for band in st_p["specs"]),
+        pack_spec = min((band.dev_spec for band in st_p["specs"]),
                         key=lambda spec: spec.tile_edge)
         packed_frames = _entry_centers(query, valid, pack_spec)[rows]
         frame_of = _xla_entry_centers if span.backend == "xla" \
             else _entry_centers
         col = 0
         for band in st_s["specs"]:
-            centers, _, mask = unique.unique_voxels(query, band[0],
+            centers, _, mask = unique.unique_voxels(query, band.vox_spec,
                                                     valid=valid)
-            frames = (frame_of(query, valid, band[1])[rows], packed_frames)
-            for radius in band[2]:
+            frames = (frame_of(query, valid, band.dev_spec)[rows],
+                      packed_frames)
+            for radius in band.radii:
                 tols[radius] = _d2_tolerance(radius, extent)
                 exact, near, gap, block, cov = _float64_oracle(
                     points, centers[mask], radius, tols[radius])
@@ -1418,8 +1425,9 @@ def _xla_bands(model, cloud, attr_width=None):
                 f"{-(-d.e_cap // d.entry_batch)} batches of "
                 f"{d.entry_batch}, S {(d.m + 2) ** 3 * d.s_cap}")
     return "; ".join(
-        f"band {b}: {size(band[1])}"
-        + ("" if band[3] is None else f" (interp grid: {size(band[3])})")
+        f"band {b}: {size(band.dev_spec)}"
+        + ("" if band.interp_spec is None
+           else f" (interp grid: {size(band.interp_spec)})")
         for b, band in enumerate(model._fused_band_specs(
             cloud, cloud, attr_width=attr_width)))
 
@@ -2337,7 +2345,7 @@ def _native_phase(model, cloud, clouds, device):
           f"{os.path.basename(native.library_path())}; OpenMP runtimes "
           f"{runtimes}", flush=True)
     lo, hi = model.bounds
-    spec = model._fused_band_specs(cloud, cloud)[0][1]
+    spec = model._fused_band_specs(cloud, cloud)[0].dev_spec
     q_bucket = multiscale._pow2_bucket(len(cloud))
     step = max(float((hi.astype(np.float64) - lo).max()), 1e-6) / 65000.0
     rng = np.random.default_rng(5)
@@ -2564,7 +2572,8 @@ def _chunking(model, cloud):
     t0 = time.perf_counter()
     specs = model._fused_band_specs(cloud, cloud)
     sizing_s = time.perf_counter() - t0
-    pack = min((band[1] for band in specs), key=lambda spec: spec.tile_edge)
+    pack = min((band.dev_spec for band in specs),
+               key=lambda spec: spec.tile_edge)
     chunk = pipeline._serving_entry_chunk(pack.e_cap, pack.q_cap,
                                           model.serving_chunk_slots)
     n_chunks = 1 if chunk is None else -(-pack.e_cap // chunk)
@@ -2586,12 +2595,12 @@ def _served_problems(model, cloud, device, index=0, pick=None):
 
     band, query, valid, centers, mask = _staged_band(model, cloud, device,
                                                      index)
-    pack = min((b[1] for b in model._fused_band_specs(cloud, cloud)),
+    pack = min((b.dev_spec for b in model._fused_band_specs(cloud, cloud)),
                key=lambda spec: spec.tile_edge)
     chunk = pipeline._serving_entry_chunk(
         pack.e_cap, pack.q_cap, model.serving_chunk_slots) or pack.e_cap
     plan = device_grid._pack_plan(query, valid, pack)
-    spans = device_grid._band_spans(plan, centers, mask, band[1],
+    spans = device_grid._band_spans(plan, centers, mask, band.dev_spec,
                                     presorted=True)
     sorted3 = device_grid._far_extended(spans["sorted_pts"])
     starts = range(0, pack.e_cap, chunk) if pick is None \
@@ -2602,8 +2611,8 @@ def _served_problems(model, cloud, device, index=0, pick=None):
         buckets, _ = device_grid._bucket_problems(
             plan["q_t"][lo:hi], plan["centers"][lo:hi],
             spans["span_starts"][lo:hi], spans["span_lens"][lo:hi], sorted3,
-            band[5])
-        problems += [((lo, hi), b[:3], band[2]) for b in buckets]
+            band.c_cap)
+        problems += [((lo, hi), b[:3], band.radii) for b in buckets]
     return problems
 
 
@@ -3658,13 +3667,12 @@ def _mc_shard_kernel(model, cloud, mesh, device):
     rows = shards["blocks"].shape[1]
     lo, hi = (np.asarray(b, np.float64) for b in model.bounds)
     caps = model._multichip_caps_cache[(MESH_SHAPE, rows)]
-    specs = pmesh._fused_specs(model.scaleset, lo, hi, rows, "serving",
-                               q_cap=256, x_seg=32)
+    band = model._shard_band_specs(lo, hi, rows, "packed")[0]
     blocks = pmesh.shards_on(mesh, shards["blocks"], torch.float32)
     valids = pmesh.shards_on(mesh, shards["valid"], torch.bool)
     halo_pts, halo_valid = pmesh._halo_bands_2d(
         blocks, valids, shards["halo_x"], shards["halo_y"], mesh)[0]
-    vox, spec, radii = specs[0]
+    vox, spec, radii = band.vox_spec, band.dev_spec, band.radii
     centers, _, mask = unique.unique_voxels(
         torch.cat([blocks[0], halo_pts]), vox,
         valid=torch.cat([valids[0], halo_valid]), tile_spec=spec)

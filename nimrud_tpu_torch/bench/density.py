@@ -71,12 +71,12 @@ def make_regime_cloud(regime, n=N_POINTS, seed=11):
 
 def cap_buckets(specs):
     """Each band's candidate capacities from the staged band specs
-    (``band[5]``: one int, or ``(caps, rank_bounds)`` from
+    (``band.c_cap``: one int, or ``(caps, rank_bounds)`` from
     ``span_host.candidate_caps_split``)."""
     out = []
     for band in specs:
-        caps, bounds = band[5] if isinstance(band[5], tuple) \
-            else ((band[5],), ())
+        caps, bounds = band.c_cap if isinstance(band.c_cap, tuple) \
+            else ((band.c_cap,), ())
         out.append({"caps": [int(c) for c in caps],
                     "rank_bounds": [int(b) for b in bounds]})
     return out

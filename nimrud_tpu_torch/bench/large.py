@@ -39,7 +39,8 @@ def main(argv=None):
     # warm-up: the first stage sizes the 10M cloud's capacities
     staged, first_stage_s = stage.seconds(lambda: model.stage(cloud))
     stage.note(f"first stage {first_stage_s:.2f} s")
-    pack = min((s[1] for s in staged["specs"]), key=lambda d: d.tile_edge)
+    pack = min((s.dev_spec for s in staged["specs"]),
+               key=lambda d: d.tile_edge)
     chunk = pipeline._serving_entry_chunk(pack.e_cap, pack.q_cap,
                                           model.serving_chunk_slots)
 

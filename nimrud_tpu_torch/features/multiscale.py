@@ -34,6 +34,7 @@ import torch
 from nimrud_tpu_torch.features import layouts
 from nimrud_tpu_torch.ops import (device_grid, grid, interp, moments, native,
                                   packing, span_host, unique)
+from nimrud_tpu_torch.ops.kernels import packed_moments
 from nimrud_tpu_torch.utils.geometry import VoxelFilter
 
 # cap on query-chunk x search pairs a step of the dense method
@@ -49,6 +50,8 @@ KINDS = ("minimal", "geometric", "oriented", "covariance", "eigen",
 METHODS = ("auto", "dense", "tiled", "fused")
 BACKENDS = ("packed", "pallas", "xla")
 INTERP_BACKENDS = ("auto", "gather", "matmul", "packed")
+# a vector band past this many attribute columns takes the matmul interp
+MATMUL_INTERP_ABOVE = 8
 
 # the reference's precision names -> the kernels' precision: "mixed" and
 # "high" (XLA matmul precisions) map onto the bf16 split, "default" onto
@@ -75,6 +78,32 @@ def resolve_backend(tuning, backend="packed"):
         raise ValueError(f"unknown backend {backend!r}: must be one of "
                          f"{BACKENDS}")
     return backend
+
+
+def band_route(backend, kind, n_attr=0):
+    """The kernel route of a band of ``kind`` under the resolved
+    ``backend``, as the reference routes it: ``(extraction, interp)``.
+    The extraction is "packed" (the packed kernel; a ``vector`` band with
+    at most ``packed_moments.MAX_ATTR`` of its ``n_attr`` attribute
+    columns) under "packed", "spans" (the span kernel, a geometry layout
+    but ``sazo``) under "pallas", else "xla" (the candidate-table path).
+    The interp (``vector`` only, else None) is what
+    ``interp_backend="auto"`` takes: "matmul" past
+    ``MATMUL_INTERP_ABOVE`` columns, "packed" on the packed extraction,
+    else "gather"."""
+    if backend == "packed" and (kind != "vector"
+                                or n_attr <= packed_moments.MAX_ATTR):
+        extraction = "packed"
+    elif backend == "pallas" and kind != "vector" \
+            and not layouts.needs_sazo(kind):
+        extraction = "spans"
+    else:
+        extraction = "xla"
+    if kind != "vector":
+        return extraction, None
+    if n_attr > MATMUL_INTERP_ABOVE:
+        return extraction, "matmul"
+    return extraction, "packed" if extraction == "packed" else "gather"
 
 
 def check_attributes(attributes, n_search):
@@ -307,18 +336,14 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
     extraction, routed per band as the reference routes it:
 
     * the packed kernel (``packed_moments``, a host-sized candidate
-      capacity) for ``backend="packed"``, except ``vector`` with more
-      than 6 attribute columns;
-    * the span kernel (``span_moments``, no candidate cap) for
-      ``backend="pallas"``, except ``sazo`` and ``vector``;
-    * the XLA candidate-table path (``device_grid.fused_extract``, q_cap
-      128, one coarse tile an entry) for everything else -- every band
-      of ``backend="xla"``.
+      capacity), the span kernel (``span_moments``, no candidate cap)
+      or the XLA candidate-table path (``device_grid.fused_extract``,
+      q_cap 128, one coarse tile an entry), as :func:`band_route`
+      routes the band.
 
     ``vector`` needs ``attributes`` (rows aligned with ``search``);
-    its interp (``tuning["interp_backend"]``, default "auto") is the
-    matmul interp above 8 columns, the packed interp at 1-6 columns on
-    the packed backend, the gather interp otherwise.  ``precision``:
+    its interp is ``tuning["interp_backend"]``, under "auto" (the
+    default) :func:`band_route`'s.  ``precision``:
     the reference's names, the kernels' precision by
     ``kernel_precision``; the XLA bands sum in f32 whatever the name.
     ``exclude_radius``: leave out the search points closer than this
@@ -391,9 +416,10 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
         for key, value in band_stats.items():
             stats[key] = stats[key] + value
 
-    use_packed = backend == "packed" and n_attr <= 6
-    use_spans = backend == "pallas" and kind not in ("vector", "sazo")
-    use_kernel = use_packed or use_spans
+    extraction, auto_interp = band_route(backend, kind, n_attr)
+    if interp_backend == "auto":
+        interp_backend = auto_interp
+    use_kernel = extraction != "xla"
     bands = []
     for edge, radii in scaleset:
         vox_spec = packing.GridSpec.fit_bounds(s_lo, s_hi, edge)
@@ -401,15 +427,12 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
         if kind == "vector":
             s_cap = tuning.get("vector_s_cap") or _pow2_bucket(
                 _voxel_occupancy_cap(search, vox_spec), minimum=8)
-            if interp_backend == "matmul" or (interp_backend == "auto"
-                                              and n_attr > 8):
+            if interp_backend == "matmul":
                 centers, center_mask, center_attrs, istats = \
                     interp.interp_to_voxels_matmul(
                         search_dev, s_valid, attrs_dev, vox_spec,
                         int(s_cap), s_lo, s_hi, with_stats=True)
-            elif interp_backend == "packed" or (
-                    interp_backend == "auto" and backend == "packed"
-                    and n_attr <= 6):
+            elif interp_backend == "packed":
                 ispec, icap = _interp_packed_plan(search, vox_spec, lo, hi,
                                                   (s_lo, s_hi), m)
                 centers, center_mask, center_attrs, istats = \
@@ -433,7 +456,7 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
             x_seg=32 if use_kernel else 1)
         if tuning.get("estimate_entries", True):
             spec = device_grid.with_entry_estimate(spec, query)
-        if use_packed:
+        if extraction == "packed":
             cap = tuning.get("candidate_cap") or span_host.candidate_cap(
                 query, _host_unique_voxels(search, edge, bounds=bounds),
                 spec)
@@ -441,7 +464,7 @@ def extract_scaleset_fused(query, search, scaleset, kind="minimal", *,
                 query_dev, q_valid, centers, center_mask, spec, radii, kind,
                 n_query, int(cap), with_stats=True, precision=prec,
                 attributes=center_attrs, exclude_radius=exclude_radius)
-        elif use_spans:
+        elif extraction == "spans":
             feats, band_stats = device_grid.fused_extract_spans(
                 query_dev, q_valid, centers, center_mask, spec, radii, kind,
                 n_query, with_stats=True, precision=prec,

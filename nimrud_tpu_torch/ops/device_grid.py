@@ -767,7 +767,8 @@ def fused_extract_packed(query, q_valid, search, s_valid, spec, radii,
     a split ``(caps, bounds)``.  Candidates beyond it are truncated and
     counted in the ``dropped_candidates`` stat, with the live rows a span
     clips at its ``span_rows`` bound.  ``attributes`` (rows
-    aligned with ``search``, at most 6 columns) ride the plan into the
+    aligned with ``search``, at most ``packed_moments.MAX_ATTR``
+    columns) ride the plan into the
     kernel's attribute rows; ``kind="vector"`` then gives their masked
     means, A columns a radius.  ``metric="chebyshev"`` masks on the
     max-norm ball (the packed attribute interp).  ``precision``:

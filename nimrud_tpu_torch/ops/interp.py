@@ -9,15 +9,16 @@ routes, each the reference's:
 * :func:`packed_interp` -- the packed-candidate machinery: the queries
   are the band's voxel centers, the search the raw cloud, one pack plan
   on a voxel-edge tile grid, and the mean rides the attribute rows of
-  the ``packed_moments`` kernel's chebyshev instance (1..6 columns; the
-  packed backend's route).
+  the ``packed_moments`` kernel's chebyshev instance (1 to
+  ``packed_moments.MAX_ATTR`` columns; the packed backend's route).
 * :func:`interp_to_voxels` -- the gather interp: the 27 voxel segments
   around each center, ``s_cap`` points each, gathered and averaged in
-  batches of centers (the XLA bands' route for up to 8 columns).
+  batches of centers (the XLA bands' route up to
+  ``multiscale.MATMUL_INTERP_ABOVE`` columns).
 * :func:`matmul_interp` / :func:`interp_to_voxels_matmul` -- the mean
   as a moment product of the XLA candidate-table path
-  (``device_grid.fused_extract`` with the chebyshev metric; more than 8
-  columns).
+  (``device_grid.fused_extract`` with the chebyshev metric; past
+  ``multiscale.MATMUL_INTERP_ABOVE`` columns).
 
 Each distance is the reference's own: the packed kernel's entry-local
 difference, the gather interp's ``pts - ctr`` compared unsquared with
@@ -44,7 +45,8 @@ def packed_interp(search, s_valid, attributes, spec, dev_spec, c_cap, *,
     Args:
       search:     (N, 3) float32, padded rows allowed.
       s_valid:    (N,) bool.
-      attributes: (N, A) float32 rows aligned with ``search``, A <= 6.
+      attributes: (N, A) float32 rows aligned with ``search``,
+                  A <= ``packed_moments.MAX_ATTR``.
       spec:       the voxel grid.
       dev_spec:   a voxel-edge tile grid over the site bounds whose
                   queries are the voxel centers (its ``s_cap`` must
@@ -207,7 +209,8 @@ def matmul_interp(search, s_valid, attributes, spec, dev_spec, *,
     ``search`` through the XLA candidate-table path
     (``device_grid.fused_extract``, ``metric="chebyshev"``), the
     attributes as extra columns of the moment product: the reference's
-    route for wide attribute blocks (more than 8 columns).
+    route for wide attribute blocks (past
+    ``multiscale.MATMUL_INTERP_ABOVE`` columns).
     ``dev_spec`` is a voxel-edge tile grid whose queries are the voxel
     centers.  Returns ``(centers, mask, out)``: ``out`` the (N, A) means,
     or with ``with_stats`` ``(means, build_tables' counters)``.

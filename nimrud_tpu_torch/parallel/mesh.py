@@ -1,8 +1,10 @@
 """
 Multi-device execution (port of ``nimrud_tpu/parallel/mesh.py``):
 slab- and tile-sharded feature extraction with halo exchange,
-data-parallel classifier training and multi-device serving, on a
-single-process device mesh.
+data-parallel classifier training, and the exchange and gather
+primitives of multi-device serving
+(``GeometryClassifier.predict_multichip``), on a single-process device
+mesh.
 
 The reference runs each shard's program under ``shard_map`` in one JAX
 process over ``jax.devices()``; here one PyTorch process drives a grid
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from nimrud_tpu_torch.features import layouts
-from nimrud_tpu_torch.ops import device_grid, interp, moments, packing, unique
+from nimrud_tpu_torch.ops import device_grid, moments, packing, unique
 from nimrud_tpu_torch.parallel import tiles
 
 AXIS = "shards"
@@ -318,13 +320,14 @@ def make_train_step(mesh, halo, radii, kind, n_classes, optimizer, *,
         optimizer, weight_decay)
 
 
-def _fused_specs(scaleset, bounds_lo, bounds_hi, rows, what, **spec_kw):
+def _fused_specs(scaleset, bounds_lo, bounds_hi, rows, **spec_kw):
     """Per-band (voxel grid, tile spec, radii) on the global bounds, so
-    every shard bins into the same grids."""
+    every shard bins into the same grids (``spec_kw``: the tile grid's
+    options, e.g. ``q_cap`` and ``x_seg``)."""
     specs = []
     for edge, radii in scaleset:
         if edge <= 0:
-            raise ValueError(f"fused multi-chip {what} needs "
+            raise ValueError("fused multi-chip extraction needs "
                              "voxelized bands (edge > 0)")
         radii = tuple(float(r) for r in radii)
         specs.append((packing.GridSpec.fit_bounds(bounds_lo, bounds_hi, edge),
@@ -364,7 +367,7 @@ def make_fused_extract(mesh, halo, scaleset, kind, bounds_lo, bounds_hi,
 
     Returns f(slabs, valid) -> one (rows, width) tensor a shard.
     """
-    specs = _fused_specs(scaleset, bounds_lo, bounds_hi, rows, "extraction")
+    specs = _fused_specs(scaleset, bounds_lo, bounds_hi, rows)
 
     def run(slabs, valid):
         with torch.no_grad():
@@ -541,7 +544,7 @@ def make_fused_extract_2d(mesh, halo_x, halo_y, scaleset, kind,
     count.  Returns f(blocks, valid) -> one (rows, width) tensor a
     shard.
     """
-    specs = _fused_specs(scaleset, bounds_lo, bounds_hi, rows, "extraction")
+    specs = _fused_specs(scaleset, bounds_lo, bounds_hi, rows)
 
     def run(blocks, valid):
         with torch.no_grad():
@@ -556,8 +559,8 @@ def make_fused_extract_2d(mesh, halo_x, halo_y, scaleset, kind,
 
 
 def _params_on(clf_params, device):
-    """The serving classifier's parameters (``pipeline.
-    GeometryClassifier._fused_classifier``) on ``device``."""
+    """A serving classifier's parameters (a dict of values, tensors and
+    dicts of tensors) with every tensor on ``device``."""
     out = {}
     for key, value in clf_params.items():
         if isinstance(value, torch.Tensor):
@@ -566,156 +569,6 @@ def _params_on(clf_params, device):
             value = {k: v.to(device) for k, v in value.items()}
         out[key] = value
     return out
-
-
-def make_fused_predict_2d(mesh, halo_x, halo_y, scaleset, kind,
-                          bounds_lo, bounds_hi, rows, clf_params, *,
-                          precision="highest", backend="xla",
-                          c_caps=None, n_attr=0, vector_s_cap=32,
-                          interp_plans=None):
-    """
-    Multi-device SERVING: the whole inference step -- two-phase halo
-    exchange, device voxelize, tile build, masked moments, feature
-    layout, classifier -- per shard on the 2-D tile mesh.  The
-    classifier's parameters (``clf_params``, from
-    :meth:`nimrud_tpu_torch.pipeline.GeometryClassifier._fused_classifier`)
-    are copied to each distinct device once a call; points and all
-    intermediate tables stay on their shard's device.
-
-    ``backend="packed"`` runs each shard's bands through one shared
-    query plan and the ``packed_moments`` kernel
-    (``device_grid.fused_extract_packed_multi``, the classifier in plan
-    order, then a stable key-value sort of the labels); it needs static
-    per-band ``c_caps``, sized on the host with
-    ``span_host.candidate_cap(segment_wide=True)`` so they bound any
-    shard's query packing.  ``backend="pallas"`` runs each band through
-    the ``span_moments`` kernel (not ``sazo``); anything else (and
-    ``vector`` off the packed branch) the XLA candidate-table path.
-
-    ``kind="vector"``: blocks carry ``n_attr`` attribute columns after
-    XYZ (shard with the attributes hstacked so the halo exchange moves
-    them with their points); each shard interpolates the attributes
-    onto its voxel centers and the packed kernel computes the per-radius
-    attribute means (n_attr <= 6).  ``interp_plans`` (packed ``vector``
-    only): per-band ``(ispec, icap)`` from
-    ``multiscale._interp_packed_plan(segment_wide=True)``, routing each
-    shard's interpolation through ``interp.packed_interp``; without them
-    the gather interp (``interp.interp_to_voxels``, ``vector_s_cap``
-    points a voxel) runs.
-
-    Returns f(blocks, valid) -> (one (rows,) int32 label tensor a shard,
-    one int64 overflow count a shard: candidates past a capacity and
-    interpolation under-reads), device-major (reassemble with
-    :func:`nimrud_tpu_torch.parallel.tiles.unshard`).
-    """
-    from nimrud_tpu_torch.features import multiscale
-    from nimrud_tpu_torch.pipeline import _FusedReducer, classify_features
-
-    if kind == "vector" and not n_attr:
-        raise ValueError("kind='vector' needs n_attr attribute columns")
-    vec_packed = kind == "vector" and n_attr <= 6
-    use_packed = (backend == "packed" and c_caps is not None
-                  and (kind != "vector" or vec_packed))
-    use_spans = (backend == "pallas" and kind != "vector"
-                 and not layouts.needs_sazo(kind))
-    specs = _fused_specs(
-        scaleset, bounds_lo, bounds_hi, rows, "serving",
-        q_cap=256 if use_packed else (1024 if use_spans else 128),
-        x_seg=32 if use_packed else (64 if use_spans else 1))
-    span_prec = multiscale.kernel_precision(precision)
-    xla_prec = "highest" if precision == "bf16x2" else precision
-    if use_packed:
-        c_caps = tuple(int(c) for c in c_caps)
-        pack_spec = min((s[1] for s in specs), key=lambda s: s.tile_edge)
-
-    def shard(block_full, v, halo_full, halo_valid, params):
-        block = block_full[:, :3]
-        search_full = torch.cat([block_full, halo_full])
-        s_valid = torch.cat([v, halo_valid])
-        search = search_full[:, :3]
-        s_attr = search_full[:, 3:] if kind == "vector" else None
-        dropped = torch.zeros((), dtype=torch.int64, device=block.device)
-        if use_packed:
-            centers, masks, cattrs = [], [], []
-            for bi, (vox_spec, dev_spec, _) in enumerate(specs):
-                if kind == "vector":
-                    c, mk, ca, ist = _vector_interp(
-                        search, s_valid, s_attr, vox_spec, interp_plans, bi,
-                        vector_s_cap)
-                    dropped = dropped + ist["dropped_search"]
-                    cattrs.append(ca)
-                else:
-                    # tile-sorted voxel centers: the extract skips its
-                    # per-band search sort (presorted)
-                    c, _, mk = unique.unique_voxels(
-                        search, vox_spec, valid=s_valid, tile_spec=dev_spec)
-                    cattrs.append(None)
-                centers.append(c)
-                masks.append(mk)
-            (out_rank, q_order), st = \
-                device_grid.fused_extract_packed_multi(
-                    block, v, tuple(centers), tuple(masks), pack_spec,
-                    tuple(s[1] for s in specs), tuple(s[2] for s in specs),
-                    kind, c_caps, _FusedReducer(params, False),
-                    with_stats=True, presorted=kind != "vector",
-                    precision=span_prec, attributes=tuple(cattrs),
-                    order="rank", n_out=rows)
-            dropped = dropped + st["dropped_candidates"]
-            # the rank-ordered labels keyed by caller row: a stable
-            # key-value sort (q_order is a permutation)
-            perm = torch.sort(q_order, stable=True).indices
-            return out_rank[0][perm][:rows], dropped
-        bands = []
-        for vox_spec, dev_spec, radii in specs:
-            if kind == "vector":
-                cs, mask, ca, ist = interp.interp_to_voxels(
-                    search, s_valid, s_attr, vox_spec, vector_s_cap,
-                    with_stats=True)
-                dropped = dropped + ist["dropped_search"]
-                bands.append(device_grid.fused_extract(
-                    block, v, cs, mask, dev_spec, radii, kind, None,
-                    xla_prec, rows, attributes=ca))
-                continue
-            cs, _, mask = unique.unique_voxels(search, vox_spec,
-                                               valid=s_valid)
-            if use_spans:
-                bands.append(device_grid.fused_extract_spans(
-                    block, v, cs, mask, dev_spec, radii, kind, rows,
-                    precision=span_prec))
-            else:
-                bands.append(device_grid.fused_extract(
-                    block, v, cs, mask, dev_spec, radii, kind, None,
-                    xla_prec, rows))
-        probs = classify_features(params, torch.cat(bands, dim=1))
-        return torch.argmax(probs, dim=1).to(torch.int32), dropped
-
-    def run(blocks, valid):
-        with torch.no_grad():
-            blocks = shards_on(mesh, blocks, torch.float32)
-            valids = shards_on(mesh, valid, torch.bool)
-            # attribute columns ride the exchange with their points (the
-            # band selection is row-wise, so extra columns are free)
-            halos = _halo_bands_2d(blocks, valids, halo_x, halo_y, mesh)
-            params = {dev: _params_on(clf_params, dev)
-                      for dev in mesh.distinct}
-            out = [shard(b, v, hp, hv, params[b.device])
-                   for b, v, (hp, hv) in zip(blocks, valids, halos)]
-        return [o[0] for o in out], [o[1] for o in out]
-
-    return run
-
-
-def _vector_interp(search, s_valid, s_attr, vox_spec, interp_plans, band,
-                   vector_s_cap):
-    """A packed ``vector`` shard's interpolation of one band: the packed
-    interp on the band's segment-wide plan, or without plans the gather
-    interp."""
-    if interp_plans is not None:
-        ispec, icap = interp_plans[band]
-        return interp.packed_interp(search, s_valid, s_attr, vox_spec, ispec,
-                                    icap, with_stats=True)
-    return interp.interp_to_voxels(search, s_valid, s_attr, vox_spec,
-                                   vector_s_cap, with_stats=True)
 
 
 def extract_multichip_2d(points, radii, kind="minimal", *, mesh_shape,

@@ -19,16 +19,15 @@ the packed attribute interp (the voxel centers' attribute means over
 the chebyshev ball of one edge, ``ops.interp.packed_interp``) and
 serves the means of those attributes over each radius.
 The other backends run the reference's per-band loop: each band its own
-voxel set (or, for ``vector``, the gather interp up to 8 attribute
-columns and the matmul interp past that) and its own plan, its features
-back in caller order, then the classifier on all bands' features.  The
-span backend (``backend="pallas"``) runs a band through the
-``span_moments`` kernel; the XLA backend (``backend="xla"``), and the
-bands no kernel carries -- ``sazo`` and ``vector`` under ``"pallas"``,
-``vector`` past 6 columns under ``"packed"`` -- through the XLA
-candidate-table path (``device_grid.fused_extract``: masked float32
-matrix products, no kernel).  Only labels (and the overflow counters)
-leave the device.
+voxel set (or, for ``vector``, the gather or the matmul interp) and its
+own plan, its features back in caller order, then the classifier on all
+bands' features.  The span backend (``backend="pallas"``) runs a band
+through the ``span_moments`` kernel; the XLA backend (``backend="xla"``),
+and the bands no kernel carries, through the XLA candidate-table path
+(``device_grid.fused_extract``: masked float32 matrix products, no
+kernel).  ``multiscale.band_route`` decides a band's route, and the
+host sizing writes it into the band's :class:`BandSpec`, which the
+steps read.  Only labels (and the overflow counters) leave the device.
 
 The search cloud is the query cloud itself, or a designated search map
 (``search=``): the query and the map then upload as float32 (the uint16
@@ -64,15 +63,17 @@ raises.  A host classifier fits on the host from ``extract``'s rows.
 
 ``predict_multichip`` serves a cloud across a 2-D device mesh
 (``parallel.mesh``): the cloud sharded into rectangular columns, each
-shard's whole fused step on its mesh device (the packed, span or XLA
-program of the reference's ``make_fused_predict_2d``), the labels back
-in caller order.
+shard's halos exchanged and the same serving step run on its mesh
+device with the shard's own specs (the packed, span or XLA program of
+the reference's ``make_fused_predict_2d``), the labels back in caller
+order.
 
 The port never falls back silently: configurations it does not carry
 raise.
 """
 
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -83,6 +84,9 @@ from nimrud_tpu_torch.learning.classifiers import param_classifier
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
 from nimrud_tpu_torch.ops import (device_grid, interp, native, packing,
                                   span_host, unique)
+from nimrud_tpu_torch.ops.kernels import packed_moments
+from nimrud_tpu_torch.parallel import mesh as pmesh
+from nimrud_tpu_torch.parallel import tiles
 from nimrud_tpu_torch.utils import profiling
 
 BACKENDS = ("auto", "packed", "pallas", "xla")
@@ -94,6 +98,36 @@ _CHUNK_SLOTS = 2 * 1024 * 1024    # entry slots above which serving
 
 COUNTERS = ("vox_dropped", "dropped_query", "dropped_search",
             "interp_dropped", "dropped_candidates")
+
+# a mesh shard's tile grid (q_cap, x_seg) by its bands' extraction
+_SHARD_GRIDS = {"packed": (256, 32), "spans": (1024, 64), "xla": (128, 1)}
+
+
+class BandSpec(NamedTuple):
+    """One band's static spec of the serving step, sized on the host.
+
+    ``vox_spec``: the band's voxel grid (``packing.GridSpec``);
+    ``dev_spec``: its tile grid (``device_grid.DeviceGridSpec``);
+    ``radii``: its radii.  ``cap``: a geometry band's voxel capacity
+    (None: unbounded).  ``c_cap``: the packed kernel's candidate
+    capacity (one int, or the split ``(caps, rank_bounds)``), None on
+    the per-band loop's bands.
+
+    A ``vector`` band's interp follows from what it carries (the
+    ``"auto"`` interp of ``multiscale.band_route``): an ``interp_spec``
+    and a ``cap`` (the packed interp's grid and capacity, on a packed
+    band) mean the packed interp; an ``interp_spec`` alone (the matmul
+    interp's grid, which the per-band loop's bands carry at every width,
+    as the reference's do) the matmul interp past
+    ``multiscale.MATMUL_INTERP_ABOVE`` attribute columns, else the
+    gather interp; neither (a mesh shard off the packed kernel) the
+    gather interp at every width."""
+    vox_spec: object
+    dev_spec: object
+    radii: tuple
+    interp_spec: object = None
+    cap: object = None
+    c_cap: object = None
 
 
 def _quantize(cloud, c_lo, c_hi, q_bucket, impl="native"):
@@ -183,13 +217,14 @@ def _band_search_prep(search, s_valid, band, kind="minimal",
     :meth:`GeometryClassifier.stage_search` (so a staged map's tables are
     the ones the step would build).  The geometry layouts: voxel dedup
     (tile-sorted for the packed path's presorted tables), then the
-    ``v_cap`` prefix trim (voxels past it are counted).  ``vector``: the
-    packed attribute interp on the band's interp spec and capacity
-    (``band[3]``, ``band[4]``) on a packed band; on the other bands
-    (``band[4]`` None) the matmul interp on ``band[3]``'s spec past 8
-    attribute columns, else the gather interp at ``vector_s_cap``
-    points a voxel; the under-reads counted.  Returns ``(centers, mask,
-    center attributes or None, vox_dropped, interp_dropped)``.
+    ``band.cap`` prefix trim (voxels past it are counted).  ``vector``
+    (the interp :class:`BandSpec` carries): the packed attribute interp
+    on ``band.interp_spec`` and ``band.cap`` where it has a capacity,
+    else the matmul interp on ``band.interp_spec`` where it has one past
+    ``multiscale.MATMUL_INTERP_ABOVE`` attribute columns, else the
+    gather interp at ``vector_s_cap`` points a voxel; the
+    under-reads counted.  Returns ``(centers, mask, center attributes or
+    None, vox_dropped, interp_dropped)``.
 
     The interp runs in the span ``.interp``, whose counters take the
     prefix ``interp_`` (its plan's ``interp_slots``, its kernel's
@@ -202,7 +237,8 @@ def _band_search_prep(search, s_valid, band, kind="minimal",
                 centers, mask, attrs, stats = interp.packed_interp(
                     search, s_valid, attributes, vox_spec, interp_spec, cap,
                     with_stats=True)
-            elif attributes.shape[1] > 8:
+            elif interp_spec is not None and \
+                    attributes.shape[1] > multiscale.MATMUL_INTERP_ABOVE:
                 centers, mask, (attrs, stats) = interp.matmul_interp(
                     search, s_valid, attributes, vox_spec, interp_spec,
                     with_stats=True)
@@ -241,15 +277,17 @@ def _band_predict_step(query, q_valid, search, s_valid, clf_params,
     """The reference's per-band serving loop, for the bands the packed
     step does not carry: per band the search side
     (:func:`_band_search_prep`, untiled), its own plan, then the span
-    kernel (``backend="pallas"``, a geometry layout but ``sazo``) or the
-    XLA candidate-table path (``device_grid.fused_extract``), features
-    back in caller order; then the classifier on the concatenated
-    bands.  ``precision``: the model's name (the span kernel's by
+    kernel or the XLA candidate-table path (``device_grid.fused_extract``)
+    as ``multiscale.band_route`` routes ``backend``, features back in
+    caller order; then the classifier on the concatenated bands.
+    ``precision``: the model's name (the span kernel's by
     ``multiscale.kernel_precision``; the XLA bands sum in f32).  Returns
     labels, probabilities or None, and the five overflow counters."""
     query, search, diag = _step_inputs(query, search, dequant)
     span_prec = multiscale.kernel_precision(precision)
     xla_prec = "highest" if precision == "bf16x2" else precision
+    extraction, _ = multiscale.band_route(
+        backend, kind, 0 if attributes is None else attributes.shape[1])
     bands = []
     for band in band_specs:
         centers, mask, cattrs, v_inc, i_inc = _band_search_prep(
@@ -257,15 +295,15 @@ def _band_predict_step(query, q_valid, search, s_valid, clf_params,
             vector_s_cap=vector_s_cap)
         diag["vox_dropped"] = diag["vox_dropped"] + v_inc
         diag["interp_dropped"] = diag["interp_dropped"] + i_inc
-        if backend == "pallas" and kind != "vector" \
-                and not layouts.needs_sazo(kind):
+        if extraction == "spans":
             feats, stats = device_grid.fused_extract_spans(
-                query, q_valid, centers, mask, band[1], band[2], kind,
-                n_query, with_stats=True, precision=span_prec)
+                query, q_valid, centers, mask, band.dev_spec, band.radii,
+                kind, n_query, with_stats=True, precision=span_prec)
         else:
             feats, stats = device_grid.fused_extract(
-                query, q_valid, centers, mask, band[1], band[2], kind, None,
-                xla_prec, n_query, with_stats=True, attributes=cattrs)
+                query, q_valid, centers, mask, band.dev_spec, band.radii,
+                kind, None, xla_prec, n_query, with_stats=True,
+                attributes=cattrs)
             diag["dropped_search"] = diag["dropped_search"] \
                 + stats["dropped_search"]
         diag["dropped_query"] = diag["dropped_query"] \
@@ -290,7 +328,8 @@ def _fused_predict_step(query, q_valid, search, s_valid, clf_params,
     ``chunk_slots`` entry slots (default ``_CHUNK_SLOTS``) the per-slot
     pipeline runs in entry chunks (``_serving_entry_chunk``)."""
     query, search, diag = _step_inputs(query, search, dequant)
-    pack_spec = min((b[1] for b in band_specs), key=lambda s: s.tile_edge)
+    pack_spec = min((b.dev_spec for b in band_specs),
+                    key=lambda s: s.tile_edge)
     entry_chunk = _serving_entry_chunk(pack_spec.e_cap, pack_spec.q_cap,
                                        chunk_slots)
     searches, masks, cattrs = [], [], []
@@ -306,8 +345,9 @@ def _fused_predict_step(query, q_valid, search, s_valid, clf_params,
             cattrs.append(ca)
     (out_rank, q_order), stats = device_grid.fused_extract_packed_multi(
         query, q_valid, searches, masks, pack_spec,
-        tuple(b[1] for b in band_specs), tuple(b[2] for b in band_specs),
-        kind, tuple(b[5] for b in band_specs),
+        tuple(b.dev_spec for b in band_specs),
+        tuple(b.radii for b in band_specs), kind,
+        tuple(b.c_cap for b in band_specs),
         _FusedReducer(clf_params, with_proba), with_stats=True,
         presorted=kind != "vector", precision=precision,
         attributes=tuple(cattrs), search_tables=search_tables,
@@ -350,8 +390,9 @@ class GeometryClassifier:
                   candidate spans in place) or "xla" (the candidate-table
                   path, masked float32 matrix products, no kernel).
                   ``sazo`` and ``vector`` bands under "pallas", and
-                  ``vector`` past 6 attribute columns under "packed",
-                  serve on the XLA path, as in the reference.  "packed"
+                  ``vector`` past ``packed_moments.MAX_ATTR`` attribute
+                  columns under "packed", serve on the XLA path, as in
+                  the reference (``multiscale.band_route``).  "packed"
                   and "pallas" models fit on the packed kernel (``vector``
                   on its serving path), "xla" models on the XLA path.
       method, chunk_size: the reference's extraction options for
@@ -481,8 +522,9 @@ class GeometryClassifier:
         method, tuning = self.method, {}
         if self.kind == "vector":
             tuning["vector_s_cap"] = self.vector_s_cap
-            if self.backend == "packed" and attributes.shape[1] <= 6 \
-                    and method == "auto":
+            if method == "auto" and multiscale.band_route(
+                    self.backend, self.kind,
+                    attributes.shape[1])[0] == "packed":
                 method = "fused"
         backend = self.backend \
             if self.kind == "vector" or self.backend == "xla" else "packed"
@@ -584,16 +626,17 @@ class GeometryClassifier:
         trimmed = []
         specs = self._fused_band_specs(arr, arr, attr_width=attr_width)
         with profiling.span("nimrud.size", top=True):
-            for (edge, _), (vox, dev, rr, interp_spec, v_cap, c_cap) in zip(
-                    self.scaleset, specs):
+            for (edge, _), band in zip(self.scaleset, specs):
+                v_cap = band.cap
                 if v_cap is None and self.kind != "vector":
                     n_vox = len(multiscale._host_unique_voxels(
                         arr, edge, bounds=self.bounds))
                     v_cap = n_vox + n_vox // 4 + 4096
                     v_cap = -(-v_cap // 16384) * 16384
-                trimmed.append((vox,
-                                device_grid.with_entry_estimate(dev, arr),
-                                rr, interp_spec, v_cap, c_cap))
+                trimmed.append(band._replace(
+                    dev_spec=device_grid.with_entry_estimate(band.dev_spec,
+                                                             arr),
+                    cap=v_cap))
         trimmed = tuple(trimmed)
         self._spec_cache = (self._spec_key(arr.shape[0], arr.shape[0],
                                            attr_width), trimmed)
@@ -629,12 +672,11 @@ class GeometryClassifier:
                 attr_width if self.kind == "vector" else None)
 
     def _fused_band_specs(self, cloud, search, bounds=None, attr_width=None):
-        """Static per-band specs ``(vox_spec, dev_spec, radii, None,
-        v_cap, c_cap)`` of the serving step for ``cloud`` against
-        ``search``, sized on the host; for ``vector`` ``(vox_spec,
-        dev_spec, radii, interp_spec, interp_cap, c_cap)``, the packed
-        attribute interp's own plan (``multiscale._interp_packed_plan``)
-        and no voxel cap.  ``bounds``: ``(c_lo, c_hi, s_lo, s_hi)`` of the
+        """Static per-band :class:`BandSpec` of the serving step for
+        ``cloud`` against ``search``, sized on the host; a packed
+        ``vector`` band carries the packed attribute interp's own plan
+        (``multiscale._interp_packed_plan``) and no voxel cap.
+        ``bounds``: ``(c_lo, c_hi, s_lo, s_hi)`` of the
         two clouds when the caller has them (default the model's fixed
         bounds, else one host-runtime pass over each cloud); the tile
         grids cover both clouds, the voxel grids anchor at the search
@@ -681,42 +723,37 @@ class GeometryClassifier:
         s_lo = np.asarray(s_lo, np.float64)
         s_hi = np.asarray(s_hi, np.float64)
         q_bucket = multiscale._pow2_bucket(cloud.shape[0])
-        if not self._packed_step(attr_width):
+        extraction, _ = multiscale.band_route(self.backend, self.kind,
+                                              attr_width or 0)
+        if extraction != "packed":
             return self._band_loop_specs(
                 lo, hi, s_lo, s_hi, q_bucket,
-                multiscale._pow2_bucket(search.shape[0]))
+                multiscale._pow2_bucket(search.shape[0]), extraction)
         return self._packed_band_specs(cloud, search, lo, hi, s_lo, s_hi,
                                        q_bucket)
 
-    def _packed_step(self, attr_width):
-        """Whether serving takes the packed step (one shared plan, the
-        packed kernel): the packed backend, and for ``vector`` at most
-        6 attribute columns (the kernel's attribute rows)."""
-        return self.backend == "packed" and (
-            self.kind != "vector" or attr_width <= 6)
-
-    def _band_loop_specs(self, lo, hi, s_lo, s_hi, q_bucket, s_bucket):
+    def _band_loop_specs(self, lo, hi, s_lo, s_hi, q_bucket, s_bucket,
+                         extraction):
         """The per-band loop's specs (:func:`_band_predict_step`), each
         band on its own grid: q_cap 256 and segments of 32 coarse tiles
         on the span kernel's bands, q_cap 128 and one coarse tile an
         entry on the XLA bands; ``vector`` bands also carry the matmul
         interp's voxel-edge grid (``vector_s_cap`` points a fine tile,
         the search bucket's queries)."""
+        kernel = extraction == "spans"
         specs = []
         for edge, radii in self.scaleset:
-            kernel = self.backend == "pallas" and self.kind != "vector" \
-                and not layouts.needs_sazo(self.kind)
             interp_spec = device_grid.make_spec(
                 lo, hi, edge, n_query=s_bucket, s_cap=self.vector_s_cap) \
                 if self.kind == "vector" else None
-            specs.append((
+            specs.append(BandSpec(
                 packing.GridSpec.fit_bounds(s_lo, s_hi, edge),
                 device_grid.make_spec(lo, hi, max(radii), n_query=q_bucket,
                                       voxel_edge=edge,
                                       q_cap=256 if kernel else 128,
                                       m=self.tile_m,
                                       x_seg=32 if kernel else 1),
-                radii, interp_spec, None, None))
+                radii, interp_spec))
         return tuple(specs)
 
     def _packed_band_specs(self, cloud, search, lo, hi, s_lo, s_hi,
@@ -749,15 +786,16 @@ class GeometryClassifier:
                 interp_spec, interp_cap = multiscale._interp_packed_plan(
                     s3, vox_spec, lo, hi, (s_lo, s_hi), self.tile_m,
                     host_centers=host_centers)
-                specs.append((vox_spec, dev_spec, radii, interp_spec,
-                              interp_cap, c_cap))
+                specs.append(BandSpec(vox_spec, dev_spec, radii, interp_spec,
+                                      interp_cap, c_cap))
                 continue
             n_vox = len(host_centers)
             v_cap = n_vox + n_vox // 4 + 4096
             v_cap = -(-v_cap // 16384) * 16384
             if v_cap >= s_bucket:
                 v_cap = None
-            specs.append((vox_spec, dev_spec, radii, None, v_cap, c_cap))
+            specs.append(BandSpec(vox_spec, dev_spec, radii, cap=v_cap,
+                                  c_cap=c_cap))
         return tuple(specs)
 
     def _no_staged_step(self):
@@ -772,11 +810,11 @@ class GeometryClassifier:
         """The search side of serving for a designated search map,
         computed once: per band the map's voxel set (tile-sorted) and its
         ``v_cap`` trim, or for ``vector`` the packed attribute interp of
-        ``attributes`` (rows aligned with ``search``, at most 6 columns,
-        carried by the handle), then the band's span tables.  Clouds
-        stream against the handle with ``stage(cloud,
-        staged_search=handle)``, and their steps skip all of that work,
-        with the labels of ``stage(cloud, search=search)``.
+        ``attributes`` (rows aligned with ``search``, at most
+        ``packed_moments.MAX_ATTR`` columns, carried by the handle), then
+        the band's span tables.  Clouds stream against the handle with
+        ``stage(cloud, staged_search=handle)``, and their steps skip all
+        of that work, with the labels of ``stage(cloud, search=search)``.
 
         Needs fixed ``bounds=`` and the packed backend; an
         ``exclude_radius`` model has no staged step and raises.  The
@@ -794,10 +832,12 @@ class GeometryClassifier:
                 "stage_search supports the packed backend only")
         self._no_staged_step()
         search = np.asarray(search, np.float32)[:, :3]
-        if attributes is not None and np.asarray(attributes).shape[1] > 6:
+        if attributes is not None and multiscale.band_route(
+                self.backend, "vector",
+                np.asarray(attributes).shape[1])[0] != "packed":
             raise ValueError(
-                "stage_search carries at most 6 attribute columns "
-                "(the packed kernel's budget)")
+                f"stage_search carries at most {packed_moments.MAX_ATTR} "
+                "attribute columns (the packed kernel's budget)")
         attributes = self._check_attributes(attributes, len(search))
         attr_width = None if attributes is None else attributes.shape[1]
         specs = self._fused_band_specs(search, search, attr_width=attr_width)
@@ -816,7 +856,7 @@ class GeometryClassifier:
             vox_dropped = vox_dropped + v_inc
             interp_dropped = interp_dropped + i_inc
             tables.append(device_grid._search_tables(
-                centers, mask, band[1], attrs=ca,
+                centers, mask, band.dev_spec, attrs=ca,
                 presorted=self.kind != "vector"))
         return {"tables": tuple(tables), "search_host": search,
                 "attr_width": attr_width, "vox_dropped": vox_dropped,
@@ -964,16 +1004,22 @@ class GeometryClassifier:
                             top=True):
             return self._predict_staged(staged, with_proba, with_diag)
 
+    def _serving_step(self, specs, chunk_slots):
+        """The serving step ``specs`` lead to and its model arguments:
+        :func:`_fused_predict_step` where every band has a candidate
+        capacity (run in entry chunks past ``chunk_slots`` entry slots),
+        else :func:`_band_predict_step`."""
+        if all(band.c_cap is not None for band in specs):
+            return _fused_predict_step, {
+                "chunk_slots": chunk_slots,
+                "precision": multiscale.kernel_precision(self.precision)}
+        return _band_predict_step, {
+            "backend": self.backend, "precision": self.precision,
+            "vector_s_cap": self.vector_s_cap}
+
     def _predict_staged(self, staged, with_proba, with_diag):
-        if all(band[5] is not None for band in staged["specs"]):
-            step = _fused_predict_step
-            extra = {"chunk_slots": self.serving_chunk_slots,
-                     "precision": multiscale.kernel_precision(
-                         self.precision)}
-        else:
-            step = _band_predict_step
-            extra = {"backend": self.backend, "precision": self.precision,
-                     "vector_s_cap": self.vector_s_cap}
+        step, extra = self._serving_step(staged["specs"],
+                                         self.serving_chunk_slots)
         if staged.get("search_tables") is not None:
             extra["search_tables"] = staged["search_tables"]
         s_valid = None
@@ -1119,9 +1165,23 @@ class GeometryClassifier:
 
     # -- multi-device serving -------------------------------------------------
 
+    def _shard_band_specs(self, lo, hi, rows, extraction):
+        """Each band's :class:`BandSpec` on a mesh shard of ``rows``
+        block rows, without capacities: the voxel and tile grids on the
+        global bounds ``lo``, ``hi`` (every shard bins into the same
+        grids), the tile grid of ``_SHARD_GRIDS`` for the bands'
+        ``extraction`` (``parallel.mesh._fused_specs``).  Off the packed
+        kernel a ``vector`` shard's spec carries no interp, so it takes
+        the gather interp at every width, as the reference's mesh
+        program does."""
+        q_cap, x_seg = _SHARD_GRIDS[extraction]
+        return tuple(BandSpec(*band) for band in pmesh._fused_specs(
+            self.scaleset, lo, hi, rows, q_cap=q_cap, x_seg=x_seg))
+
     def _size_multichip_caps(self, cloud, lo, hi, rows):
         """Segment-wide per-band candidate capacities of the packed
-        multi-device program (host; see :meth:`predict_multichip`).
+        shards' specs (:meth:`_shard_band_specs`; host, see
+        :meth:`predict_multichip`).
 
         The sizing plan enumerates EVERY populated segment of the whole
         cloud: the per-shard tile specs budget ``e_cap`` for ``rows``
@@ -1130,15 +1190,15 @@ class GeometryClassifier:
         geometry (qdims, x_seg, segments) depends only on the bounds and
         the edge, so a full-cloud twin of the pack spec aligns
         exactly."""
-        dev_specs = [device_grid.make_spec(
-            lo, hi, max(radii), n_query=rows, voxel_edge=edge,
-            q_cap=256, x_seg=32) for edge, radii in self.scaleset]
+        dev_specs = [band.dev_spec for band in
+                     self._shard_band_specs(lo, hi, rows, "packed")]
         pack_idx = min(range(len(dev_specs)),
                        key=lambda i: dev_specs[i].tile_edge)
         pack_edge, pack_radii = self.scaleset[pack_idx]
+        q_cap, x_seg = _SHARD_GRIDS["packed"]
         size_pack = device_grid.make_spec(
             lo, hi, max(pack_radii), n_query=len(cloud),
-            voxel_edge=pack_edge, q_cap=256, x_seg=32)
+            voxel_edge=pack_edge, q_cap=q_cap, x_seg=x_seg)
         size_plan = span_host.pack_plan_np(
             cloud, np.ones(len(cloud), bool), size_pack)
         return tuple(span_host.candidate_cap(
@@ -1153,10 +1213,11 @@ class GeometryClassifier:
         """
         Per-point class labels computed across a 2-D device mesh
         (``parallel.mesh``): the cloud is sharded into rectangular
-        columns, each shard runs the whole fused pipeline (halo
-        exchange, device voxelize, tile build, moments, classifier) on
-        its mesh device, and the int32 labels come back in caller order
-        (a NumPy array).
+        columns, each shard exchanges its halos and runs the serving
+        step (:func:`_fused_predict_step` on the packed kernel, else
+        :func:`_band_predict_step`, un-chunked) on its mesh device with
+        its own shard specs (:meth:`_shard_band_specs`), and the int32
+        labels come back in caller order (a NumPy array).
 
         ``mesh`` defaults to ``make_mesh_2d(mesh_shape)`` over the
         visible devices of the model's device type (CUDA); a CPU model
@@ -1171,9 +1232,6 @@ class GeometryClassifier:
         shard rows) and reused; denser clouds overflow into the counted
         per-shard diagnostic, and a warning.
         """
-        from nimrud_tpu_torch.parallel import mesh as pmesh
-        from nimrud_tpu_torch.parallel import tiles
-
         try:
             clf_params = self._fused_classifier()
         except ValueError:
@@ -1224,14 +1282,14 @@ class GeometryClassifier:
             blocks = np.concatenate([blocks, shards["extras"][0]], axis=2)
         rows = blocks.shape[1]
 
-        c_caps = interp_plans = None
-        if self.backend == "packed" \
-                and (self.kind != "vector" or n_attr <= 6):
+        extraction, _ = multiscale.band_route(self.backend, self.kind, n_attr)
+        specs = self._shard_band_specs(lo, hi, rows, extraction)
+        if extraction == "packed":
             # per-band capacities sized against the WHOLE cloud with
             # segment-wide entry extents (every shard packing's candidate
             # sets are subsets of those rows); with fixed site bounds,
             # once per (mesh shape, shard rows)
-            caps_key = None
+            caps_key = c_caps = None
             if self.bounds is not None:
                 caps_key = (tuple(int(v) for v in mesh_shape), rows)
                 c_caps = self._multichip_caps_cache.get(caps_key)
@@ -1239,29 +1297,46 @@ class GeometryClassifier:
                 c_caps = self._size_multichip_caps(cloud, lo, hi, rows)
                 if caps_key is not None:
                     self._multichip_caps_cache[caps_key] = c_caps
+            interp_plans = ((None, None),) * len(specs)
             if self.kind == "vector":
                 # per-band packed-interp plans, one segment-wide cap each
                 plans_key = None if caps_key is None \
                     else caps_key + ("interp",)
+                cached = None if plans_key is None \
+                    else self._multichip_caps_cache.get(plans_key)
+                interp_plans = cached or tuple(
+                    multiscale._interp_packed_plan(
+                        cloud, band.vox_spec, lo, hi, (lo, hi), self.tile_m,
+                        segment_wide=True) for band in specs)
                 if plans_key is not None:
-                    interp_plans = self._multichip_caps_cache.get(plans_key)
-                if interp_plans is None:
-                    interp_plans = tuple(
-                        multiscale._interp_packed_plan(
-                            cloud, packing.GridSpec.fit_bounds(lo, hi, edge),
-                            lo, hi, (lo, hi), self.tile_m,
-                            segment_wide=True)
-                        for edge, _ in self.scaleset)
-                    if plans_key is not None:
-                        self._multichip_caps_cache[plans_key] = interp_plans
+                    self._multichip_caps_cache[plans_key] = interp_plans
             if len(self._multichip_caps_cache) > 16:
                 self._multichip_caps_cache.clear()
-        run = pmesh.make_fused_predict_2d(
-            mesh, shards["halo_x"], shards["halo_y"], self.scaleset,
-            self.kind, lo, hi, rows, clf_params, precision=self.precision,
-            backend=self.backend, c_caps=c_caps, n_attr=n_attr,
-            vector_s_cap=self.vector_s_cap, interp_plans=interp_plans)
-        labels, dropped = run(blocks, shards["valid"])
+            specs = tuple(
+                band._replace(interp_spec=ispec, cap=icap, c_cap=int(c_cap))
+                for band, c_cap, (ispec, icap) in zip(specs, c_caps,
+                                                      interp_plans))
+        # a shard's step runs un-chunked, as the reference's mesh program
+        step, extra = self._serving_step(specs, chunk_slots=float("inf"))
+        labels, dropped = [], []
+        with torch.no_grad():
+            blocks = pmesh.shards_on(mesh, blocks, torch.float32)
+            valids = pmesh.shards_on(mesh, shards["valid"], torch.bool)
+            halos = pmesh._halo_bands_2d(blocks, valids, shards["halo_x"],
+                                         shards["halo_y"], mesh)
+            params = {dev: pmesh._params_on(clf_params, dev)
+                      for dev in mesh.distinct}
+            for block, valid, (halo, halo_valid) in zip(blocks, valids,
+                                                        halos):
+                search = torch.cat([block, halo])
+                shard_labels, _, diag = step(
+                    block[:, :3], valid, search[:, :3],
+                    torch.cat([valid, halo_valid]), params[block.device],
+                    specs, self.kind, rows,
+                    attributes=search[:, 3:] if n_attr else None, **extra)
+                labels.append(shard_labels)
+                dropped.append(diag["dropped_candidates"]
+                               + diag["interp_dropped"])
         n_dropped = int(sum(int(d) for d in dropped))
         if n_dropped:
             warnings.warn(

@@ -134,17 +134,17 @@ def roofline_payload(model, staged):
     qt_lanes = 0
     # every band's candidate gather runs over the shared pack plan (the
     # finest band's grid), the basis its capacities were sized on
-    pack = min((s[1] for s in specs), key=lambda d: d.tile_edge)
+    pack = min((s.dev_spec for s in specs), key=lambda d: d.tile_edge)
     chunk = pipeline._serving_entry_chunk(
         pack.e_cap, pack.q_cap, model.serving_chunk_slots)
-    for _, _, _, _, v_cap, c_cap in specs:
+    for band in specs:
         # per-band voxel dedup: key sort + (tile-id, key) compaction sort
         rows["unique_sorts"] += 2 * n_s * 4 + 2 * n_s * (4 + 4)
-        sv = int(v_cap) if v_cap else n_s
+        sv = int(band.cap) if band.cap else n_s
         # span starts/lens scans + counts scatter over the band's search
         rows["span_tables"] += 2 * sv * 4 * 2
-        if c_cap is not None:
-            cand_lanes += _packed_lane_total(c_cap, pack.e_cap, chunk)
+        if band.c_cap is not None:
+            cand_lanes += _packed_lane_total(band.c_cap, pack.e_cap, chunk)
             qt_lanes = max(qt_lanes, pack.e_cap * pack.q_cap)
     # candidate pack gather: 4 B index read + 12 B row read + 12 B write
     rows["candidate_gather"] = cand_lanes * (4 + 12 + 12)

@@ -96,7 +96,8 @@ def test_density_plan_equals_the_reference(regime):
     ref.fit(cloud, labels, sample=_stage.FIT_SAMPLE)
     port = twl.make_bench_model(cloud, backend="packed", device="cpu")
     port.fit(cloud, labels, sample=_stage.FIT_SAMPLE)
-    want = density.cap_buckets(ref.stage(cloud)["specs"])
+    want = density.cap_buckets([pipeline.BandSpec(*band) for band in
+                                ref.stage(cloud)["specs"]])
     got = density.cap_buckets(port.stage(cloud)["specs"])
     print(regime, got)
     assert got == want

@@ -8,7 +8,9 @@ tiled features (``tiled_features(backend="pallas")``, the
 lie within the cross-backend feature tolerance once the columns the
 layout leaves to signs and rounding are reconciled
 (``layouts.reconcile``).  ``sazo`` on both paths and ``vector`` off the
-packed kernel take the reference's XLA bands.
+packed kernel take the reference's XLA bands.  ``multiscale.band_route``
+gives the reference's route table, and ``parallel.mesh`` imports nothing
+of the pipeline.
 """
 
 import numpy as np
@@ -145,3 +147,53 @@ def test_sazo_off_the_packed_path_and_vector_raise():
     with pytest.raises(ValueError, match="unknown feature layout"):
         tpl.GeometryClassifier([(0.5, (1.0,))], kind="spherical",
                                device="cpu")
+
+
+# each (backend, kind)'s (extraction, interp) by attribute width, as the
+# reference's conditions route a band: the packed kernel carries a
+# vector band up to 6 columns, the span kernel no sazo or vector band,
+# and the matmul interp serves past 8 columns
+_PACKED = {n: ("packed", None) for n in (0, 2, 6, 7, 9)}
+_SPANS = {n: ("spans", None) for n in (0, 2, 6, 7, 9)}
+_XLA = {n: ("xla", None) for n in (0, 2, 6, 7, 9)}
+_VECTOR_OFF_PACKED = {0: ("xla", "gather"), 2: ("xla", "gather"),
+                      6: ("xla", "gather"), 7: ("xla", "gather"),
+                      9: ("xla", "matmul")}
+ROUTES = {
+    ("packed", "minimal"): _PACKED,
+    ("packed", "sazo"): _PACKED,
+    ("packed", "vector"): {0: ("packed", "packed"), 2: ("packed", "packed"),
+                           6: ("packed", "packed"), 7: ("xla", "gather"),
+                           9: ("xla", "matmul")},
+    ("pallas", "minimal"): _SPANS,
+    ("pallas", "sazo"): _XLA,
+    ("pallas", "vector"): _VECTOR_OFF_PACKED,
+    ("xla", "minimal"): _XLA,
+    ("xla", "sazo"): _XLA,
+    ("xla", "vector"): _VECTOR_OFF_PACKED,
+}
+
+
+@pytest.mark.parametrize("n_attr", [0, 2, 6, 7, 9])
+@pytest.mark.parametrize("backend,kind", list(ROUTES))
+def test_band_route_table(backend, kind, n_attr):
+    assert tms.band_route(backend, kind, n_attr) \
+        == ROUTES[backend, kind][n_attr]
+
+
+def test_mesh_imports_nothing_of_the_pipeline():
+    import ast
+    import inspect
+
+    from nimrud_tpu_torch.parallel import mesh
+
+    tree = ast.parse(inspect.getsource(mesh))
+    imported = [alias.name for node in ast.walk(tree)
+                if isinstance(node, ast.Import) for alias in node.names]
+    imported += [node.module for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom)]
+    imported += [f"{node.module}.{alias.name}" for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom)
+                 for alias in node.names]
+    assert not [name for name in imported
+                if name.startswith("nimrud_tpu_torch.pipeline")], imported

@@ -1,8 +1,8 @@
 """
-Multi-device serving of the port (``GeometryClassifier.predict_multichip``
-over ``parallel.mesh.make_fused_predict_2d``) against the JAX package, on
-a (2, 2) mesh: the reference on four of the CPU's eight forced host
-devices, the port on four entries of ``torch.device("cpu")``.
+Multi-device serving of the port (``GeometryClassifier.predict_multichip``)
+against the JAX package, on a (2, 2) mesh: the reference on four of the
+CPU's eight forced host devices, the port on four entries of
+``torch.device("cpu")``.
 
 * Packed backend, the reference's fitted linear classifier carried in
   (``SoftmaxClassifier.from_state``): the segment-wide candidate caps
@@ -16,6 +16,9 @@ devices, the port on four entries of ``torch.device("cpu")``.
   segment_wide=True)`` equal the reference's on the bench scene.
 * The refusals: an unfitted model, an edge-0 band, a CPU model without
   a mesh, a mesh of another shape.
+* A model without fixed bounds sizes its shards' capacities on each
+  call, caches nothing, and serves the labels of the reference's
+  ``predict_multichip`` without bounds.
 * The other shard branches against the port's single-device serving:
   the span kernel (``backend="pallas"``), the XLA path and ``vector``
   (the packed interp with segment-wide plans, and the gather interp on
@@ -71,13 +74,13 @@ def scene():
     return cloud, labels, other, other_labels
 
 
-def _models(cloud, labels, classifier, **kw):
+def _models(cloud, labels, classifier, bounds=BOUNDS, **kw):
     """The reference fitted on ``cloud`` and the port with its
-    classifier carried in."""
+    classifier carried in (both on fixed ``bounds``, or without)."""
     kwargs = {"epochs": 25} if classifier == "linear" \
         else {"n_estimators": 4, "seed": 0}
     ref = jpl.GeometryClassifier(SCALESET, classifier=classifier,
-                                 classifier_kwargs=kwargs, bounds=BOUNDS,
+                                 classifier_kwargs=kwargs, bounds=bounds,
                                  backend="packed", **kw)
     ref.fit(cloud, labels)
     clf = ref.classifier
@@ -88,7 +91,7 @@ def _models(cloud, labels, classifier, **kw):
     else:
         carried = RPTEnsemble.from_tables(numpy_tables(clf._tables),
                                           clf.max_depth_, clf.d_func, "cpu")
-    port = tpl.GeometryClassifier(SCALESET, bounds=BOUNDS, backend="packed",
+    port = tpl.GeometryClassifier(SCALESET, bounds=bounds, backend="packed",
                                   device="cpu", **kw)
     port.install_classifier(carried, cloud)
     return ref, port
@@ -156,6 +159,19 @@ def test_multichip_refusals(scene):
         pmesh.make_mesh_2d(MESH, devices=[torch.device("cpu")] * 3)
     with pytest.raises(ValueError, match="mesh of shape"):
         model.predict_multichip(cloud, (4, 1), mesh=mesh)
+
+
+def test_multichip_without_bounds_sizes_each_call(scene):
+    cloud, labels, other, _ = scene
+    ref, port = _models(cloud, labels, "linear", bounds=None)
+    j_labels = np.asarray(ref.predict_multichip(other, mesh_shape=MESH))
+    t_labels = port.predict_multichip(other, MESH, mesh=_cpu_mesh())
+    assert t_labels.dtype == np.int32 and t_labels.shape == (len(other),)
+    differ = np.nonzero(t_labels != j_labels)[0]
+    print(f"{len(differ)} of {len(other)} labels differ: {differ[:20]}")
+    assert len(differ) == 0
+    # without fixed bounds nothing is cached between calls
+    assert port._multichip_caps_cache == {}
 
 
 def _small_scene(seed):
