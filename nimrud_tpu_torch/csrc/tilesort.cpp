@@ -10,12 +10,13 @@
 // a NumPy twin in nimrud_tpu_torch/ops/native.py that it must equal bit
 // for bit.
 //
-// The two parallel loops (fill_table, neighbor_rows) run on threads of
-// their own (parallel_for below), where the reference's run under
-// OpenMP: the port loads this library into a process that holds torch,
-// whose own OpenMP runtime then serves the library's parallel regions
-// too, and a small region there waited tens of milliseconds for torch's
-// pool.  Plain threads share no runtime with torch.
+// The three parallel loops (fill_table, neighbor_rows, quantize_u16) run
+// on threads of their own (parallel_for below), where the reference runs
+// its first two under OpenMP and the third on one thread: the port loads
+// this library into a process that holds torch, whose own OpenMP runtime
+// then serves the library's parallel regions too, and a small region
+// there waited tens of milliseconds for torch's pool.  Plain threads
+// share no runtime with torch.
 //
 // Built by nimrud_tpu_torch/ops/native.py (g++ -O3 -pthread, no
 // -march=native, -ffp-contract=off), loaded via ctypes.
@@ -27,6 +28,7 @@
 #include <vector>
 
 #include <sched.h>
+#include <system_error>
 #include <thread>
 
 namespace {
@@ -41,13 +43,15 @@ int64_t worker_count() {
 
 // body(i) for i in [0, n), in static contiguous chunks over the workers
 // (the caller's thread takes the first); loops of fewer than `grain`
-// iterations a worker stay on the caller's thread.
+// iterations a worker stay on the caller's thread.  Where a thread cannot
+// be started, the caller runs the chunks left.  Returns the workers that
+// ran, the caller's thread included.
 template <class Body>
-void parallel_for(int64_t n, int64_t grain, Body body) {
+int64_t parallel_for(int64_t n, int64_t grain, Body body) {
     int64_t workers = std::min(worker_count(), n / grain);
     if (workers <= 1) {
         for (int64_t i = 0; i < n; ++i) body(i);
-        return;
+        return 1;
     }
     int64_t chunk = (n + workers - 1) / workers;
     auto run = [&body, n, chunk](int64_t w) {
@@ -55,10 +59,40 @@ void parallel_for(int64_t n, int64_t grain, Body body) {
         for (int64_t i = w * chunk; i < end; ++i) body(i);
     };
     std::vector<std::thread> pool;
-    for (int64_t w = 1; w < workers; ++w) pool.emplace_back(run, w);
+    try {
+        for (int64_t w = 1; w < workers; ++w) pool.emplace_back(run, w);
+    } catch (const std::system_error&) {
+        // no thread to be had: an exception must not cross the C entry
+    }
+    int64_t started = static_cast<int64_t>(pool.size()) + 1;
     run(0);
+    for (int64_t w = started; w < workers; ++w) run(w);
     for (auto& t : pool) t.join();
+    return started;
 }
+
+// One row of uint16 grid steps: round((p - lo) / step), ties up, clipped
+// to [0, 65535].  The division matches the NumPy twin bit for bit; do
+// not pass a reciprocal.
+inline void quantize_row(const float* p, const double* lo, double step,
+                         uint16_t* out) {
+    for (int axis = 0; axis < 3; ++axis) {
+        double g = (static_cast<double>(p[axis]) - lo[axis]) / step;
+        int64_t q = static_cast<int64_t>(g + 0.5);
+        if (q < 0) q = 0;
+        if (q > 65535) q = 65535;
+        out[axis] = static_cast<uint16_t>(q);
+    }
+}
+
+// Rows a block of quantize_u16, and the fewest blocks a worker takes
+// (1M rows).  On an H100 machine's host (8 CPUs), threads started for a
+// pass inside the serving loop began their rows 6-9 ms after the call,
+// longer than one thread's whole pass over a 1M-row bucket (~7.3 ms),
+// while a 16M-row bucket's pass fell from ~133 to ~28 ms on 8 workers.
+// So every bucket up to 1M rows stays on the caller's thread.
+constexpr int64_t kQuantizeBlock = 16384;
+constexpr int64_t kQuantizeGrain = 64;
 
 }  // namespace
 
@@ -237,21 +271,26 @@ int64_t voxel_unique(const float* pts, int64_t n,
     return unique;
 }
 
-// Quantize float32 coordinates to uint16 grid steps: out = round((p -
-// lo) / step), clipped to [0, 65535].  One pass; used to halve
-// host->device transfer volume.
-void quantize_u16(const float* pts, int64_t count, const double* lo,
-                  double step, uint16_t* out) {
-    for (int64_t i = 0; i < count; ++i) {
-        const float* p = pts + 3 * i;
-        for (int axis = 0; axis < 3; ++axis) {
-            double g = (static_cast<double>(p[axis]) - lo[axis]) / step;
-            int64_t q = static_cast<int64_t>(g + 0.5);
-            if (q < 0) q = 0;
-            if (q > 65535) q = 65535;
-            out[3 * i + axis] = static_cast<uint16_t>(q);
-        }
-    }
+// Quantize float32 coordinates to uint16 grid steps (quantize_row) into
+// `rows` >= count rows of out: rows [count, rows) repeat row count - 1,
+// the device grid's padding (zeros where count is 0).  One pass, used to
+// halve host->device transfer volume; the rows are independent, so
+// blocks of them run over parallel_for's workers with the same bits.
+// Returns the workers used.
+int64_t quantize_u16(const float* pts, int64_t count, int64_t rows,
+                     const double* lo, double step, uint16_t* out) {
+    uint16_t pad[3] = {0, 0, 0};
+    if (count > 0) quantize_row(pts + 3 * (count - 1), lo, step, pad);
+    int64_t blocks = (rows + kQuantizeBlock - 1) / kQuantizeBlock;
+    return parallel_for(blocks, kQuantizeGrain, [=](int64_t b) {
+        int64_t start = b * kQuantizeBlock;
+        int64_t end = std::min(rows, start + kQuantizeBlock);
+        int64_t split = std::max(start, std::min(end, count));
+        for (int64_t i = start; i < split; ++i)
+            quantize_row(pts + 3 * i, lo, step, out + 3 * i);
+        for (int64_t i = split; i < end; ++i)
+            std::memcpy(out + 3 * i, pad, sizeof(pad));
+    });
 }
 
 // Per-axis min/max of an (n, 3) float32 cloud in one pass.  The hot

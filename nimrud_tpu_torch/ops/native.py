@@ -5,17 +5,18 @@ point clouds on the host, in ``csrc/tilesort.cpp``.
 
 :func:`library` builds the source with ``g++ -O3 -pthread -shared
 -fPIC`` at first use into ``_build/tilesort-<key>.so`` and loads it
-through ctypes.  Its two parallel loops run on threads of their own
-(one per CPU of the process's affinity mask), not under OpenMP as the
-reference's do: in a process that holds torch, torch's OpenMP runtime
-would serve them, and small parallel regions waited for its pool.  The key covers the source, the flags, the compiler's
-version and the machine (``platform.machine()``): there is no
-``-march=native``, so a library built on one x86-64 host runs on
-another, and a build for another compiler or architecture is never
-loaded.  ``-ffp-contract=off`` keeps ``a * b + c`` out of fused
-multiply-adds, which would round otherwise than the NumPy twins.  A
-failed build raises with the compiler's stderr: there is no silent
-fallback.
+through ctypes.  Its three parallel loops (the tables' two and the
+quantization) run on threads of their own (one per CPU of the process's
+affinity mask), not under OpenMP as the reference's tables do: in a
+process that holds torch, torch's OpenMP runtime would serve them, and
+small parallel regions waited for its pool.  The key covers the source,
+the flags, the compiler's version and the machine
+(``platform.machine()``): there is no ``-march=native``, so a library
+built on one x86-64 host runs on another, and a build for another
+compiler or architecture is never loaded.  ``-ffp-contract=off`` keeps
+``a * b + c`` out of fused multiply-adds, which would round otherwise
+than the NumPy twins.  A failed build raises with the compiler's stderr:
+there is no silent fallback.
 
 Every function takes ``impl``: ``"native"`` (the library; what the port
 runs) or ``"numpy"``, its NumPy twin, which gives the same result bit for
@@ -33,6 +34,7 @@ import threading
 import numpy as np
 
 from nimrud_tpu_torch.ops.kernels import cuda_build
+from nimrud_tpu_torch.utils import profiling
 
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-pthread", "-ffp-contract=off",
@@ -68,9 +70,9 @@ def _bind(library):
     library.voxel_unique.restype = _I64
     library.voxel_unique.argtypes = [
         _PF32, _I64, _PF64, ctypes.c_double, _PI64, _PF32]
-    library.quantize_u16.restype = None
+    library.quantize_u16.restype = _I64
     library.quantize_u16.argtypes = [
-        _PF32, _I64, _PF64, ctypes.c_double, _PU16]
+        _PF32, _I64, _I64, _PF64, ctypes.c_double, _PU16]
     library.minmax3.restype = None
     library.minmax3.argtypes = [_PF32, _I64, _PF32, _PF32]
     library.parse_ascii.restype = _I64
@@ -278,7 +280,11 @@ def voxel_unique(points, lo, edge, dims, impl="native"):
 def quantize_u16(points, lo, step, pad_to=None, impl="native"):
     """(n, 3) float32 points as uint16 grid steps: ``floor((p - lo) /
     step + 0.5)`` in float64 (ties round up), clipped to [0, 65535].
-    ``pad_to`` pads the rows to that count by repeating the last one."""
+    ``pad_to`` pads the rows to that count by repeating the last one
+    (zeros where there are no points).  The library writes the rows and
+    the pad in one pass over the workers of its parallel loops, and
+    counts them as ``quantize_workers`` (:func:`profiling.count`: only
+    under a profiler session, inside a span)."""
     points = _points(points)
     lo = np.ascontiguousarray(lo, dtype=np.float64)
     n = points.shape[0]
@@ -289,10 +295,10 @@ def quantize_u16(points, lo, step, pad_to=None, impl="native"):
     if not _native(impl):
         grid = (points.astype(np.float64) - lo) / float(step)
         out[:n] = np.clip(np.floor(grid + 0.5), 0, 65535)
-    else:
-        library().quantize_u16(points, n, lo, float(step), out)
-    if rows > n and n:
-        out[n:] = out[n - 1]
+        out[n:] = out[n - 1] if n else 0
+        return out
+    workers = library().quantize_u16(points, n, rows, lo, float(step), out)
+    profiling.count("quantize_workers", workers)
     return out
 
 

@@ -2,10 +2,13 @@
 The port's C++ host runtime (``nimrud_tpu_torch.ops.native``) against
 its NumPy twins and the reference's ``nimrud_tpu.native``: every one of
 the eight functions bit for bit on the same inputs, the tiled plan built
-on each, the quantization contract on a cloud of exact ties, the
-library's parallel loops called from several threads of a process that
-holds torch (and its OpenMP runtime), and a failed build that raises.  The reference comparisons skip where the reference's
-library does not load (it builds with ``-march=native`` in place).
+on each, the quantization contract on clouds of exact ties and on a
+clustered cloud, at sizes whose pass splits over several workers, with
+its pad rows (zeros without points), the library's parallel loops
+called from several threads of a process that holds torch (and its
+OpenMP runtime), and a failed build that raises.  The reference
+comparisons skip where the reference's library does not load (it builds
+with ``-march=native`` in place).
 """
 
 import os
@@ -152,27 +155,66 @@ def _tie_cloud(n=2048):
     return cloud, np.zeros(3, np.float32), np.full(3, 65000 / 64, np.float32)
 
 
-@pytest.mark.parametrize("n,pad_to", [(2048, 2048), (2000, 2048)])
-def test_quantize_ties_round_up_as_the_reference(n, pad_to):
-    cloud, lo, hi = _tie_cloud(n)
-    step = 1 / 64
+def _hold_quantize(cloud, lo, hi, step, pad_to):
+    """The library's quantization of ``cloud`` padded to ``pad_to`` rows,
+    held bit for bit to its twin and to the reference, its pad rows to
+    the last point's, and the staging contract: the port's upload is the
+    reference's, row for row (int16 bits of the uint16 steps,
+    dequantization scalars)."""
+    n = len(cloud)
     got = native.quantize_u16(cloud, lo, step, pad_to=pad_to)
     assert got.shape == (pad_to, 3) and (got[n:] == got[n - 1]).all()
     assert _equal(got, native.quantize_u16(cloud, lo, step, pad_to=pad_to,
                                            impl="numpy"))
-    # half to even would move every tie of an even step
-    even = np.clip(np.round(cloud.astype(np.float64) * 64), 0, 65535)
-    assert (np.any(even != got[:n], axis=1)).sum() > n // 3
     assert _equal(got, _reference().quantize_u16(cloud, lo, step,
                                                  pad_to=pad_to))
-    # the staging contract: the port's upload is the reference's, row
-    # for row (int16 bits of the uint16 steps, dequantization scalars)
     for impl in native.IMPLS:
         quant, dequant = tpl._quantize_upload(cloud, lo, hi, pad_to, "cpu",
                                               impl=impl)
         ref_quant, ref_dequant = jpl._quantize_upload(cloud, lo, hi, pad_to)
         assert _equal(quant.numpy().view(np.uint16), np.asarray(ref_quant))
         assert _equal(dequant.numpy(), np.asarray(ref_dequant))
+    return got
+
+
+# blocks of 16384 rows on the caller's thread (a ragged block before the
+# pad, no pad, a ragged last block), and a bucket of 2M rows, which the
+# library splits over two workers where the machine has the CPUs (64
+# blocks, 1M rows, a worker at the least)
+@pytest.mark.parametrize("n,pad_to", [(2048, 2048), (2000, 2048),
+                                      (200_001, 262_144),
+                                      (262_144, 262_144),
+                                      (300_000, 300_000),
+                                      (2_000_001, 2_097_152)])
+def test_quantize_ties_round_up_as_the_reference(n, pad_to):
+    cloud, lo, hi = _tie_cloud(n)
+    got = _hold_quantize(cloud, lo, hi, 1 / 64, pad_to)
+    # half to even would move every tie of an even step
+    even = np.clip(np.round(cloud.astype(np.float64) * 64), 0, 65535)
+    assert (np.any(even != got[:n], axis=1)).sum() > n // 3
+
+
+@pytest.mark.parametrize("n,pad_to", [(163_845, 262_144),
+                                      (5 * 16_384, 131_072),
+                                      (3 * 2**20 + 16_389, 2**22)])
+def test_quantize_pass_across_blocks(n, pad_to):
+    """A clustered cloud on its own bounds, as ``_quantize`` steps it,
+    whose last point ends inside a block or on a block's end, the pad
+    filling the rest of the blocks; the last case's 4M-row bucket runs
+    over up to four workers, the fourth writing points and pad."""
+    cloud = _clustered_cloud(n)
+    lo, hi = cloud.min(0), cloud.max(0)
+    step = float((hi.astype(np.float64) - lo).max()) / 65000.0
+    got = _hold_quantize(cloud, lo, hi, step, pad_to)
+    assert got[:n].max() == 65000 and got[:n].min() == 0
+
+
+def test_quantize_no_points_pads_zeros():
+    empty = np.zeros((0, 3), np.float32)
+    for impl in native.IMPLS:
+        got = native.quantize_u16(empty, np.zeros(3), 0.01, pad_to=128,
+                                  impl=impl)
+        assert _equal(got, np.zeros((128, 3), np.uint16))
 
 
 def test_minmax3_and_empty_input():
@@ -242,9 +284,13 @@ def test_parallel_loops_from_threads_beside_torch():
     qdims = -(-dims // 3)
     tiles = np.arange(int(qdims.prod()), dtype=np.int64)
     grid_row = rng.integers(0, 1000, int(dims.prod())).astype(np.int32)
+    cloud = _clustered_cloud(400_000)
+    lo = cloud.min(0).astype(np.float64)
     table = native.fill_table(order, starts, counts, wanted, 32,
                               impl="numpy")
     rows = native.neighbor_rows(tiles, dims, qdims, 3, grid_row, -7,
+                                impl="numpy")
+    quant = native.quantize_u16(cloud, lo, 0.001, pad_to=1 << 21,
                                 impl="numpy")
     results, errors = [], []
 
@@ -255,7 +301,9 @@ def test_parallel_loops_from_threads_beside_torch():
                     _equal(native.fill_table(order, starts, counts, wanted,
                                              32), table)
                     and _equal(native.neighbor_rows(tiles, dims, qdims, 3,
-                                                    grid_row, -7), rows))
+                                                    grid_row, -7), rows)
+                    and _equal(native.quantize_u16(cloud, lo, 0.001,
+                                                   pad_to=1 << 21), quant))
         except Exception as err:               # reported below
             errors.append(err)
 

@@ -22,10 +22,13 @@ two entry chunks:
 * past the buffer's bound a span still opens its range, and its record
   is counted as dropped; a child span's ``.name`` is named under its
   parent, and counters are kept a scan;
-* a torch without the profiler's flag turns the spans off.
+* a torch without the profiler's flag turns the spans off;
+* ``stage`` counts the host runtime's quantization workers
+  (``quantize_workers``) under the profiler, and nothing without it.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -33,6 +36,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from nimrud_tpu_torch import pipeline
+from nimrud_tpu_torch.features import multiscale
 from nimrud_tpu_torch.learning.linear import SoftmaxClassifier
 from nimrud_tpu_torch.ops.kernels import packed_moments as pm
 from nimrud_tpu_torch.utils import profiling, workload
@@ -269,6 +273,28 @@ def test_interp_span_and_counters(kind):
     assert counters["interp_lanes"] == widths["chebyshev"] > 0
     assert 0 < counters["interp_lanes_live"] <= counters["interp_lanes"]
     assert 0 < counters["interp_slots_live"] <= counters["interp_slots"]
-    assert set(counters) == {
+    assert set(counters) == {"quantize_workers"} | {
         f"{prefix}{name}" for prefix in ("", "interp_")
         for name in ("lanes", "lanes_live", "slots", "slots_live")}
+
+
+@pytest.mark.parametrize("n", [150_000, 1_100_000])
+def test_quantize_workers_counter(n):
+    """``stage`` counts the host runtime's quantization workers under the
+    profiler: one for each 1M rows of the bucket up to the process's
+    CPUs, one where the bucket stays on the caller's thread (150,000
+    points in 256K rows) and up to two past it (1.1M points in 2M rows);
+    with no session it counts nothing."""
+    cloud = workload.make_bench_cloud(n, seed=2)[0] * np.float32(0.5)
+    model, _ = _model(cloud)
+    q_bucket = multiscale._pow2_bucket(n)
+    assert q_bucket == (1 << 18 if n < 2**20 else 1 << 21)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        model.stage(cloud)
+    counters = profiling.collected()["counters"]
+    assert counters["quantize_workers"] == max(1, min(
+        len(os.sched_getaffinity(0)), q_bucket >> 20))
+    before = profiling.collected()
+    model.stage(cloud)
+    assert profiling.collected() == before
